@@ -1,0 +1,46 @@
+"""gausplat_tpu_torch: the forward render of gausplat_tpu in PyTorch, with
+its TPU kernels rewritten by hand in CUDA C++ for the NVIDIA H100.
+
+The JAX package ``gausplat_tpu`` beside it is the reference this port is
+held against; this package imports ``torch`` and numpy, and never JAX.
+The module layout mirrors the JAX package's, so each module's counterpart
+is found under the same name. This slice covers projection, binning and
+the forward rasterizer; the render is forward-only.
+"""
+
+from . import constants, errors, ops, scene, utils
+from .constants import SH_COUNT_MAX, SH_DEGREE_MAX
+from .render.pipeline import (
+    calibrate_options,
+    count_tile_entries,
+    render,
+    render_views,
+    RenderOptions,
+    RenderOutput,
+)
+from .render.view import View, Views
+from .scene.gaussian_3d import GaussianScene
+from .scene.ply import decode_polygon, encode_polygon
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "GaussianScene",
+    "RenderOptions",
+    "RenderOutput",
+    "SH_COUNT_MAX",
+    "SH_DEGREE_MAX",
+    "View",
+    "Views",
+    "calibrate_options",
+    "constants",
+    "count_tile_entries",
+    "decode_polygon",
+    "encode_polygon",
+    "errors",
+    "ops",
+    "render",
+    "render_views",
+    "scene",
+    "utils",
+]

@@ -1,0 +1,139 @@
+// Tile rasterization, forward: front-to-back alpha compositing, hand-written
+// for Hopper (sm_90a).
+//
+// Replaces: gausplat_tpu/ops/rasterize.py::rasterize_forward_pallas (its
+// Pallas body _forward_kernel; the blend math is
+// gausplat_tpu/ops/blend.py::density_terms and forward_batch). It also
+// absorbs the per-entry gather of build_entry_stream: each entry's nine
+// floats are read through its sorted point id from the per-point rows.
+//
+// What it computes, per 16x16 tile over the tile's [r0, r1) range of the
+// (tile, depth16)-sorted entries, per pixel:
+//   density = exp(-0.5 * (cxx dx^2 + 2 cxy dx dy + cyy dy^2)), skipped
+//             unless density <= 1;
+//   alpha   = min(opacity * density, 252/255), skipped if alpha < 1/255;
+//   the pixel stops *before* a blend that would take its transmittance
+//   below (1 - 252/255)^2; the rendered count is 1 + the segment position
+//   of the last blended entry. Empty tiles get (0, 1, 0).
+//
+// What bounds it on this card: the per-(entry, pixel) exp and the dozen
+// flops around it, not bytes. At the 1080p / 1M-point shape there are
+// about 1.76M entries x 256 pixels = 450M pairs; the entry data is 9 floats
+// per entry (63 MB with the ids), read once per tile.
+//
+// Design: one 256-thread CTA per tile, thread = ly * 16 + lx (the lane
+// order of rasterize.py::_pixel_coords). The CTA walks its range in batches
+// of 256: each thread stages one entry's nine floats into shared memory,
+// then every pixel walks the batch in order, as the reference's per-pixel
+// loop does (tests/oracle.py). All threads read the same shared word at
+// once, which is a broadcast. The whole tile leaves early once every pixel
+// is done (__syncthreads_count). The TPU kernel's window/step machinery is
+// gone: a CTA loops over its own range instead of the grid stepping
+// through (tile, window) pairs.
+//
+// Rounding: built without fast math (expf, not __expf) and with
+// -fmad=false, and the quadratic form keeps the JAX evaluation order
+// cxx*dx*dx + 2*cxy*dx*dy + cyy*dy*dy; comparisons are written so a NaN
+// takes the same branch as the JAX version (jnp.minimum propagates NaN).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 16;
+constexpr int kPixels = kTile * kTile;
+constexpr int kRows = 9;  // r, g, b, cxx, cxy, cyy, opacity, px, py
+
+__global__ void __launch_bounds__(kPixels) rasterize_forward_kernel(
+    const float* __restrict__ point_rows,  // [9, row_stride]
+    int64_t row_stride,
+    const int32_t* __restrict__ sorted_ids,  // [capacity]
+    const int32_t* __restrict__ tile_ranges,  // [num_tiles, 2]
+    int32_t tile_count_x,
+    float opacity_max,
+    float opacity_min,
+    float transmittance_min,
+    float* __restrict__ image,  // [num_tiles, 3, 256]
+    float* __restrict__ transmittance,  // [num_tiles, 256]
+    int32_t* __restrict__ counts) {  // [num_tiles, 256]
+  __shared__ float staged[kRows][kPixels];
+
+  const int32_t tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float pix_x = (float)((tile % tile_count_x) * kTile + tid % kTile);
+  const float pix_y = (float)((tile / tile_count_x) * kTile + tid / kTile);
+  const int32_t r0 = tile_ranges[2 * tile];
+  const int32_t r1 = tile_ranges[2 * tile + 1];
+
+  float cr = 0.0f, cg = 0.0f, cb = 0.0f;
+  float t = 1.0f;
+  int32_t rendered = 0;
+  int done = 0;
+
+  for (int32_t base = r0; base < r1; base += kPixels) {
+    if (__syncthreads_count(done) == kPixels) break;
+    const int32_t e = base + tid;
+    if (e < r1) {
+      const int64_t pid = sorted_ids[e];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        staged[k][tid] = point_rows[k * row_stride + pid];
+      }
+    }
+    __syncthreads();
+
+    const int n = min(kPixels, r1 - base);
+    for (int j = 0; j < n && !done; ++j) {
+      const float dx = staged[7][j] - pix_x;
+      const float dy = staged[8][j] - pix_y;
+      const float quad = staged[3][j] * dx * dx
+                       + 2.0f * staged[4][j] * dx * dy
+                       + staged[5][j] * dy * dy;
+      const float density = expf(-0.5f * quad);
+      if (!(density <= 1.0f)) continue;
+      const float a = staged[6][j] * density;
+      const float alpha = a > opacity_max ? opacity_max : a;
+      if (!(alpha >= opacity_min)) continue;
+      const float t_next = t * (1.0f - alpha);
+      if (!(t_next >= transmittance_min)) {
+        done = 1;
+        break;
+      }
+      const float w = alpha * t;
+      cr += staged[0][j] * w;
+      cg += staged[1][j] * w;
+      cb += staged[2][j] * w;
+      rendered = base - r0 + j + 1;
+      t = t_next;
+    }
+    __syncthreads();  // the next batch overwrites `staged`
+  }
+
+  image[((int64_t)tile * 3 + 0) * kPixels + tid] = cr;
+  image[((int64_t)tile * 3 + 1) * kPixels + tid] = cg;
+  image[((int64_t)tile * 3 + 2) * kPixels + tid] = cb;
+  transmittance[(int64_t)tile * kPixels + tid] = t;
+  counts[(int64_t)tile * kPixels + tid] = rendered;
+}
+
+}  // namespace
+
+extern "C" int gs_rasterize_forward(
+    const void* point_rows, int64_t row_stride, const void* sorted_ids,
+    const void* tile_ranges, int32_t num_tiles, int32_t tile_count_x,
+    float opacity_max, float opacity_min, float transmittance_min,
+    void* image, void* transmittance, void* counts, void* stream) {
+  if (num_tiles > 0) {
+    rasterize_forward_kernel<<<num_tiles, kPixels, 0, (cudaStream_t)stream>>>(
+        (const float*)point_rows, row_stride, (const int32_t*)sorted_ids,
+        (const int32_t*)tile_ranges, tile_count_x, opacity_max, opacity_min,
+        transmittance_min, (float*)image, (float*)transmittance,
+        (int32_t*)counts);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* gs_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

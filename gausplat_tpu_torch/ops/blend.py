@@ -1,0 +1,175 @@
+"""Batched alpha-blend math: the plain version of the forward rasterizer.
+
+Counterpart of the forward half of ``gausplat_tpu/ops/blend.py``
+(``density_terms`` on its default path, ``ForwardState``,
+``forward_batch``). Reference loop: .../jit/kernel/rasterize/kernel.wgsl:107-200.
+
+A batch of ``B`` entries is blended at once against a tile's ``N`` = 256
+pixels, for ``n`` tiles side by side:
+
+- transmittance is an exclusive masked cumulative product of ``1 - alpha``
+  along the entry axis, taken in log steps exactly as the JAX package
+  does, so the two round alike;
+- "stop before the transmittance drops below the floor" is the first
+  crossing of the candidate transmittance below ``TRANSMITTANCE_MIN``,
+  sticky across batches through ``done``.
+
+Layout: entry data ``[n, B, 1]`` columns, pixel data ``[n, 1, N]`` rows,
+blend terms ``[n, B, N]``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..constants import OPACITY_2D_MAX, OPACITY_2D_MIN, TRANSMITTANCE_MIN
+
+# The thresholds as the float32 values the JAX package compares against.
+_OPACITY_MAX = float(np.float32(OPACITY_2D_MAX))
+_OPACITY_MIN = float(np.float32(OPACITY_2D_MIN))
+_TRANSMITTANCE_MIN = float(np.float32(TRANSMITTANCE_MIN))
+
+
+class EntryBlock(NamedTuple):
+    """A batch of B entries for each of n tiles ([n, B, 1] columns)."""
+
+    color: torch.Tensor  # [n, B, 3]
+    conic_xx: torch.Tensor  # [n, B, 1]
+    conic_xy: torch.Tensor
+    conic_yy: torch.Tensor
+    opacity: torch.Tensor  # outer (post-sigmoid) opacity
+    pos_x: torch.Tensor
+    pos_y: torch.Tensor
+
+    @classmethod
+    def from_rows(cls, rows: torch.Tensor) -> "EntryBlock":
+        """From ``[9, n, B]`` rows in the canonical order
+        (r, g, b, cxx, cxy, cyy, opacity, px, py)."""
+        col = rows.unsqueeze(-1)
+        return cls(
+            color=rows[0:3].permute(1, 2, 0),
+            conic_xx=col[3],
+            conic_xy=col[4],
+            conic_yy=col[5],
+            opacity=col[6],
+            pos_x=col[7],
+            pos_y=col[8],
+        )
+
+
+def _shift_down(x: torch.Tensor, s: int, fill: float) -> torch.Tensor:
+    """Shift along the entry axis (-2) by ``s``, filling with ``fill``."""
+    filler = torch.full(
+        x.shape[:-2] + (s, x.shape[-1]), fill, dtype=x.dtype, device=x.device
+    )
+    return torch.cat([filler, x[..., :-s, :]], dim=-2)
+
+
+def cumprod_points(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative product along the entry axis, in log steps
+    (the JAX package's association order)."""
+    n = x.shape[-2]
+    s = 1
+    while s < n:
+        x = x * _shift_down(x, s, 1.0)
+        s *= 2
+    return x
+
+
+def density_terms(entries: EntryBlock, pix_x: torch.Tensor, pix_y: torch.Tensor):
+    """Per-(entry, pixel) terms. ``pix_*``: [n, 1, N]. Returns [n, B, N]
+    (dx, dy, density, alpha, blendable)."""
+    dx = entries.pos_x - pix_x
+    dy = entries.pos_y - pix_y
+    quad = (
+        entries.conic_xx * dx * dx
+        + 2.0 * entries.conic_xy * dx * dy
+        + entries.conic_yy * dy * dy
+    )
+    density = torch.exp(-0.5 * quad)
+    in_range = density <= 1.0
+    # torch.minimum propagates NaN, as jnp.minimum does.
+    alpha = torch.minimum(entries.opacity * density, density.new_tensor(_OPACITY_MAX))
+    blendable = in_range & (alpha >= _OPACITY_MIN)
+    return dx, dy, density, alpha, blendable
+
+
+class ForwardState(NamedTuple):
+    """Per-pixel carry across batches ([n, ., N])."""
+
+    color: torch.Tensor  # [n, 3, N] accumulated RGB
+    transmittance: torch.Tensor  # [n, 1, N]
+    done: torch.Tensor  # [n, 1, N] bool
+    rendered_count: torch.Tensor  # [n, 1, N] int32
+
+    @classmethod
+    def initial(cls, n: int, pixels: int, device) -> "ForwardState":
+        return cls(
+            color=torch.zeros((n, 3, pixels), dtype=torch.float32, device=device),
+            transmittance=torch.ones((n, 1, pixels), dtype=torch.float32, device=device),
+            done=torch.zeros((n, 1, pixels), dtype=torch.bool, device=device),
+            rendered_count=torch.zeros((n, 1, pixels), dtype=torch.int32, device=device),
+        )
+
+
+def forward_batch(
+    state: ForwardState,
+    entries: EntryBlock,
+    pix_x: torch.Tensor,
+    pix_y: torch.Tensor,
+    base_position: torch.Tensor,
+    entry_mask: torch.Tensor,
+) -> ForwardState:
+    """Blend one batch of B entries into N pixels (front to back).
+
+    ``base_position``: [n, 1, 1] int, the segment position of the batch's
+    lane 0 (negative when the segment starts mid-batch; such lanes are
+    masked off by ``entry_mask`` [n, B, 1]).
+    """
+    b_pts = entries.opacity.shape[-2]
+
+    _, _, _, alpha, blendable = density_terms(entries, pix_x, pix_y)
+    blendable = blendable & entry_mask & ~state.done
+
+    one_minus = torch.where(blendable, 1.0 - alpha, torch.ones_like(alpha))
+    prod_incl = cumprod_points(one_minus)
+    candidate_t = state.transmittance * prod_incl
+
+    # The first crossing below the floor stops the pixel *before* blending
+    # the crossing entry (rasterize/kernel.wgsl:178-185). candidate_t is
+    # non-increasing along the entries, so "no crossing at or before n" is
+    # one comparison.
+    kept = candidate_t >= _TRANSMITTANCE_MIN
+    blended = blendable & kept
+    crossed = blendable & ~kept
+
+    prod_excl = _shift_down(prod_incl, 1, 1.0) if b_pts > 1 else torch.ones_like(prod_incl)
+    weight = torch.where(
+        blended, alpha * state.transmittance * prod_excl, torch.zeros_like(alpha)
+    )
+    color = state.color + torch.matmul(entries.color.transpose(-1, -2), weight)
+    # New transmittance: the candidate at the last kept entry (the minimum
+    # over kept entries, by monotonicity), or unchanged.
+    transmittance = torch.amin(
+        torch.where(kept, candidate_t, state.transmittance), dim=-2, keepdim=True
+    )
+    done = state.done | torch.any(crossed, dim=-2, keepdim=True)
+
+    positions = base_position + torch.arange(
+        b_pts, dtype=base_position.dtype, device=base_position.device
+    )[:, None]
+    rendered = torch.amax(
+        torch.where(blended, positions + 1, torch.zeros_like(positions)),
+        dim=-2,
+        keepdim=True,
+    )
+    rendered_count = torch.maximum(state.rendered_count, rendered.to(torch.int32))
+    return ForwardState(
+        color=color,
+        transmittance=transmittance,
+        done=done,
+        rendered_count=rendered_count,
+    )

@@ -1,0 +1,223 @@
+"""Tile rasterization, forward: the hand-written CUDA kernel, its plain
+version, and the tiled <-> image layout helpers.
+
+Counterpart of the forward half of ``gausplat_tpu/ops/rasterize.py``.
+Reference: .../jit/kernel/rasterize/kernel.wgsl:60-221 (one workgroup per
+16x16 tile, shared-memory entry batches, per-pixel front-to-back blend,
+whole-tile early exit).
+
+- :func:`rasterize_forward` is the kernel's wrapper
+  (``csrc/rasterize_forward.cu``, one 256-thread CTA per tile). It takes
+  the per-point rows and the sorted point ids and gathers each entry's
+  data itself.
+- :func:`rasterize_forward_torch` is its plain version: the JAX package's
+  batched form, with each tile's range cut into windows aligned to
+  ``block_size`` blocks of the sorted entries (the windows of the JAX
+  step list), blended through :mod:`gausplat_tpu_torch.ops.blend`
+  vectorized over tiles.
+
+Outputs keep the JAX tiled layout: image ``[T, 3, 256]``, transmittance
+``[T, 256]``, rendered count ``[T, 256]``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..constants import (
+    OPACITY_2D_MAX,
+    OPACITY_2D_MIN,
+    TILE_SIZE_X,
+    TILE_SIZE_Y,
+    TRANSMITTANCE_MIN,
+)
+from ..utils.kernels import F32, I32, I64, PTR, CudaKernel, require_cuda, stream_of
+from .blend import EntryBlock, ForwardState, forward_batch
+
+PIXELS_PER_TILE = TILE_SIZE_X * TILE_SIZE_Y  # 256
+
+#: Default entries per window of the plain version (the kernel always
+#: stages 256, one per thread).
+DEFAULT_BLOCK_SIZE = 256
+
+#: Rows of the per-point data: r, g, b, cxx, cxy, cyy, opacity, px, py.
+ENTRY_ROWS = 9
+
+#: The kernel library and its launch count.
+RASTERIZE_FORWARD = CudaKernel(
+    "rasterize_forward.cu",
+    "gs_rasterize_forward",
+    [PTR, I64, PTR, PTR, I32, I32, F32, F32, F32, PTR, PTR, PTR, PTR],
+)
+
+
+def pack_point_data(proj, opacities_outer: torch.Tensor) -> torch.Tensor:
+    """Per-point rasterization inputs as f32 rows ``[9, P + 1]``; the last
+    column is the zero padding point (id P)."""
+    rows = torch.stack(
+        [
+            proj.color_r, proj.color_g, proj.color_b,
+            proj.conic_xx, proj.conic_xy, proj.conic_yy,
+            opacities_outer,
+            proj.pos2d_x, proj.pos2d_y,
+        ]
+    ).to(torch.float32)
+    return torch.nn.functional.pad(rows, (0, 1))
+
+
+def pixel_coords(tiles: torch.Tensor, tile_count_x: int):
+    """Pixel coordinates ``[n, 1, 256]`` (float32) of tiles ``[n]``, lane
+    order ``ly * 16 + lx``."""
+    lane = torch.arange(PIXELS_PER_TILE, device=tiles.device)
+    tx = (tiles % tile_count_x)[:, None]
+    ty = (tiles // tile_count_x)[:, None]
+    pix_x = (tx * TILE_SIZE_X + lane % TILE_SIZE_X).to(torch.float32)
+    pix_y = (ty * TILE_SIZE_Y + lane // TILE_SIZE_X).to(torch.float32)
+    return pix_x[:, None, :], pix_y[:, None, :]
+
+
+def rasterize_forward_torch(
+    point_rows: torch.Tensor,
+    sorted_ids: torch.Tensor,
+    tile_ranges: torch.Tensor,
+    *,
+    tile_count_x: int,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    tile_chunk: int = 1024,
+):
+    """Plain version of the forward kernel.
+
+    Window ``k`` of a tile is block ``r0 // block_size + k`` of the sorted
+    entries, masked to ``[r0, r1)``; all tiles that have a window ``k``
+    are blended together, ``tile_chunk`` tiles at a time to bound memory.
+    Returns ``(image [T, 3, 256], transmittance [T, 256], counts [T, 256])``.
+    """
+    b = block_size
+    capacity = sorted_ids.shape[0]
+    if capacity % b:
+        raise ValueError(f"capacity {capacity} is not a multiple of block_size {b}")
+    device = point_rows.device
+    num_tiles = tile_ranges.shape[0]
+    r0 = tile_ranges[:, 0].to(torch.int64)
+    r1 = tile_ranges[:, 1].to(torch.int64)
+    nonempty = r1 > r0
+    first_blk = torch.div(r0, b, rounding_mode="floor")
+    last_blk = torch.where(
+        nonempty, torch.div(r1 - 1, b, rounding_mode="floor"), first_blk
+    )
+    steps = torch.where(nonempty, last_blk - first_blk + 1, torch.zeros_like(r0))
+
+    state = ForwardState.initial(num_tiles, PIXELS_PER_TILE, device)
+    lane = torch.arange(b, device=device)
+    n_steps = int(steps.max()) if num_tiles else 0
+    for k in range(n_steps):
+        active = torch.nonzero(steps > k).flatten()
+        for tiles in torch.split(active, tile_chunk):
+            blk = first_blk[tiles] + k
+            slots = blk[:, None] * b + lane  # [n, B]
+            mask = (slots >= r0[tiles, None]) & (slots < r1[tiles, None])
+            entries = EntryBlock.from_rows(point_rows[:, sorted_ids[slots].long()])
+            pix_x, pix_y = pixel_coords(tiles, tile_count_x)
+            new = forward_batch(
+                ForwardState(*(field[tiles] for field in state)),
+                entries,
+                pix_x,
+                pix_y,
+                (blk * b - r0[tiles])[:, None, None],
+                mask[..., None],
+            )
+            for field, value in zip(state, new):
+                field[tiles] = value
+    return state.color, state.transmittance[:, 0], state.rendered_count[:, 0]
+
+
+def rasterize_forward(
+    point_rows: torch.Tensor,
+    sorted_ids: torch.Tensor,
+    tile_ranges: torch.Tensor,
+    *,
+    tile_count_x: int,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    kernel: CudaKernel = RASTERIZE_FORWARD,
+):
+    """Forward rasterization of every tile.
+
+    CPU tensors go to :func:`rasterize_forward_torch` (``block_size`` sets
+    its windows); CUDA tensors launch ``kernel`` (the library built with
+    the default flags unless a caller measures another build of it), and
+    anything the kernel does not take raises.
+    """
+    if point_rows.device.type == "cpu":
+        return rasterize_forward_torch(
+            point_rows, sorted_ids, tile_ranges,
+            tile_count_x=tile_count_x, block_size=block_size,
+        )
+    num_tiles = tile_ranges.shape[0]
+    require_cuda("point_rows", point_rows, torch.float32)
+    if point_rows.dim() != 2 or point_rows.shape[0] != ENTRY_ROWS:
+        raise ValueError(f"point_rows: expected [9, P + 1], got {tuple(point_rows.shape)}")
+    require_cuda("sorted_ids", sorted_ids, torch.int32, (sorted_ids.shape[0],))
+    require_cuda("tile_ranges", tile_ranges, torch.int32, (num_tiles, 2))
+    for name, t in (("sorted_ids", sorted_ids), ("tile_ranges", tile_ranges)):
+        if t.device != point_rows.device:
+            raise ValueError(f"{name} is on {t.device}, point_rows on {point_rows.device}")
+
+    device = point_rows.device
+    image = torch.empty((num_tiles, 3, PIXELS_PER_TILE), dtype=torch.float32, device=device)
+    trans = torch.empty((num_tiles, PIXELS_PER_TILE), dtype=torch.float32, device=device)
+    counts = torch.empty((num_tiles, PIXELS_PER_TILE), dtype=torch.int32, device=device)
+    kernel.launch(
+        point_rows.data_ptr(), point_rows.shape[1], sorted_ids.data_ptr(),
+        tile_ranges.data_ptr(), num_tiles, tile_count_x, OPACITY_2D_MAX,
+        OPACITY_2D_MIN, TRANSMITTANCE_MIN, image.data_ptr(), trans.data_ptr(),
+        counts.data_ptr(), stream_of(point_rows),
+    )
+    return image, trans, counts
+
+
+# --- tiled <-> image layout helpers --------------------------------------------
+
+
+def mask_empty_tiles(image_tiles, trans_tiles, count_tiles, tile_ranges):
+    """Force tiles with an empty range to the initial state (0, 1, 0).
+
+    The JAX pipeline needs this because its Pallas kernel never visits an
+    empty tile; both rasterizers here already write that state."""
+    empty = tile_ranges[:, 0] >= tile_ranges[:, 1]
+    return (
+        torch.where(empty[:, None, None], torch.zeros_like(image_tiles), image_tiles),
+        torch.where(empty[:, None], torch.ones_like(trans_tiles), trans_tiles),
+        torch.where(empty[:, None], torch.zeros_like(count_tiles), count_tiles),
+    )
+
+
+def untile_image(image_tiles: torch.Tensor, tile_count_x: int, tile_count_y: int,
+                 image_width: int, image_height: int) -> torch.Tensor:
+    """[T, 3, 256] tiled layout -> [H, W, 3] image (cropped)."""
+    img = image_tiles.reshape(tile_count_y, tile_count_x, 3, TILE_SIZE_Y, TILE_SIZE_X)
+    img = img.permute(0, 3, 1, 4, 2).reshape(
+        tile_count_y * TILE_SIZE_Y, tile_count_x * TILE_SIZE_X, 3
+    )
+    return img[:image_height, :image_width, :]
+
+
+def untile_map(tiles: torch.Tensor, tile_count_x: int, tile_count_y: int,
+               image_width: int, image_height: int) -> torch.Tensor:
+    """[T, 256] tiled layout -> [H, W] map (cropped)."""
+    m = tiles.reshape(tile_count_y, tile_count_x, TILE_SIZE_Y, TILE_SIZE_X)
+    m = m.permute(0, 2, 1, 3).reshape(
+        tile_count_y * TILE_SIZE_Y, tile_count_x * TILE_SIZE_X
+    )
+    return m[:image_height, :image_width]
+
+
+def tile_image(image: torch.Tensor, tile_count_x: int, tile_count_y: int) -> torch.Tensor:
+    """[H, W, 3] image -> [T, 3, 256] tiled layout (zero-padded)."""
+    h, w = image.shape[0], image.shape[1]
+    ph = tile_count_y * TILE_SIZE_Y
+    pw = tile_count_x * TILE_SIZE_X
+    padded = torch.nn.functional.pad(image, (0, 0, 0, pw - w, 0, ph - h))
+    t = padded.reshape(tile_count_y, TILE_SIZE_Y, tile_count_x, TILE_SIZE_X, 3)
+    return t.permute(0, 2, 4, 1, 3).reshape(
+        tile_count_y * tile_count_x, 3, PIXELS_PER_TILE
+    )

@@ -1,0 +1,157 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+Each kernel library is one ``.cu`` file under ``gausplat_tpu_torch/csrc/``
+with a plain C interface: every entry point takes raw device pointers and
+a CUDA stream, launches on that stream and returns ``cudaGetLastError()``.
+At first use the file is compiled with ``nvcc`` for ``sm_90a`` into
+``build/gausplat_tpu_torch/`` at the root of the checkout, under a name
+keyed by a hash of the source and the flags, and loaded with ``ctypes``.
+Nothing is built when this module is imported, and nothing here falls back
+to a plain version: a kernel that does not build, load or launch raises
+:class:`~gausplat_tpu_torch.errors.KernelError`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Sequence
+
+import torch
+
+from ..errors import KernelError
+
+PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "gausplat_tpu_torch"
+
+#: No ``--use_fast_math`` (it swaps ``expf`` for ``__expf``) and no FMA
+#: contraction: both move rounding at the alpha, density and transmittance
+#: thresholds of the rasterizer and flip rendered counts.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false",
+)
+
+#: ctypes argument types used by the C entry points.
+PTR = ctypes.c_void_p
+I32 = ctypes.c_int32
+I64 = ctypes.c_int64
+U32 = ctypes.c_uint32
+F32 = ctypes.c_float
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on ``PATH``, else the toolkit's default place."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise KernelError("nvcc not found on PATH or in /usr/local/cuda/bin")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class CudaKernel:
+    """One C entry point of one ``.cu`` library, with a launch count.
+
+    ``launches`` goes up by one for each successful call of the entry
+    point, and nowhere else, so a caller can zero it, run a path, and see
+    whether the path went through this kernel.
+    """
+
+    def __init__(
+        self,
+        source: str,
+        entry: str,
+        argtypes: Sequence,
+        flags: Sequence[str] = NVCC_FLAGS,
+    ):
+        self.source = CSRC_DIR / source
+        self.entry = entry
+        self.argtypes = list(argtypes)
+        self.flags = tuple(flags)
+        self.launches = 0
+        self.build_seconds = None
+        self._fn = None
+        self._error_string = None
+
+    def with_flags(self, flags: Sequence[str]) -> "CudaKernel":
+        """The same entry point built with other nvcc flags (its own count)."""
+        return CudaKernel(self.source.name, self.entry, self.argtypes, flags)
+
+    def library_path(self) -> pathlib.Path:
+        digest = hashlib.sha256(
+            self.source.read_bytes() + "\0".join(self.flags).encode()
+        ).hexdigest()[:16]
+        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
+
+    def _build(self, out: pathlib.Path) -> None:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+        os.close(fd)
+        cmd = [find_nvcc(), *self.flags, "-o", tmp, str(self.source)]
+        try:
+            done = subprocess.run(cmd, capture_output=True, text=True)
+            if done.returncode != 0:
+                raise KernelError(
+                    f"nvcc failed ({done.returncode}) on {self.source.name}:\n"
+                    f"{' '.join(cmd)}\n{done.stdout}{done.stderr}"
+                )
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+    def load(self):
+        """Build the library if its hashed file is missing, then bind it."""
+        if self._fn is None:
+            out = self.library_path()
+            start = time.perf_counter()
+            if not out.exists():
+                self._build(out)
+            try:
+                lib = ctypes.CDLL(str(out))
+            except OSError as e:
+                raise KernelError(f"cannot load {out}: {e}") from e
+            fn = getattr(lib, self.entry)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = lib.gs_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn, self._error_string = fn, err
+            self.build_seconds = time.perf_counter() - start
+        return self._fn
+
+    def launch(self, *args) -> None:
+        code = self.load()(*args)
+        if code != 0:
+            raise KernelError(
+                f"{self.entry} failed to launch: CUDA error {code} "
+                f"({self._error_string(code).decode()})"
+            )
+        self.launches += 1
+
+
+def require_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
+    """Check one kernel argument: a contiguous CUDA tensor of ``dtype``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

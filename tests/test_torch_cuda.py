@@ -1,0 +1,110 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. Every test here carries the ``cuda`` marker and skips where
+torch sees no CUDA device. The file imports no JAX, so on a machine with
+a card and without JAX it runs alone, from the root of the repository:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: the expansion is bit-identical; the rasterizer's image and
+transmittance within 1e-4 (a sequential per-pixel product against the
+plain version's log-step product), rendered counts exactly."""
+
+import numpy as np
+import pytest
+import torch
+
+import gausplat_tpu_torch as T
+from gausplat_tpu_torch.errors import KernelError
+from gausplat_tpu_torch.ops.binning import bin_gaussians, make_point_orders
+from gausplat_tpu_torch.ops.expand import EXPAND, fused_point_orders
+from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
+from gausplat_tpu_torch.ops.rasterize import (
+    RASTERIZE_FORWARD, pack_point_data, rasterize_forward, rasterize_forward_torch,
+)
+
+# By module name (pytest puts tests/ on the path), as test_rasterize.py
+# imports ``oracle``: a machine may have another top-level ``tests``.
+from torch_helpers import (  # noqa: F401  (cuda_device is a fixture)
+    EXPAND_WORKLOADS, MEDIUM, SMALL, cuda_device, port_view, scene_arrays,
+)
+
+pytestmark = pytest.mark.cuda
+
+CASES = {"small": SMALL, "medium": MEDIUM}
+
+
+@pytest.mark.parametrize("name", sorted(EXPAND_WORKLOADS))
+def test_expand_kernel_matches_plain(name, cuda_device):
+    arrays, capacity = EXPAND_WORKLOADS[name]()
+    args = [torch.as_tensor(a, device=cuda_device) for a in arrays]
+    before = EXPAND.launches
+    got = fused_point_orders(*args, tile_count_x=120, capacity=capacity)
+    want = make_point_orders(*args, tile_count_x=120, capacity=capacity)
+    torch.cuda.synchronize()
+    assert EXPAND.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _entry_data(case, device):
+    c = CASES[case]
+    a = scene_arrays(c["p"])
+    view = port_view(c["width"], c["height"])
+    tcx, tcy = -(-c["width"] // 16), -(-c["height"] // 16)
+    scene = T.GaussianScene.from_numpy(**a, device=device)
+    with torch.no_grad():
+        proj = project_gaussians(
+            scene.colors_sh, scene.positions, scene.rotations, scene.scalings,
+            Camera.from_view(view, device=device), sh_degree=3, tile_count_x=tcx,
+            tile_count_y=tcy, opacities=scene.opacities, tight_culling=True,
+        )
+        binning = bin_gaussians(
+            proj.depths, proj.tile_x_max, proj.tile_x_min, proj.tile_y_min,
+            proj.tile_counts, tile_count_x=tcx, tile_count_y=tcy,
+            capacity=c["capacity"] or 1 << 14,
+        )
+        rows = pack_point_data(proj, torch.sigmoid(scene.opacities[:, 0]))
+    return c, (rows, binning.point_indices, binning.tile_ranges), tcx
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_forward_kernel_matches_plain(case, cuda_device):
+    c, args, tcx = _entry_data(case, cuda_device)
+    before = RASTERIZE_FORWARD.launches
+    got = rasterize_forward(*args, tile_count_x=tcx)
+    want = rasterize_forward_torch(*args, tile_count_x=tcx, block_size=c["block"])
+    torch.cuda.synchronize()
+    assert RASTERIZE_FORWARD.launches == before + 1
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+    assert torch.equal(got[2], want[2])
+
+
+def test_render_through_kernels_matches_plain_path(cuda_device):
+    c = MEDIUM
+    scene = T.GaussianScene.from_numpy(**scene_arrays(c["p"]), device=cuda_device)
+    view = port_view(c["width"], c["height"], position=(0.3, -0.2, -4.0))
+    launches = (EXPAND.launches, RASTERIZE_FORWARD.launches)
+    got = T.render(scene, view, T.RenderOptions(backend="cuda"))
+    want = T.render(scene, view, T.RenderOptions(backend="torch"))
+    assert (EXPAND.launches, RASTERIZE_FORWARD.launches) == (launches[0] + 1, launches[1] + 1)
+    torch.testing.assert_close(got.colors_rgb_2d, want.colors_rgb_2d, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.transmittances, want.transmittances, atol=1e-4, rtol=0)
+    for field in ("radii", "tile_point_total", "point_rendered_counts"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+def test_kernel_wrappers_reject_bad_arguments(cuda_device):
+    _, (rows, ids, ranges), tcx = _entry_data("small", cuda_device)
+    with pytest.raises(TypeError):
+        rasterize_forward(rows.double(), ids, ranges, tile_count_x=tcx)
+    with pytest.raises(ValueError):
+        rasterize_forward(rows, ids.cpu(), ranges, tile_count_x=tcx)
+    with pytest.raises(ValueError):
+        rasterize_forward(rows[:8], ids, ranges, tile_count_x=tcx)
+    depths = torch.ones(4, device=cuda_device)
+    ints = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError):
+        fused_point_orders(depths, ints, ints, ints, ints, tile_count_x=4, capacity=64)
+    assert issubclass(KernelError, Exception)
+    assert np.isfinite(rows.cpu().numpy()).all()

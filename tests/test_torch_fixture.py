@@ -1,0 +1,96 @@
+"""The stored JAX cross-check fixture (tests/data/torch_xcheck.npz), which
+chip_smoke.py holds the CUDA path against on the card.
+
+- It is current: JAX renders its inputs again to the stored outputs, and
+  no (entry, pixel) pair sits within ``MARGIN`` of a blend threshold.
+- The port's plain path renders it within atol=1e-4, integers exactly.
+- The sequential per-pixel order of the CUDA kernel, run here through the
+  oracle of tests/oracle.py on the port's entry data, gives the stored
+  rendered counts exactly; so the card's exact-count check tests the
+  kernel, not a rounding coincidence of the fixture."""
+
+import numpy as np
+import pytest
+import torch
+
+import gausplat_tpu_torch as T
+from gausplat_tpu_torch.ops.binning import bin_gaussians
+from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
+from gausplat_tpu_torch.ops.rasterize import pack_point_data
+
+import oracle
+from tests import torch_fixture
+
+STORED = dict(np.load(torch_fixture.PATH))
+
+
+def _stored(case):
+    return {k.split("/", 1)[1]: v for k, v in STORED.items() if k.startswith(case + "/")}
+
+
+def _port_inputs(case):
+    g = _stored(case)
+    scene = T.GaussianScene.from_numpy(**{k: g[k] for k in torch_fixture.PARAMS}, device="cpu")
+    fov_x, fov_y, height, width = g["view_shape"]
+    view = T.View(field_of_view_x=float(fov_x), field_of_view_y=float(fov_y),
+                  image_height=int(height), image_width=int(width),
+                  view_position=g["view_position"], view_transform=g["view_transform"])
+    sh_degree, tight, capacity, block = (int(x) for x in g["options"])
+    options = T.RenderOptions(colors_sh_degree_max=sh_degree, tight_culling=bool(tight),
+                              tile_entry_capacity=capacity, block_size=block)
+    return g, scene, view, options
+
+
+@pytest.mark.parametrize("case", sorted(torch_fixture.CASES))
+def test_fixture_is_current(case):
+    weights, view = torch_fixture.case_inputs(case)
+    g = _stored(case)
+    for name, value in {**weights, **view}.items():
+        np.testing.assert_array_equal(g[name], value, err_msg=name)
+    for name, value in torch_fixture.render_with_jax(case).items():
+        if value.dtype.kind == "f":
+            np.testing.assert_allclose(g[name], value, atol=1e-6, rtol=0, err_msg=name)
+        else:
+            np.testing.assert_array_equal(g[name], value, err_msg=name)
+
+
+@pytest.mark.parametrize("case", sorted(torch_fixture.CASES))
+def test_fixture_keeps_threshold_margin(case):
+    assert torch_fixture.threshold_margin(case) >= torch_fixture.MARGIN
+
+
+@pytest.mark.parametrize("case", sorted(torch_fixture.CASES))
+def test_port_matches_fixture(case):
+    g, scene, view, options = _port_inputs(case)
+    out = T.render(scene, view, options)
+    np.testing.assert_allclose(out.colors_rgb_2d.numpy(), g["image"], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(out.transmittances.numpy(), g["transmittance"], atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(out.point_rendered_counts.numpy(), g["counts"])
+    np.testing.assert_array_equal(out.radii.numpy(), g["radii"])
+    assert int(out.tile_point_total) == int(g["total"])
+
+
+@pytest.mark.parametrize("case", sorted(torch_fixture.CASES))
+def test_sequential_order_matches_fixture(case):
+    g, scene, view, options = _port_inputs(case)
+    tcx, tcy = -(-view.image_width // 16), -(-view.image_height // 16)
+    with torch.no_grad():
+        proj = project_gaussians(
+            scene.colors_sh, scene.positions, scene.rotations, scene.scalings,
+            Camera.from_view(view, device="cpu"), sh_degree=options.colors_sh_degree_max,
+            tile_count_x=tcx, tile_count_y=tcy, opacities=scene.opacities,
+            tight_culling=options.tight_culling,
+        )
+        binning = bin_gaussians(
+            proj.depths, proj.tile_x_max, proj.tile_x_min, proj.tile_y_min,
+            proj.tile_counts, tile_count_x=tcx, tile_count_y=tcy,
+            capacity=options.tile_entry_capacity,
+        )
+        rows = pack_point_data(proj, torch.sigmoid(scene.opacities[:, 0]))
+    image, trans, counts = oracle.rasterize_forward(
+        rows.numpy().T[:-1], binning.point_indices.numpy(), binning.tile_ranges.numpy(),
+        view.image_width, view.image_height, tcx,
+    )
+    np.testing.assert_allclose(image, g["image"], atol=5e-5, rtol=0)
+    np.testing.assert_allclose(trans, g["transmittance"], atol=5e-5, rtol=0)
+    np.testing.assert_array_equal(counts, g["counts"])

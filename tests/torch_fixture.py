@@ -1,0 +1,178 @@
+"""The JAX cross-check fixture for the PyTorch port's CUDA path.
+
+The machine with the card has no JAX, so this file carries the JAX
+package's answers there: small seeded scenes rendered by
+``gausplat_tpu.render(backend="xla")`` on the CPU, inputs and outputs
+(image, transmittance, rendered counts, radii, entry total), stored in
+``tests/data/torch_xcheck.npz``. ``chip_smoke.py`` renders the same
+inputs with the port's kernels and compares (atol 1e-4, integers
+exactly); ``tests/test_torch_fixture.py`` renders them again with JAX and
+checks that the stored file still matches.
+
+Every case keeps a relative margin of at least ``MARGIN`` between each
+(entry, pixel) alpha and the 1/255 blend threshold, and between each
+pixel's running transmittance and its floor. A pair closer than that can
+flip on an ulp of difference in exp or rsqrt between the CPU and the
+card, which moves a whole entry's contribution (about 1/255 of a colour)
+without being a fault of either side.
+
+Regenerate, from the root of the repository:
+
+    python tests/torch_fixture.py
+"""
+
+import pathlib
+
+import numpy as np
+
+PATH = pathlib.Path(__file__).resolve().parent / "data" / "torch_xcheck.npz"
+
+PARAMS = ("colors_sh", "opacities", "positions", "rotations", "scalings")
+
+#: Least relative distance of any alpha from 1/255, and of any running
+#: transmittance from its floor, that a case may have: some 10x the
+#: relative alpha change that the card's ~1e-6 conic differences make at
+#: the widest blendable exponent (0.5 * 11 * 1e-6).
+MARGIN = 5e-5
+
+#: name -> scene size and seed, camera, options.
+CASES = {
+    "small": dict(p=80, seed=3, width=56, height=40, position=(0.0, 0.0, -4.0),
+                  sh_degree=3, tight=True, capacity=1024, block=64),
+    "medium": dict(p=600, seed=38, width=96, height=64, position=(0.3, -0.2, -4.0),
+                   sh_degree=3, tight=True, capacity=1 << 16, block=256),
+    "reference_aabb": dict(p=300, seed=9, width=64, height=48,
+                           position=(-0.2, 0.1, -3.5), sh_degree=1, tight=False,
+                           capacity=4096, block=128),
+}
+
+
+def case_inputs(case):
+    """Seeded numpy weights and the camera of one case (numpy only)."""
+    c = CASES[case]
+    rng = np.random.default_rng(c["seed"])
+    p = c["p"]
+    weights = dict(
+        colors_sh=rng.standard_normal((p, 48)).astype(np.float32) * 0.4,
+        positions=(rng.standard_normal((p, 3)) * 0.8).astype(np.float32),
+        rotations=rng.standard_normal((p, 4)).astype(np.float32),
+        scalings=np.log(0.02 + 0.15 * rng.random((p, 3))).astype(np.float32),
+        opacities=(rng.standard_normal((p, 1)) * 2).astype(np.float32),
+    )
+    position = np.asarray(c["position"], np.float64)
+    transform = np.zeros((4, 4))
+    transform[:3, :3] = np.eye(3)
+    transform[3, :3] = -position
+    transform[3, 3] = 1.0
+    view = dict(
+        view_shape=np.array([1.0, 0.8, c["height"], c["width"]], np.float64),
+        view_position=position,
+        view_transform=transform,
+        options=np.array([c["sh_degree"], int(c["tight"]), c["capacity"], c["block"]],
+                         np.int64),
+    )
+    return weights, view
+
+
+def render_with_jax(case):
+    """The JAX package's outputs for one case."""
+    import jax.numpy as jnp
+
+    import gausplat_tpu as G
+
+    weights, view = case_inputs(case)
+    fov_x, fov_y, height, width = view["view_shape"]
+    sh_degree, tight, capacity, block = (int(x) for x in view["options"])
+    out = G.render(
+        G.GaussianScene(**{k: jnp.asarray(v) for k, v in weights.items()}),
+        G.View(field_of_view_x=float(fov_x), field_of_view_y=float(fov_y),
+               image_height=int(height), image_width=int(width),
+               view_position=view["view_position"],
+               view_transform=view["view_transform"]),
+        G.RenderOptions(backend="xla", colors_sh_degree_max=sh_degree,
+                        tight_culling=bool(tight), tile_entry_capacity=capacity,
+                        block_size=block),
+    )
+    return dict(
+        image=np.asarray(out.colors_rgb_2d),
+        transmittance=np.asarray(out.transmittances),
+        counts=np.asarray(out.point_rendered_counts),
+        radii=np.asarray(out.radii),
+        total=np.asarray(out.tile_point_total),
+    )
+
+
+def threshold_margin(case):
+    """The least relative distance, over every (entry, pixel) pair of the
+    case as JAX bins it, of alpha from 1/255 and of the pixel's running
+    transmittance (sequential, float64) from its floor."""
+    import jax
+    import jax.numpy as jnp
+
+    from gausplat_tpu.constants import OPACITY_2D_MAX, OPACITY_2D_MIN, TRANSMITTANCE_MIN
+    from gausplat_tpu.ops.binning import bin_gaussians
+    from gausplat_tpu.ops.projection import Camera, project_gaussians
+    from gausplat_tpu.ops.rasterize import pack_point_data
+    import gausplat_tpu as G
+
+    weights, view = case_inputs(case)
+    fov_x, fov_y, height, width = view["view_shape"]
+    sh_degree, tight, capacity, _ = (int(x) for x in view["options"])
+    height, width = int(height), int(width)
+    tcx, tcy = -(-width // 16), -(-height // 16)
+    camera = Camera.from_view(G.View(
+        field_of_view_x=float(fov_x), field_of_view_y=float(fov_y),
+        image_height=height, image_width=width, view_position=view["view_position"],
+        view_transform=view["view_transform"]))
+    op = jnp.asarray(weights["opacities"])
+    proj = project_gaussians(
+        *(jnp.asarray(weights[k]) for k in ("colors_sh", "positions", "rotations", "scalings")),
+        camera, sh_degree=sh_degree, tile_count_x=tcx, tile_count_y=tcy, opacities=op,
+        tight_culling=bool(tight))
+    binning = bin_gaussians(proj.depths, proj.tile_x_max, proj.tile_x_min, proj.tile_y_min,
+                            proj.tile_counts, tile_count_x=tcx, tile_count_y=tcy,
+                            capacity=capacity)
+    rows = np.asarray(pack_point_data(proj, jax.nn.sigmoid(op[:, 0])), np.float64)
+    ids = np.asarray(binning.point_indices)
+    margin = np.inf
+    lane = np.arange(256)
+    for tile, (r0, r1) in enumerate(np.asarray(binning.tile_ranges)):
+        if r1 <= r0:
+            continue
+        e = rows[:, ids[r0:r1]][:, :, None]  # [9, E, 1]
+        px = (tile % tcx) * 16 + lane % 16
+        py = (tile // tcx) * 16 + lane // 16
+        dx, dy = e[7] - px, e[8] - py
+        density = np.exp(-0.5 * (e[3] * dx * dx + 2 * e[4] * dx * dy + e[5] * dy * dy))
+        alpha = np.minimum(e[6] * density, OPACITY_2D_MAX)
+        margin = min(margin, np.abs(alpha / OPACITY_2D_MIN - 1).min())
+        blend = np.where(alpha >= OPACITY_2D_MIN, 1 - alpha, 1.0)
+        trans = np.cumprod(blend, axis=0)
+        alive = np.cumprod(trans >= TRANSMITTANCE_MIN, axis=0) > 0
+        near = np.abs(trans / TRANSMITTANCE_MIN - 1)
+        if alive.any():
+            margin = min(margin, near[alive | np.roll(alive, 1, axis=0)].min())
+    return float(margin)
+
+
+def build():
+    """Every case's inputs and JAX outputs, keyed ``<case>/<name>``."""
+    data = {}
+    for case in CASES:
+        weights, view = case_inputs(case)
+        for name, value in {**weights, **view, **render_with_jax(case)}.items():
+            data[f"{case}/{name}"] = value
+    return data
+
+
+def main():
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    PATH.parent.mkdir(exist_ok=True)
+    np.savez_compressed(PATH, **build())
+    print(f"wrote {PATH} ({PATH.stat().st_size} bytes)")
+
+
+if __name__ == "__main__":
+    main()
