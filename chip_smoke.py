@@ -1,34 +1,52 @@
-"""Drive the PyTorch + CUDA port's forward render on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port on one NVIDIA GPU: serving and training.
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
 It imports torch, numpy and ``gausplat_tpu_torch`` only (no JAX), builds
-the hand-written kernels from ``gausplat_tpu_torch/csrc`` into
-``build/gausplat_tpu_torch/``, and runs five phases, each printing one
-JSON line:
+the three hand-written kernels from ``gausplat_tpu_torch/csrc`` into
+``build/gausplat_tpu_torch/`` (one nvcc each, all at once), and runs eight
+phases, each printing one JSON line:
 
-1. env: versions, the card, the kernel build;
+1. env: versions, the card, the kernel builds and their ptxas reports;
 2. expand: the expansion kernel against its plain version, bit for bit,
    on small workloads and on the full-size projection output (and the
    CUDA projection's integer outputs against the CPU's);
 3. rasterize: the forward kernel against its plain version on a small
    scene (image / transmittance atol 1e-4, counts exact) and at full size
-   (image within 1e-3, >= 99.99% of rendered counts equal), plus the
-   count flips of an FMA-contracting build of the same source;
-4. fixture: the CUDA render against outputs stored by the JAX package
-   (``tests/data/torch_xcheck.npz``), atol 1e-4, integers exact;
-5. main_path: a 1M-point scene at 1920x1080 served for 5 views through
-   ``render`` and once through ``render_views``, with both kernels'
-   launch counts, then CUDA-event timings of the render and of each
-   kernel beside its plain version, and a torch.profiler breakdown of
-   the render's device time by kernel.
+   (image / transmittance within 1e-3, >= 99.99% of rendered counts
+   equal), plus the count flips of an FMA-contracting build of the same
+   source;
+4. fixture: the CUDA render and its gradients against outputs stored by
+   the JAX package (``tests/data/torch_xcheck.npz``): images atol 1e-4,
+   integers exact, gradients within 1e-3 scaled by each field's largest
+   magnitude;
+5. main_path: serving, under ``torch.no_grad``: a 1M-point scene at
+   1920x1080 rendered for 5 views through ``render`` and once through
+   ``render_views``, with the launch counts of both forward kernels, then
+   CUDA-event timings of the render and of both forward kernels beside
+   their plain versions at the serving shapes, and a torch.profiler
+   breakdown of the render;
+6. rasterize_backward: the backward kernel against its plain version on
+   the small scene (tight culling on and off) and at full size on the
+   bench view with a seeded cotangent, per gradient row within 1e-3
+   scaled by the row's largest magnitude, over the slots below the valid
+   entry count;
+7. grad: the whole render backward through the kernels against the plain
+   path on the small scene (five parameter gradients and the grad norm);
+8. train: the slice's main path: ``Trainer.fit`` for 10 steps on the
+   full-size scene (every SH degree, a densify, an opacity reset), with
+   the launch counts of all three kernels; then, at the step's shapes,
+   each kernel against its plain version (tolerances as in phases 2, 3
+   and 6) and timed beside it; timings of a step and of forward +
+   backward, the peak memory, and a profile of a step.
 
 Then it prints the card's name and power limit, one JSON line of
-per-kernel results, and last ``{"ok": true, "device": {...}}``. Any
-failure exits non-zero without the last line; so does a machine without
-a CUDA device.
+per-kernel results, every number of which comes from the training path
+(its launches, and the error, time, plain time and bound at the step's
+shapes), and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+without the last line; so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -51,6 +69,20 @@ FIXTURE = ROOT / "tests" / "data" / "torch_xcheck.npz"
 #: package (PERF_AB_r05.jsonl line 6); an integer, not a timing.
 JAX_RECORDED_ENTRIES = 1_756_434
 REPS = 5
+
+#: One NVIDIA H100 SXM (data sheet peak rates):
+#: f32 outside the tensor cores, and device-memory bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+#: f32 operations that every (entry, pixel) pair below a pixel's rendered
+#: count costs at least, in the forward and again in the backward replay:
+#: dx, dy (2), the quadratic form (9), the -0.5 scale and exp (2), the
+#: opacity product and its clamp (2), the two blend tests (2).
+PAIR_FLOPS_MIN = 17
+#: Gradients of the backward kernel and of the render through the kernels
+#: against their plain versions, scaled by each row's or field's largest
+#: magnitude (sequential sums on the card against log-step sums).
+GRAD_SCALED_ATOL = 1e-3
 
 
 def nvidia_smi(query: str) -> str:
@@ -121,7 +153,27 @@ def profile_device_time(fn, reps: int = 3, top: int = 12) -> dict:
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    return float((a.detach().double() - b.detach().double()).abs().max()) if a.numel() else 0.0
+
+
+def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error divided by the reference's largest magnitude."""
+    scale = float(want.detach().double().abs().max())
+    return max_abs(got, want) / scale if scale > 0 else max_abs(got, want)
+
+
+def bound(bytes_moved: float, flops: float) -> dict:
+    """The least time for the work (ms): the larger of the bytes over the
+    card's memory rate and the f32 operations over its f32 rate."""
+    ms_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    ms_ops = flops / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(ms_bytes, ms_ops),
+                bound_by="bytes" if ms_bytes >= ms_ops else "operations",
+                bound_bytes=bytes_moved, bound_flops=flops)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 # --- inputs (numpy recipes from a seed) ----------------------------------------
@@ -198,13 +250,117 @@ def orbit_view(T, yaw, pitch, width=1920, height=1080, distance=8.0):
     )
 
 
+def raster_inputs(scene, view, capacity, tight, device, sh_degree=3):
+    """Entry rows, sorted ids, tile ranges, the tile count across and the
+    projection of one view, as the render builds them."""
+    from gausplat_tpu_torch.ops.binning import bin_gaussians
+    from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
+    from gausplat_tpu_torch.ops.rasterize import pack_point_data
+
+    tcx, tcy = -(-view.image_width // 16), -(-view.image_height // 16)
+    with torch.no_grad():
+        proj = project_gaussians(
+            scene.colors_sh, scene.positions, scene.rotations, scene.scalings,
+            Camera.from_view(view, device=device), sh_degree=sh_degree,
+            tile_count_x=tcx, tile_count_y=tcy, opacities=scene.opacities,
+            tight_culling=tight,
+        )
+        binning = bin_gaussians(
+            proj.depths, proj.tile_x_max, proj.tile_x_min, proj.tile_y_min,
+            proj.tile_counts, tile_count_x=tcx, tile_count_y=tcy, capacity=capacity,
+        )
+        rows = pack_point_data(proj, torch.sigmoid(scene.opacities[:, 0]))
+    return rows, binning.point_indices, binning.tile_ranges, tcx, proj
+
+
+def expand_args(proj):
+    """Kernel B's inputs from a projection."""
+    return (proj.depths, proj.tile_x_max, proj.tile_x_min, proj.tile_y_min, proj.tile_counts)
+
+
+def small_view(T):
+    """The camera of tests/test_rasterize.py: 56x40, 4 units back."""
+    return T.View(
+        field_of_view_x=1.0, field_of_view_y=0.8, image_height=40, image_width=56,
+        view_position=[0.0, 0.0, -4.0],
+        view_transform=T.View.transform(np.eye(3), [0.0, 0.0, 4.0]),
+    )
+
+
+# --- each kernel against its plain version ----------------------------------------
+
+
+def compare_expand(args, capacity, tile_count_x) -> dict:
+    """Kernel B against its plain version: every output bit for bit."""
+    from gausplat_tpu_torch.ops.binning import make_point_orders
+    from gausplat_tpu_torch.ops.expand import fused_point_orders
+
+    got = fused_point_orders(*args, tile_count_x=tile_count_x, capacity=capacity)
+    ref = make_point_orders(*args, tile_count_x=tile_count_x, capacity=capacity)
+    torch.cuda.synchronize()
+    return dict(bit_identical=[bool(torch.equal(a, b)) for a, b in zip(got, ref)],
+                max_abs=max(max_abs(a, b) for a, b in zip(got, ref)),
+                out_bytes=nbytes(*got))
+
+
+def compare_forward(rows, ids, ranges, tcx, block_size=None) -> tuple[dict, tuple]:
+    """Kernel A against its plain version; returns the record and the
+    kernel's outputs."""
+    from gausplat_tpu_torch.ops.rasterize import (
+        DEFAULT_BLOCK_SIZE, rasterize_forward, rasterize_forward_torch,
+    )
+
+    got = rasterize_forward(rows, ids, ranges, tile_count_x=tcx)
+    ref = rasterize_forward_torch(rows, ids, ranges, tile_count_x=tcx,
+                                  block_size=block_size or DEFAULT_BLOCK_SIZE)
+    torch.cuda.synchronize()
+    return dict(image_max_abs=max_abs(got[0], ref[0]),
+                transmittance_max_abs=max_abs(got[1], ref[1]),
+                count_equal_fraction=float((got[2] == ref[2]).double().mean()),
+                count_mismatches=int((got[2] != ref[2]).sum())), got
+
+
+def forward_close_at_full_size(rec) -> bool:
+    """Kernel A's tolerance at full size: image and transmittance within
+    1e-3, at least 99.99% of the rendered counts equal."""
+    return (rec["image_max_abs"] <= 1e-3 and rec["transmittance_max_abs"] <= 1e-3
+            and rec["count_equal_fraction"] >= 0.9999)
+
+
+def backward_inputs(rows, ids, ranges, tcx, grad_image):
+    """Kernel C's inputs for one view: the forward kernel's image and counts,
+    the tiled cotangent and <g, C>."""
+    from gausplat_tpu_torch.ops.rasterize import rasterize_forward, tile_image
+
+    image_tiles, _, count_tiles = rasterize_forward(rows, ids, ranges, tile_count_x=tcx)
+    tcy = ranges.shape[0] // tcx
+    grad_tiles = tile_image(grad_image, tcx, tcy)
+    gdotc = torch.sum(grad_tiles * image_tiles, dim=1)
+    return (rows, ids, ranges, grad_tiles, gdotc, count_tiles)
+
+
+def compare_backward(args, tcx, block_size) -> dict:
+    """Kernel C against its plain version over the slots below the valid
+    entry count: per-row error scaled by the row's largest magnitude."""
+    from gausplat_tpu_torch.ops.rasterize import rasterize_backward, rasterize_backward_torch
+
+    got = rasterize_backward(*args, tile_count_x=tcx)
+    ref = rasterize_backward_torch(*args, tile_count_x=tcx, block_size=block_size)
+    torch.cuda.synchronize()
+    valid = int(args[2][:, 1].max())
+    rows = [scaled_err(got[r, :valid], ref[r, :valid]) for r in range(9)]
+    return dict(valid_slots=valid, row_scaled_err=rows,
+                max_abs=max_abs(got[:, :valid], ref[:, :valid]),
+                finite=bool(torch.isfinite(got[:, :valid]).all()))
+
+
 # --- phases ---------------------------------------------------------------------
 
 
 def phase_env(ctx):
     from gausplat_tpu_torch.ops.expand import EXPAND
-    from gausplat_tpu_torch.ops.rasterize import RASTERIZE_FORWARD
-    from gausplat_tpu_torch.utils.kernels import find_nvcc
+    from gausplat_tpu_torch.ops.rasterize import RASTERIZE_BACKWARD, RASTERIZE_FORWARD
+    from gausplat_tpu_torch.utils.kernels import build_all, find_nvcc
 
     nvcc = find_nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True).stdout
@@ -215,38 +371,35 @@ def phase_env(ctx):
         triton_version = triton.__version__
     except ImportError:
         triton_version = None
-    builds = {}
-    for kernel in (EXPAND, RASTERIZE_FORWARD):
-        kernel.load()
-        builds[kernel.source.name] = round(kernel.build_seconds, 3)
+    kernels = (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)
+    start = time.perf_counter()
+    build_all(kernels)
+    builds = {k.source.name: round(k.build_seconds, 3) for k in kernels}
+    ptxas = {
+        k.source.name: [line.split(":", 1)[1].strip() for line in (k.build_log or "").splitlines()
+                        if "Used" in line and "registers" in line]
+        for k in kernels
+    }
     return dict(
         python=sys.version.split()[0], torch=torch.__version__,
         torch_cuda=torch.version.cuda, nvcc=release[0].strip() if release else version,
         triton=triton_version,
         device=torch.cuda.get_device_name(0), device_count=torch.cuda.device_count(),
         nvidia_smi=ctx["card"], build_seconds=builds,
+        build_all_seconds=time.perf_counter() - start, ptxas=ptxas,
     )
 
 
 def phase_expand(ctx):
     import gausplat_tpu_torch as T
-    from gausplat_tpu_torch.ops.binning import make_point_orders
-    from gausplat_tpu_torch.ops.expand import fused_point_orders
     from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
 
     dev = ctx["device"]
     out = {}
 
-    def compare(args, capacity, tile_count_x):
-        got = fused_point_orders(*args, tile_count_x=tile_count_x, capacity=capacity)
-        ref = make_point_orders(*args, tile_count_x=tile_count_x, capacity=capacity)
-        torch.cuda.synchronize()
-        ctx["kernel_b_err"] = max(max_abs(a, b) for a, b in zip(got, ref))
-        return [bool(torch.equal(a, b)) for a, b in zip(got, ref)]
-
     for name, arrays, capacity in expand_workloads():
         args = [torch.as_tensor(a, device=dev) for a in arrays]
-        same = compare(args, capacity, 120)
+        same = compare_expand(args, capacity, 120)["bit_identical"]
         out[name] = same
         check(all(same), f"expansion kernel differs from its plain version on {name}: {same}")
 
@@ -273,11 +426,10 @@ def phase_expand(ctx):
         field: max_abs(getattr(proj, field).cpu(), getattr(proj_cpu, field))
         for field in ("color_r", "conic_xx", "conic_xy", "pos2d_x", "depths")
     }
-    args = (proj.depths, proj.tile_x_max, proj.tile_x_min, proj.tile_y_min, proj.tile_counts)
     capacity = ctx["capacity"]
-    same = compare(args, capacity, tcx)
-    out["full_size"] = same
-    out["full_size_max_abs_diff"] = ctx["kernel_b_err"]
+    full = compare_expand(expand_args(proj), capacity, tcx)
+    out["full_size"] = same = full["bit_identical"]
+    out["full_size_max_abs_diff"] = full["max_abs"]
     check(all(same), f"expansion kernel differs from its plain version at full size: {same}")
     ctx["proj"], ctx["tcx"], ctx["tcy"] = proj, tcx, tcy
     return dict(bit_identical=out, capacity=capacity,
@@ -287,62 +439,26 @@ def phase_expand(ctx):
 
 def phase_rasterize(ctx):
     import gausplat_tpu_torch as T
-    from gausplat_tpu_torch.ops.binning import bin_gaussians
-    from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
-    from gausplat_tpu_torch.ops.rasterize import (
-        RASTERIZE_FORWARD, pack_point_data, rasterize_forward, rasterize_forward_torch,
-    )
+    from gausplat_tpu_torch.ops.rasterize import RASTERIZE_FORWARD, rasterize_forward
     from gausplat_tpu_torch.utils.kernels import NVCC_FLAGS
 
     dev = ctx["device"]
-
-    def inputs(scene, view, capacity, tight):
-        tcx, tcy = -(-view.image_width // 16), -(-view.image_height // 16)
-        proj = project_gaussians(
-            scene.colors_sh, scene.positions, scene.rotations, scene.scalings,
-            Camera.from_view(view, device=dev), sh_degree=3,
-            tile_count_x=tcx, tile_count_y=tcy, opacities=scene.opacities,
-            tight_culling=tight,
-        )
-        binning = bin_gaussians(
-            proj.depths, proj.tile_x_max, proj.tile_x_min, proj.tile_y_min,
-            proj.tile_counts, tile_count_x=tcx, tile_count_y=tcy, capacity=capacity,
-        )
-        rows = pack_point_data(proj, torch.sigmoid(scene.opacities[:, 0]))
-        return rows, binning.point_indices, binning.tile_ranges, tcx
-
     results = {}
     with torch.no_grad():
         small = T.GaussianScene.from_numpy(**small_scene_arrays(), device=dev)
-        small_view = T.View(
-            field_of_view_x=1.0, field_of_view_y=0.8, image_height=40, image_width=56,
-            view_position=[0.0, 0.0, -4.0],
-            view_transform=T.View.transform(np.eye(3), [0.0, 0.0, 4.0]),
-        )
         for tight in (False, True):
-            rows, ids, ranges, tcx = inputs(small, small_view, 1024, tight)
-            got = rasterize_forward(rows, ids, ranges, tile_count_x=tcx)
-            ref = rasterize_forward_torch(rows, ids, ranges, tile_count_x=tcx, block_size=64)
-            torch.cuda.synchronize()
-            rec = dict(image_max_abs=max_abs(got[0], ref[0]),
-                       transmittance_max_abs=max_abs(got[1], ref[1]),
-                       count_mismatches=int((got[2] != ref[2]).sum()))
+            rows, ids, ranges, tcx, _ = raster_inputs(small, small_view(T), 1024, tight, dev)
+            rec, _ = compare_forward(rows, ids, ranges, tcx, block_size=64)
             results[f"small_tight{int(tight)}"] = rec
             check(rec["image_max_abs"] <= 1e-4 and rec["transmittance_max_abs"] <= 1e-4
                   and rec["count_mismatches"] == 0,
                   f"forward kernel differs from its plain version on the small scene: {rec}")
 
-        rows, ids, ranges, tcx = inputs(ctx["scene"], ctx["views"][0], ctx["capacity"], True)
-        got = rasterize_forward(rows, ids, ranges, tile_count_x=tcx)
-        ref = rasterize_forward_torch(rows, ids, ranges, tile_count_x=tcx)
-        torch.cuda.synchronize()
-        equal_counts = float((got[2] == ref[2]).double().mean())
-        full = dict(image_max_abs=max_abs(got[0], ref[0]),
-                    transmittance_max_abs=max_abs(got[1], ref[1]),
-                    count_equal_fraction=equal_counts,
-                    count_mismatches=int((got[2] != ref[2]).sum()))
+        rows, ids, ranges, tcx, _ = raster_inputs(
+            ctx["scene"], ctx["views"][0], ctx["capacity"], True, dev)
+        full, got = compare_forward(rows, ids, ranges, tcx)
         results["full_size"] = full
-        check(full["image_max_abs"] <= 1e-3 and equal_counts >= 0.9999,
+        check(forward_close_at_full_size(full),
               f"forward kernel differs from its plain version at full size: {full}")
 
         # The same source built with FMA contraction: how many counts move.
@@ -356,7 +472,7 @@ def phase_rasterize(ctx):
             image_max_abs=max_abs(contracted[0], got[0]),
         )
     ctx["raster_inputs"] = (rows, ids, ranges, tcx)
-    ctx["kernel_a_err"] = full["image_max_abs"]
+    ctx["raster_pairs"] = int(got[2].to(torch.int64).sum())
     return results
 
 
@@ -385,7 +501,13 @@ def phase_fixture(ctx):
             backend="cuda", colors_sh_degree_max=sh_degree, tight_culling=bool(tight),
             tile_entry_capacity=capacity, block_size=block,
         )
-        got = T.render(scene, view, options)
+        ref = torch.zeros(scene.point_count, device=dev, requires_grad=True)
+        got = T.render(scene, view, options, ref)
+        torch.sum(got.colors_rgb_2d * torch.as_tensor(g["grad_weight"], device=dev)).backward()
+        grads = {name: p.grad for name, p in scene.named_parameters()}
+        grads["norm"] = ref.grad
+        grad_err = {name: scaled_err(value.cpu(), torch.as_tensor(g[f"grad_{name}"]))
+                    for name, value in grads.items()}
         rec = dict(
             image_max_abs=max_abs(got.colors_rgb_2d.cpu(), torch.as_tensor(g["image"])),
             transmittance_max_abs=max_abs(got.transmittances.cpu(),
@@ -393,16 +515,20 @@ def phase_fixture(ctx):
             count_mismatches=int((got.point_rendered_counts.cpu().numpy() != g["counts"]).sum()),
             radii_mismatches=int((got.radii.cpu().numpy() != g["radii"]).sum()),
             total=int(got.tile_point_total), jax_total=int(g["total"]),
+            grad_scaled_err=grad_err,
         )
         out[case] = rec
         check(rec["image_max_abs"] <= 1e-4 and rec["transmittance_max_abs"] <= 1e-4
               and rec["count_mismatches"] == 0 and rec["radii_mismatches"] == 0
-              and rec["total"] == rec["jax_total"],
+              and rec["total"] == rec["jax_total"]
+              and max(grad_err.values()) <= GRAD_SCALED_ATOL,
               f"CUDA render differs from the JAX fixture on {case}: {rec}")
     return out
 
 
+@torch.no_grad()
 def phase_main_path(ctx):
+    """Serving: no graph is built and nothing is kept for a backward."""
     import gausplat_tpu_torch as T
     from gausplat_tpu_torch.ops.binning import make_point_orders
     from gausplat_tpu_torch.ops.expand import EXPAND, fused_point_orders
@@ -429,6 +555,7 @@ def phase_main_path(ctx):
         check(bool(torch.isfinite(o.colors_rgb_2d).all()), "non-finite image")
         check(tuple(o.colors_rgb_2d.shape) == (1080, 1920, 3), "image shape")
     check(max(totals) <= capacity, f"entry overflow: {totals} > {capacity}")
+    check(not any(o.colors_rgb_2d.requires_grad for o in outs), "serving built a graph")
     check(bool(torch.isfinite(batched.colors_rgb_2d).all()), "non-finite batched image")
     batch_same = all(
         torch.equal(batched.colors_rgb_2d[i], o.colors_rgb_2d)
@@ -442,12 +569,10 @@ def phase_main_path(ctx):
     render_ms, render_all = cuda_ms(lambda: T.render(scene, view, options))
     plain_options = T.RenderOptions(tile_entry_capacity=capacity, backend="torch")
     plain_render_ms, plain_render_all = cuda_ms(lambda: T.render(scene, view, plain_options))
-    proj = ctx["proj"]
-    expand_args = (proj.depths, proj.tile_x_max, proj.tile_x_min, proj.tile_y_min,
-                   proj.tile_counts)
+    b_args = expand_args(ctx["proj"])
     kw = dict(tile_count_x=ctx["tcx"], capacity=capacity)
-    b_ms, b_all = cuda_ms(lambda: fused_point_orders(*expand_args, **kw))
-    b_plain_ms, b_plain_all = cuda_ms(lambda: make_point_orders(*expand_args, **kw))
+    b_ms, b_all = cuda_ms(lambda: fused_point_orders(*b_args, **kw))
+    b_plain_ms, b_plain_all = cuda_ms(lambda: make_point_orders(*b_args, **kw))
     rows, ids, ranges, tcx = ctx["raster_inputs"]
     a_ms, a_all = cuda_ms(lambda: rasterize_forward(rows, ids, ranges, tile_count_x=tcx))
     a_plain_ms, a_plain_all = cuda_ms(
@@ -457,18 +582,13 @@ def phase_main_path(ctx):
         breakdown = profile_device_time(lambda: T.render(scene, view, options))
     except RuntimeError as e:  # the profiler is a measurement, not the path
         breakdown = dict(device_busy_ms=f"not measured ({e})")
-    ctx["kernels"] = [
-        dict(name="rasterize_forward", route="cuda",
-             source="gausplat_tpu_torch/csrc/rasterize_forward.cu",
-             replaces="gausplat_tpu/ops/rasterize.py:409",
-             launches=launches["rasterize_forward.cu"], max_abs_err=ctx["kernel_a_err"],
-             ms=a_ms, plain_ms=a_plain_ms),
-        dict(name="expand_point_orders", route="cuda",
-             source="gausplat_tpu_torch/csrc/expand.cu",
-             replaces="gausplat_tpu/ops/expand.py:121",
-             launches=launches["expand.cu"], max_abs_err=ctx["kernel_b_err"],
-             ms=b_ms, plain_ms=b_plain_ms),
-    ]
+    # Bounds from these shapes: each input read once, each output written
+    # once; kernel A's operations over the pairs below the rendered counts.
+    tiles = ranges.shape[0]
+    a_bound = bound(nbytes(rows, ids, ranges) + tiles * 256 * (3 + 1 + 1) * 4,
+                    ctx["raster_pairs"] * PAIR_FLOPS_MIN)
+    a_bound["pairs"] = ctx["raster_pairs"]
+    b_bound = bound(nbytes(*b_args) + capacity * (8 + 4), 0.0)
     return dict(
         card=ctx["card"], views=len(views), capacity=capacity, launches=launches,
         tile_point_total=totals,
@@ -482,8 +602,243 @@ def phase_main_path(ctx):
         rasterize_forward_plain_ms=a_plain_ms, rasterize_forward_plain_ms_all=a_plain_all,
         expand_ms=b_ms, expand_ms_all=b_all,
         expand_plain_ms=b_plain_ms, expand_plain_ms_all=b_plain_all,
+        rasterize_forward_bound=a_bound, expand_bound=b_bound,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         render_profile=breakdown,
+    )
+
+
+@torch.no_grad()
+def phase_rasterize_backward(ctx):
+    import gausplat_tpu_torch as T
+
+    dev = ctx["device"]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    results = {}
+    small = T.GaussianScene.from_numpy(**small_scene_arrays(), device=dev)
+    for tight in (False, True):
+        rows, ids, ranges, tcx, _ = raster_inputs(small, small_view(T), 1024, tight, dev)
+        grad = torch.randn((40, 56, 3), generator=gen, device=dev)
+        rec = compare_backward(backward_inputs(rows, ids, ranges, tcx, grad), tcx, 64)
+        results[f"small_tight{int(tight)}"] = rec
+        check(rec["finite"] and max(rec["row_scaled_err"]) <= GRAD_SCALED_ATOL,
+              f"backward kernel differs from its plain version on the small scene: {rec}")
+
+    rows, ids, ranges, tcx = ctx["raster_inputs"]
+    view = ctx["views"][0]
+    grad = torch.randn((view.image_height, view.image_width, 3), generator=gen, device=dev)
+    full = compare_backward(backward_inputs(rows, ids, ranges, tcx, grad), tcx, 256)
+    results["full_size"] = full
+    check(full["finite"] and max(full["row_scaled_err"]) <= GRAD_SCALED_ATOL,
+          f"backward kernel differs from its plain version at full size: {full}")
+    return results
+
+
+def phase_grad(ctx):
+    import gausplat_tpu_torch as T
+
+    dev = ctx["device"]
+    view = small_view(T)
+    weight = torch.randn((40, 56, 3), generator=torch.Generator(device=dev).manual_seed(5),
+                         device=dev)
+    grads = {}
+    for backend in ("cuda", "torch"):
+        scene = T.GaussianScene.from_numpy(**small_scene_arrays(), device=dev)
+        ref = torch.zeros(scene.point_count, device=dev, requires_grad=True)
+        out = T.render(scene, view, T.RenderOptions(backend=backend, tile_entry_capacity=1024,
+                                                    block_size=64), ref)
+        torch.sum(out.colors_rgb_2d * weight).backward()
+        grads[backend] = {name: p.grad for name, p in scene.named_parameters()}
+        grads[backend]["norm"] = ref.grad
+    err = {name: scaled_err(grads["cuda"][name], want) for name, want in grads["torch"].items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads["cuda"].values())
+    check(finite and max(err.values()) <= GRAD_SCALED_ATOL,
+          f"render gradients through the kernels differ from the plain path: {err}")
+    return dict(scaled_err=err, tolerance=GRAD_SCALED_ATOL)
+
+
+def phase_train(ctx):
+    import dataclasses
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch import train as TT
+    from gausplat_tpu_torch.ops.binning import make_point_orders
+    from gausplat_tpu_torch.ops.expand import EXPAND, fused_point_orders
+    from gausplat_tpu_torch.ops.rasterize import (
+        RASTERIZE_BACKWARD, RASTERIZE_FORWARD, rasterize_backward, rasterize_backward_torch,
+        rasterize_forward, rasterize_forward_torch, untile_image,
+    )
+
+    dev, views = ctx["device"], ctx["views"]
+    arrays = ctx["arrays"]
+    p = arrays["positions"].shape[0]
+    # The start point: the target's arrays with seeded noise.
+    rng = np.random.default_rng(1)
+    start = {k: v.copy() for k, v in arrays.items()}
+    start["colors_sh"][:, :3] += rng.normal(0.0, 0.3, (p, 3)).astype(np.float32)
+    start["opacities"] -= 1.0
+    start["positions"] += rng.normal(0.0, 0.01, (p, 3)).astype(np.float32)
+    with torch.no_grad():
+        targets = [T.render(ctx["scene"], v, ctx["options"]).colors_rgb_2d for v in views]
+    scene = T.GaussianScene.from_numpy(**start, device=dev)
+    options = T.calibrate_options(scene, views)
+    extent = TT.camera_extent(views)
+    config = TT.TrainConfig(
+        sh_warmup_interval=1, densify_from=4, densify_interval=4, densify_until=9,
+        opacity_reset_interval=8, overflow_check_interval=4, render=options,
+        optimizer=TT.OptimizerConfig(scene_extent=extent),
+        densify=TT.DensifyConfig(scene_extent=extent),
+    )
+    width, height = views[0].image_width, views[0].image_height
+    trainer = TT.Trainer(scene, width, height, config)
+    kernels = (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in kernels:
+        kernel.launches = 0
+    start_time = time.perf_counter()
+    history, segments = [], []
+    # Three calls of fit (10 steps): each segment runs at one capacity, so
+    # every step's entry total is checked against the capacity it ran with.
+    for steps in (4, 4, 2):
+        capacity, points = trainer._entry_capacity, trainer.scene.point_count
+        part = trainer.fit(views, targets, steps)
+        segments.append(dict(steps=steps, capacity=capacity, points_before=points,
+                             points_after=trainer.scene.point_count,
+                             max_total=max(int(h["tile_point_total"]) for h in part)))
+        history += part
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - start_time
+    launches = {kernel.source.name: kernel.launches for kernel in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = [h["loss"] for h in history]
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    # The loss falls until the opacity reset after step 8 caps every
+    # opacity at 0.01 (standard 3DGS; a long fit recovers over hundreds of
+    # steps): step 5 sees view 0 again, step 7 is the last before the reset.
+    reset = config.opacity_reset_interval
+    check(losses[5] < losses[0] and losses[reset - 1] < losses[0],
+          f"the loss did not fall before the opacity reset: {losses}")
+    check(all(n >= 10 for n in launches.values()), f"a kernel ran under 10 times: {launches}")
+    check(all(seg["max_total"] <= seg["capacity"] for seg in segments),
+          f"entry overflow: {segments}")
+    densify = [{k: h[k] for k in ("cloned", "split", "pruned", "point_count")}
+               for h in history if "point_count" in h]
+    check(len(densify) >= 1, f"no densify event: {densify}")
+    check(trainer._sh_degree() == 3, "the SH warm-up did not reach degree 3")
+
+    # Forward + backward alone, and the densification signal.
+    view, target = views[0], targets[0]
+
+    def forward_backward():
+        ref = torch.zeros(trainer.scene.point_count, device=dev, requires_grad=True)
+        out = T.render(trainer.scene, view, trainer._options(), ref)
+        loss = TT.photometric_loss(out.colors_rgb_2d, target)
+        grads = torch.autograd.grad(loss, list(trainer.scene.parameters()) + [ref])
+        return out, grads
+
+    out, grads = forward_backward()
+    norm = grads[-1]
+    culled = out.radii == 0
+    check(bool((norm >= 0).all()) and bool((norm[culled] == 0).all()),
+          "grad norms negative, or nonzero on culled points")
+    check(all(bool(torch.isfinite(g).all()) for g in grads), "non-finite gradient")
+    fwd_bwd_ms, fwd_bwd_all = cuda_ms(forward_backward)
+
+    # The three kernels at the step's shapes (view 0 after the fit, the
+    # step's capacity): each against its plain version, timed beside it,
+    # and its bound. Kernel C takes the loss's own image cotangent.
+    opts = trainer._options()
+    capacity = opts.tile_entry_capacity
+    rows, ids, ranges, tcx, proj = raster_inputs(
+        trainer.scene, view, capacity, opts.tight_culling, dev,
+        sh_degree=opts.colors_sh_degree_max)
+    b_args, b_kw = expand_args(proj), dict(tile_count_x=tcx, capacity=capacity)
+    b_rec = compare_expand(b_args, capacity, tcx)
+    check(all(b_rec["bit_identical"]),
+          f"expansion kernel differs from its plain version at the step's shapes: {b_rec}")
+    a_rec, a_out = compare_forward(rows, ids, ranges, tcx)
+    check(forward_close_at_full_size(a_rec),
+          f"forward kernel differs from its plain version at the step's shapes: {a_rec}")
+    image = untile_image(a_out[0], tcx, ranges.shape[0] // tcx, width, height)
+    image = image.detach().requires_grad_()
+    (cotangent,) = torch.autograd.grad(TT.photometric_loss(image, target), image)
+    c_args = backward_inputs(rows, ids, ranges, tcx, cotangent)
+    c_rec = compare_backward(c_args, tcx, 256)
+    check(c_rec["finite"] and max(c_rec["row_scaled_err"]) <= GRAD_SCALED_ATOL,
+          f"backward kernel differs from its plain version at the step's shapes: {c_rec}")
+
+    times = {
+        "rasterize_forward": (
+            cuda_ms(lambda: rasterize_forward(rows, ids, ranges, tile_count_x=tcx)),
+            cuda_ms(lambda: rasterize_forward_torch(rows, ids, ranges, tile_count_x=tcx))),
+        "expand_point_orders": (
+            cuda_ms(lambda: fused_point_orders(*b_args, **b_kw)),
+            cuda_ms(lambda: make_point_orders(*b_args, **b_kw))),
+        "rasterize_backward": (
+            cuda_ms(lambda: rasterize_backward(*c_args, tile_count_x=tcx)),
+            cuda_ms(lambda: rasterize_backward_torch(*c_args, tile_count_x=tcx))),
+    }
+    # Bounds from these shapes: each input read once, each output written
+    # once; A's and C's operations over the pairs below the rendered counts.
+    pairs = int(a_out[2].to(torch.int64).sum())
+    bounds = {
+        "rasterize_forward": bound(nbytes(rows, ids, ranges) + nbytes(*a_out),
+                                   pairs * PAIR_FLOPS_MIN),
+        "expand_point_orders": bound(nbytes(*b_args) + b_rec["out_bytes"], 0.0),
+        "rasterize_backward": bound(nbytes(*c_args) + 9 * c_rec["valid_slots"] * 4,
+                                    pairs * PAIR_FLOPS_MIN),
+    }
+    errors = {
+        "rasterize_forward": max(a_rec["image_max_abs"], a_rec["transmittance_max_abs"]),
+        "expand_point_orders": b_rec["max_abs"],
+        "rasterize_backward": c_rec["max_abs"],
+    }
+    kernel_rows = (
+        ("rasterize_forward", "rasterize_forward.cu", "gausplat_tpu/ops/rasterize.py:409"),
+        ("expand_point_orders", "expand.cu", "gausplat_tpu/ops/expand.py:121"),
+        ("rasterize_backward", "rasterize_backward.cu", "gausplat_tpu/ops/rasterize.py:604"),
+    )
+    ctx["kernels"] = [
+        dict(name=name, route="cuda", source=f"gausplat_tpu_torch/csrc/{source}",
+             replaces=replaces, launches=launches[source], max_abs_err=errors[name],
+             ms=times[name][0][0], plain_ms=times[name][1][0],
+             bound_ms=bounds[name]["bound_ms"], bound_by=bounds[name]["bound_by"],
+             library_ms=None)
+        for name, source, replaces in kernel_rows
+    ]
+
+    # A step with no host event: no densify, no overflow read.
+    trainer.config = dataclasses.replace(trainer.config, densify_until=0,
+                                         overflow_check_interval=10**9)
+    step_ms, step_all = cuda_ms(lambda: trainer.train_step(view, target))
+    try:
+        breakdown = profile_device_time(lambda: trainer.train_step(view, target))
+    except RuntimeError as e:  # the profiler is a measurement, not the path
+        breakdown = dict(device_busy_ms=f"not measured ({e})")
+
+    return dict(
+        card=ctx["card"], steps=len(history), launches=launches, losses=losses,
+        psnr=[h["psnr"] for h in history], tile_point_total=[int(h["tile_point_total"])
+                                                          for h in history],
+        segments=segments, densify=densify, start_capacity=options.tile_entry_capacity,
+        scene_extent=extent, loss_first=losses[0], loss_before_reset=losses[reset - 1],
+        loss_last=losses[-1],
+        fit_10_steps_seconds=fit_seconds, peak_memory_gb=peak_gb,
+        forward_backward_ms=fwd_bwd_ms, forward_backward_ms_all=fwd_bwd_all,
+        step_ms=step_ms, step_ms_all=step_all,
+        kernels_at_step=dict(
+            capacity=capacity, points=trainer.scene.point_count, pairs=pairs,
+            compare=dict(rasterize_forward=a_rec, expand_point_orders=b_rec,
+                         rasterize_backward=c_rec),
+            ms_all={name: t[0][1] for name, t in times.items()},
+            plain_ms_all={name: t[1][1] for name, t in times.items()},
+            bounds=bounds,
+        ),
+        grad_norm_max=float(norm.max()), culled_points=int(culled.sum()),
+        step_profile=breakdown,
     )
 
 
@@ -499,7 +854,9 @@ def main() -> int:
     ctx = dict(device=device, card=nvidia_smi("name,power.limit"))
 
     phases = [("env", phase_env), ("expand", phase_expand), ("rasterize", phase_rasterize),
-              ("fixture", phase_fixture), ("main_path", phase_main_path)]
+              ("fixture", phase_fixture), ("main_path", phase_main_path),
+              ("rasterize_backward", phase_rasterize_backward), ("grad", phase_grad),
+              ("train", phase_train)]
     for name, phase in phases:
         start = time.perf_counter()
         if name == "expand":

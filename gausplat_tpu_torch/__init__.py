@@ -1,14 +1,17 @@
-"""gausplat_tpu_torch: the forward render of gausplat_tpu in PyTorch, with
-its TPU kernels rewritten by hand in CUDA C++ for the NVIDIA H100.
+"""gausplat_tpu_torch: gausplat_tpu's differentiable render and its trainer
+in PyTorch, with the TPU kernels rewritten by hand in CUDA C++ for the
+NVIDIA H100.
 
 The JAX package ``gausplat_tpu`` beside it is the reference this port is
 held against; this package imports ``torch`` and numpy, and never JAX.
 The module layout mirrors the JAX package's, so each module's counterpart
-is found under the same name. This slice covers projection, binning and
-the forward rasterizer; the render is forward-only.
+is found under the same name. Ported so far: projection, binning, the
+rasterizer forward and backward, the differentiable render with its
+densification signal, and training (losses, Adam, densify, trainer,
+checkpoints).
 """
 
-from . import constants, errors, ops, scene, utils
+from . import constants, errors, ops, scene, train, utils
 from .constants import SH_COUNT_MAX, SH_DEGREE_MAX
 from .render.pipeline import (
     calibrate_options,
@@ -42,5 +45,6 @@ __all__ = [
     "render",
     "render_views",
     "scene",
+    "train",
     "utils",
 ]

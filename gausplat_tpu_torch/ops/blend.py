@@ -1,8 +1,11 @@
-"""Batched alpha-blend math: the plain version of the forward rasterizer.
+"""Batched alpha-blend math: the plain version of both rasterizer kernels.
 
-Counterpart of the forward half of ``gausplat_tpu/ops/blend.py``
-(``density_terms`` on its default path, ``ForwardState``,
-``forward_batch``). Reference loop: .../jit/kernel/rasterize/kernel.wgsl:107-200.
+Counterpart of ``gausplat_tpu/ops/blend.py`` on its default path
+(``density_terms``, ``ForwardState``, ``forward_batch``, ``BackwardState``,
+``EntryGrads``, ``grads_to_rows``, ``grad_rows_to_components`` for f32
+rows, ``backward_batch``). Reference loops:
+.../jit/kernel/rasterize/kernel.wgsl:107-200 (forward) and
+.../jit/kernel/rasterize_backward/kernel.wgsl:124-273 (backward).
 
 A batch of ``B`` entries is blended at once against a tile's ``N`` = 256
 pixels, for ``n`` tiles side by side:
@@ -12,7 +15,15 @@ pixels, for ``n`` tiles side by side:
   does, so the two round alike;
 - "stop before the transmittance drops below the floor" is the first
   crossing of the candidate transmittance below ``TRANSMITTANCE_MIN``,
-  sticky across batches through ``done``.
+  sticky across batches through ``done``;
+- the backward runs in forward order: the colour behind entry n is
+  ``<g, C_final> - <g, prefix_n>``, one cumulative sum, with ``C_final``
+  the forward image. It replays the forward's rendered counts rather than
+  deciding again where a pixel stopped.
+
+The conic cotangent is the full one of (xx, xy, yy) as they enter
+``cxx dx^2 + 2 cxy dx dy + cyy dy^2``: its xy component is twice the
+reference's stored half-gradient (rasterize_backward/kernel.wgsl:249-251).
 
 Layout: entry data ``[n, B, 1]`` columns, pixel data ``[n, 1, N]`` rows,
 blend terms ``[n, B, N]``.
@@ -75,6 +86,17 @@ def cumprod_points(x: torch.Tensor) -> torch.Tensor:
     s = 1
     while s < n:
         x = x * _shift_down(x, s, 1.0)
+        s *= 2
+    return x
+
+
+def cumsum_points(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum along the entry axis, in log steps (the JAX
+    package's association order)."""
+    n = x.shape[-2]
+    s = 1
+    while s < n:
+        x = x + _shift_down(x, s, 0.0)
         s *= 2
     return x
 
@@ -172,4 +194,116 @@ def forward_batch(
         transmittance=transmittance,
         done=done,
         rendered_count=rendered_count,
+    )
+
+
+class BackwardState(NamedTuple):
+    """Per-pixel carry across batches of the backward ([n, 1, N])."""
+
+    transmittance: torch.Tensor  # running t of the forward replay
+    grad_prefix: torch.Tensor  # <g, prefix colour so far>
+
+    @classmethod
+    def initial(cls, n: int, pixels: int, device) -> "BackwardState":
+        return cls(
+            transmittance=torch.ones((n, 1, pixels), dtype=torch.float32, device=device),
+            grad_prefix=torch.zeros((n, 1, pixels), dtype=torch.float32, device=device),
+        )
+
+
+class EntryGrads(NamedTuple):
+    """Per-entry gradients of one batch ([n, B, .])."""
+
+    color: torch.Tensor  # [n, B, 3]
+    conic: torch.Tensor  # [n, B, 3] (xx, xy, yy), the full xy cotangent
+    opacity: torch.Tensor  # [n, B, 1] with respect to the outer opacity
+    pos_2d: torch.Tensor  # [n, B, 2]
+
+
+def grads_to_rows(grads: EntryGrads) -> torch.Tensor:
+    """Per-entry gradients as f32 rows ``[9, n, B]`` in the canonical order
+    (r, g, b, cxx, cxy, cyy, opacity, px, py)."""
+    cols = torch.cat([grads.color, grads.conic, grads.opacity, grads.pos_2d], dim=-1)
+    return cols.permute(2, 0, 1)
+
+
+def grad_rows_to_components(rows: torch.Tensor) -> tuple:
+    """Gradient rows ``[9, ...]`` -> the 9 components in the canonical order."""
+    return tuple(rows[c] for c in range(rows.shape[0]))
+
+
+def backward_batch(
+    state: BackwardState,
+    entries: EntryBlock,
+    pix_x: torch.Tensor,
+    pix_y: torch.Tensor,
+    base_position: torch.Tensor,
+    grad_color: torch.Tensor,
+    grad_dot_final: torch.Tensor,
+    rendered_count: torch.Tensor,
+    entry_mask: torch.Tensor,
+):
+    """Backward of :func:`forward_batch`, in forward order.
+
+    ``grad_color`` [n, 3, N] is dL/d(pixel colour); ``grad_dot_final``
+    [n, 1, N] is ``<g, C_final>``; ``rendered_count`` [n, 1, N] the
+    forward's counts. Returns ``(BackwardState, EntryGrads)``.
+    """
+    b_pts = entries.opacity.shape[-2]
+
+    dx, dy, density, alpha, blendable = density_terms(entries, pix_x, pix_y)
+    blendable = blendable & entry_mask
+    positions = base_position + torch.arange(
+        b_pts, dtype=base_position.dtype, device=base_position.device
+    )[:, None]
+    blended = blendable & (positions < rendered_count)
+
+    one_minus = torch.where(blended, 1.0 - alpha, torch.ones_like(alpha))
+    prod_incl = cumprod_points(one_minus)
+    prod_excl = _shift_down(prod_incl, 1, 1.0) if b_pts > 1 else torch.ones_like(prod_incl)
+    t_n = state.transmittance * prod_excl  # transmittance before entry n
+    weight = torch.where(blended, alpha * t_n, torch.zeros_like(alpha))
+
+    g_dot_c = torch.matmul(entries.color, grad_color)  # [n, B, N] <g, c_n>
+    grad_prefix_n = state.grad_prefix + cumsum_points(weight * g_dot_c)
+    g_dot_behind = grad_dot_final - grad_prefix_n  # <g, S_n>
+
+    # dL/d alpha_n = t_n <g, c_n> - <g, S_n> / (1 - alpha_n)
+    # (rasterize_backward/kernel.wgsl:197-221, in forward order).
+    d_alpha = torch.where(
+        blended, t_n * g_dot_c - g_dot_behind / one_minus, torch.zeros_like(alpha)
+    )
+
+    # k = -opacity * density * d_alpha; the conic is constant per entry, so
+    # d_pos = C (sum_pix k d) is one [n, B, 1] combine after the sums.
+    t0 = density * d_alpha
+    d_opacity = torch.sum(t0, dim=-1, keepdim=True)
+    k = t0 * (-entries.opacity)
+    t1 = k * dx
+    t2 = k * dy
+    s_x = torch.sum(t1, dim=-1, keepdim=True)
+    s_y = torch.sum(t2, dim=-1, keepdim=True)
+    d_conic = torch.stack(
+        [
+            0.5 * torch.sum(t1 * dx, dim=-1),
+            torch.sum(t1 * dy, dim=-1),  # the full xy cotangent
+            0.5 * torch.sum(t2 * dy, dim=-1),
+        ],
+        dim=-1,
+    )
+    d_pos = torch.cat(
+        [
+            entries.conic_xx * s_x + entries.conic_xy * s_y,
+            entries.conic_xy * s_x + entries.conic_yy * s_y,
+        ],
+        dim=-1,
+    )
+    d_color = torch.matmul(weight, grad_color.transpose(-1, -2))  # [n, B, 3]
+
+    new_state = BackwardState(
+        transmittance=state.transmittance * prod_incl[..., -1:, :],
+        grad_prefix=state.grad_prefix + torch.sum(weight * g_dot_c, dim=-2, keepdim=True),
+    )
+    return new_state, EntryGrads(
+        color=d_color, conic=d_conic, opacity=d_opacity, pos_2d=d_pos
     )

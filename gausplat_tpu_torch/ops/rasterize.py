@@ -1,10 +1,10 @@
-"""Tile rasterization, forward: the hand-written CUDA kernel, its plain
-version, and the tiled <-> image layout helpers.
+"""Tile rasterization, forward and backward: the hand-written CUDA kernels,
+their plain versions, and the tiled <-> image layout helpers.
 
-Counterpart of the forward half of ``gausplat_tpu/ops/rasterize.py``.
-Reference: .../jit/kernel/rasterize/kernel.wgsl:60-221 (one workgroup per
-16x16 tile, shared-memory entry batches, per-pixel front-to-back blend,
-whole-tile early exit).
+Counterpart of ``gausplat_tpu/ops/rasterize.py``. Reference:
+.../jit/kernel/rasterize/kernel.wgsl:60-221 (one workgroup per 16x16 tile,
+shared-memory entry batches, per-pixel front-to-back blend, whole-tile
+early exit) and .../jit/kernel/rasterize_backward/kernel.wgsl:71-274.
 
 - :func:`rasterize_forward` is the kernel's wrapper
   (``csrc/rasterize_forward.cu``, one 256-thread CTA per tile). It takes
@@ -15,9 +15,15 @@ whole-tile early exit).
   ``block_size`` blocks of the sorted entries (the windows of the JAX
   step list), blended through :mod:`gausplat_tpu_torch.ops.blend`
   vectorized over tiles.
+- :func:`rasterize_backward` is the backward kernel's wrapper
+  (``csrc/rasterize_backward.cu``, one 256-thread CTA per tile, replaying
+  the forward in order); :func:`rasterize_backward_torch` is its plain
+  version, with the same windows, carrying
+  :class:`~gausplat_tpu_torch.ops.blend.BackwardState` across them.
 
 Outputs keep the JAX tiled layout: image ``[T, 3, 256]``, transmittance
-``[T, 256]``, rendered count ``[T, 256]``.
+``[T, 256]``, rendered count ``[T, 256]``; the backward gives per-entry
+gradient rows ``[9, capacity]`` at the sorted positions.
 """
 
 from __future__ import annotations
@@ -32,7 +38,14 @@ from ..constants import (
     TRANSMITTANCE_MIN,
 )
 from ..utils.kernels import F32, I32, I64, PTR, CudaKernel, require_cuda, stream_of
-from .blend import EntryBlock, ForwardState, forward_batch
+from .blend import (
+    BackwardState,
+    EntryBlock,
+    ForwardState,
+    backward_batch,
+    forward_batch,
+    grads_to_rows,
+)
 
 PIXELS_PER_TILE = TILE_SIZE_X * TILE_SIZE_Y  # 256
 
@@ -48,6 +61,11 @@ RASTERIZE_FORWARD = CudaKernel(
     "rasterize_forward.cu",
     "gs_rasterize_forward",
     [PTR, I64, PTR, PTR, I32, I32, F32, F32, F32, PTR, PTR, PTR, PTR],
+)
+RASTERIZE_BACKWARD = CudaKernel(
+    "rasterize_backward.cu",
+    "gs_rasterize_backward",
+    [PTR, I64, PTR, PTR, I32, I32, PTR, PTR, PTR, F32, F32, I64, PTR, PTR],
 )
 
 
@@ -76,6 +94,20 @@ def pixel_coords(tiles: torch.Tensor, tile_count_x: int):
     return pix_x[:, None, :], pix_y[:, None, :]
 
 
+def _windows(tile_ranges: torch.Tensor, b: int):
+    """Per tile: segment start and end, first block, and window count, for
+    windows that are ``b``-aligned blocks of the sorted entries."""
+    r0 = tile_ranges[:, 0].to(torch.int64)
+    r1 = tile_ranges[:, 1].to(torch.int64)
+    nonempty = r1 > r0
+    first_blk = torch.div(r0, b, rounding_mode="floor")
+    last_blk = torch.where(
+        nonempty, torch.div(r1 - 1, b, rounding_mode="floor"), first_blk
+    )
+    steps = torch.where(nonempty, last_blk - first_blk + 1, torch.zeros_like(r0))
+    return r0, r1, first_blk, steps
+
+
 def rasterize_forward_torch(
     point_rows: torch.Tensor,
     sorted_ids: torch.Tensor,
@@ -98,14 +130,7 @@ def rasterize_forward_torch(
         raise ValueError(f"capacity {capacity} is not a multiple of block_size {b}")
     device = point_rows.device
     num_tiles = tile_ranges.shape[0]
-    r0 = tile_ranges[:, 0].to(torch.int64)
-    r1 = tile_ranges[:, 1].to(torch.int64)
-    nonempty = r1 > r0
-    first_blk = torch.div(r0, b, rounding_mode="floor")
-    last_blk = torch.where(
-        nonempty, torch.div(r1 - 1, b, rounding_mode="floor"), first_blk
-    )
-    steps = torch.where(nonempty, last_blk - first_blk + 1, torch.zeros_like(r0))
+    r0, r1, first_blk, steps = _windows(tile_ranges, b)
 
     state = ForwardState.initial(num_tiles, PIXELS_PER_TILE, device)
     lane = torch.arange(b, device=device)
@@ -131,6 +156,25 @@ def rasterize_forward_torch(
     return state.color, state.transmittance[:, 0], state.rendered_count[:, 0]
 
 
+def _check_entry_inputs(point_rows, sorted_ids, tile_ranges, **per_tile) -> int:
+    """Check the kernels' shared arguments, and any ``[T, ...]`` per-tile
+    tensors given as ``name=(tensor, dtype, shape)``; returns T."""
+    num_tiles = tile_ranges.shape[0]
+    require_cuda("point_rows", point_rows, torch.float32)
+    if point_rows.dim() != 2 or point_rows.shape[0] != ENTRY_ROWS:
+        raise ValueError(f"point_rows: expected [9, P + 1], got {tuple(point_rows.shape)}")
+    require_cuda("sorted_ids", sorted_ids, torch.int32, (sorted_ids.shape[0],))
+    require_cuda("tile_ranges", tile_ranges, torch.int32, (num_tiles, 2))
+    others = {"sorted_ids": sorted_ids, "tile_ranges": tile_ranges}
+    for name, (t, dtype, shape) in per_tile.items():
+        require_cuda(name, t, dtype, shape)
+        others[name] = t
+    for name, t in others.items():
+        if t.device != point_rows.device:
+            raise ValueError(f"{name} is on {t.device}, point_rows on {point_rows.device}")
+    return num_tiles
+
+
 def rasterize_forward(
     point_rows: torch.Tensor,
     sorted_ids: torch.Tensor,
@@ -152,16 +196,7 @@ def rasterize_forward(
             point_rows, sorted_ids, tile_ranges,
             tile_count_x=tile_count_x, block_size=block_size,
         )
-    num_tiles = tile_ranges.shape[0]
-    require_cuda("point_rows", point_rows, torch.float32)
-    if point_rows.dim() != 2 or point_rows.shape[0] != ENTRY_ROWS:
-        raise ValueError(f"point_rows: expected [9, P + 1], got {tuple(point_rows.shape)}")
-    require_cuda("sorted_ids", sorted_ids, torch.int32, (sorted_ids.shape[0],))
-    require_cuda("tile_ranges", tile_ranges, torch.int32, (num_tiles, 2))
-    for name, t in (("sorted_ids", sorted_ids), ("tile_ranges", tile_ranges)):
-        if t.device != point_rows.device:
-            raise ValueError(f"{name} is on {t.device}, point_rows on {point_rows.device}")
-
+    num_tiles = _check_entry_inputs(point_rows, sorted_ids, tile_ranges)
     device = point_rows.device
     image = torch.empty((num_tiles, 3, PIXELS_PER_TILE), dtype=torch.float32, device=device)
     trans = torch.empty((num_tiles, PIXELS_PER_TILE), dtype=torch.float32, device=device)
@@ -173,6 +208,107 @@ def rasterize_forward(
         counts.data_ptr(), stream_of(point_rows),
     )
     return image, trans, counts
+
+
+def rasterize_backward_torch(
+    point_rows: torch.Tensor,
+    sorted_ids: torch.Tensor,
+    tile_ranges: torch.Tensor,
+    grad_tiles: torch.Tensor,
+    gdotc_tiles: torch.Tensor,
+    count_tiles: torch.Tensor,
+    *,
+    tile_count_x: int,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    tile_chunk: int = 512,
+) -> torch.Tensor:
+    """Plain version of the backward kernel, with the windows of
+    :func:`rasterize_forward_torch`; ``BackwardState`` carries each tile's
+    running transmittance and ``<g, prefix>`` from window to window.
+
+    ``grad_tiles`` [T, 3, 256] is dL/d(image), ``gdotc_tiles`` [T, 256]
+    ``<g, C_final>``, ``count_tiles`` [T, 256] the forward's counts.
+    Returns per-entry gradient rows ``[9, capacity]`` at the sorted
+    positions; slots outside every tile's range stay zero.
+    """
+    b = block_size
+    capacity = sorted_ids.shape[0]
+    if capacity % b:
+        raise ValueError(f"capacity {capacity} is not a multiple of block_size {b}")
+    device = point_rows.device
+    num_tiles = tile_ranges.shape[0]
+    r0, r1, first_blk, steps = _windows(tile_ranges, b)
+
+    out = torch.zeros((ENTRY_ROWS, capacity), dtype=torch.float32, device=device)
+    state = BackwardState.initial(num_tiles, PIXELS_PER_TILE, device)
+    lane = torch.arange(b, device=device)
+    n_steps = int(steps.max()) if num_tiles else 0
+    for k in range(n_steps):
+        active = torch.nonzero(steps > k).flatten()
+        for tiles in torch.split(active, tile_chunk):
+            blk = first_blk[tiles] + k
+            slots = blk[:, None] * b + lane  # [n, B]
+            mask = (slots >= r0[tiles, None]) & (slots < r1[tiles, None])
+            entries = EntryBlock.from_rows(point_rows[:, sorted_ids[slots].long()])
+            pix_x, pix_y = pixel_coords(tiles, tile_count_x)
+            new, grads = backward_batch(
+                BackwardState(*(field[tiles] for field in state)),
+                entries,
+                pix_x,
+                pix_y,
+                (blk * b - r0[tiles])[:, None, None],
+                grad_tiles[tiles],
+                gdotc_tiles[tiles, None, :],
+                count_tiles[tiles, None, :],
+                mask[..., None],
+            )
+            for field, value in zip(state, new):
+                field[tiles] = value
+            out[:, slots[mask]] = grads_to_rows(grads)[:, mask]
+    return out
+
+
+def rasterize_backward(
+    point_rows: torch.Tensor,
+    sorted_ids: torch.Tensor,
+    tile_ranges: torch.Tensor,
+    grad_tiles: torch.Tensor,
+    gdotc_tiles: torch.Tensor,
+    count_tiles: torch.Tensor,
+    *,
+    tile_count_x: int,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+) -> torch.Tensor:
+    """Backward rasterization of every tile: per-entry gradient rows
+    ``[9, capacity]`` at the sorted positions.
+
+    CPU tensors go to :func:`rasterize_backward_torch`; CUDA tensors launch
+    ``RASTERIZE_BACKWARD``, and anything the kernel does not take raises. The kernel
+    writes the slots of every tile's range and no other, so slots at or
+    past ``min(total, capacity)`` hold whatever the allocator left there:
+    callers read only the slots below it.
+    """
+    if point_rows.device.type == "cpu":
+        return rasterize_backward_torch(
+            point_rows, sorted_ids, tile_ranges, grad_tiles, gdotc_tiles, count_tiles,
+            tile_count_x=tile_count_x, block_size=block_size,
+        )
+    t = tile_ranges.shape[0]
+    _check_entry_inputs(
+        point_rows, sorted_ids, tile_ranges,
+        grad_tiles=(grad_tiles, torch.float32, (t, 3, PIXELS_PER_TILE)),
+        gdotc_tiles=(gdotc_tiles, torch.float32, (t, PIXELS_PER_TILE)),
+        count_tiles=(count_tiles, torch.int32, (t, PIXELS_PER_TILE)),
+    )
+    capacity = sorted_ids.shape[0]
+    out = torch.empty((ENTRY_ROWS, capacity), dtype=torch.float32, device=point_rows.device)
+    RASTERIZE_BACKWARD.launch(
+        point_rows.data_ptr(), point_rows.shape[1], sorted_ids.data_ptr(),
+        tile_ranges.data_ptr(), t, tile_count_x, grad_tiles.data_ptr(),
+        gdotc_tiles.data_ptr(), count_tiles.data_ptr(), OPACITY_2D_MAX,
+        OPACITY_2D_MIN, capacity, out.data_ptr(), stream_of(point_rows),
+    )
+    return out
 
 
 # --- tiled <-> image layout helpers --------------------------------------------

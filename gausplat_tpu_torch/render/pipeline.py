@@ -1,17 +1,24 @@
-"""The forward render pipeline.
+"""The render pipeline, differentiable.
 
-Counterpart of the forward half of ``gausplat_tpu/render/pipeline.py``
-(``_forward_internals`` and ``_render_fwd``). Reference orchestration and
-validation: .../render/gaussian_3d/jit/mod.rs:32-331.
+Counterpart of ``gausplat_tpu/render/pipeline.py``. Reference
+orchestration and validation: .../render/gaussian_3d/jit/mod.rs:32-331;
+autodiff bridge (the custom backward op and the
+``positions_2d_grad_norm`` side channel):
+src/scene/gaussian_3d/mod.rs:85-324.
 
 One render runs: project -> bin (expand, sort, segment) -> rasterize
-forward -> untile. On CUDA tensors the expansion and the rasterizer are
+forward -> untile. On CUDA tensors the expansion and both rasterizers are
 the hand-written kernels of :mod:`gausplat_tpu_torch.ops.expand` and
 :mod:`gausplat_tpu_torch.ops.rasterize`; the rest is PyTorch operators.
 
-This slice is forward-only: :func:`render` runs under ``torch.no_grad``
-and its outputs carry no autograd graph. The ``torch.autograd.Function``
-around render, with the backward kernel, comes with the training slice.
+The gradient: :class:`RasterizeFunction` is a ``torch.autograd.Function``
+over the per-point rows ``[9, P + 1]`` and ``positions_2d_grad_norm_ref``
+``[P]``, with the binning saved as non-differentiable state. Its backward
+tiles the image cotangent, runs the backward rasterizer, reduces the
+per-entry gradients per point (:func:`reduce_entry_grads`) and gives the
+reference's densification signal as the gradient of the ref. Autograd
+carries the rest: the sigmoid of the opacities and the projection, whose
+VJP the JAX package takes with ``jax.vjp``.
 """
 
 from __future__ import annotations
@@ -34,13 +41,17 @@ from ..errors import (
     UnsupportedSphericalHarmonicsDegreeError,
 )
 from ..ops.binning import bin_gaussians, make_point_orders
+from ..ops.blend import grad_rows_to_components
 from ..ops.expand import fused_point_orders
 from ..ops.projection import Camera, project_gaussians
 from ..ops.rasterize import (
     DEFAULT_BLOCK_SIZE,
     pack_point_data,
+    rasterize_backward,
+    rasterize_backward_torch,
     rasterize_forward,
     rasterize_forward_torch,
+    tile_image,
     untile_image,
     untile_map,
 )
@@ -137,15 +148,137 @@ def _scene_device(scene: GaussianScene, device) -> torch.device:
     return device
 
 
-@torch.no_grad()
+def _prefix_sum_f64(x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """Inclusive float64 prefix sum along the last axis of ``[R, n]``, as a
+    scan inside chunks of ``chunk`` plus a scan of the chunk totals: the
+    same sums in a fixed order, with ``R * n / chunk`` independent scans
+    where one long scan per row would leave the card nearly idle."""
+    r, n = x.shape
+    pad = -n % chunk
+    blocks = torch.nn.functional.pad(x.to(torch.float64), (0, pad)).view(r, -1, chunk)
+    inner = torch.cumsum(blocks, dim=-1)
+    totals = inner[..., -1]
+    before = torch.cumsum(totals, dim=-1) - totals
+    return (inner + before[..., None]).view(r, -1)[:, :n]
+
+
+def reduce_entry_grads(
+    entry_grads: torch.Tensor,
+    sorted_pids: torch.Tensor,
+    point_offsets: torch.Tensor,
+    entry_total: torch.Tensor,
+    capacity: int,
+) -> torch.Tensor:
+    """Per-point sums of the per-entry gradient rows, without atomics.
+
+    ``entry_grads`` [9, capacity] holds rows at the sorted positions,
+    ``sorted_pids`` [capacity] their point ids (P for pads),
+    ``point_offsets`` [P] the inclusive cumsum of the touched-tile counts.
+    Returns [9, P]: each point's sum over its entries below ``valid_count =
+    min(entry_total, capacity)``, zero for a point with none.
+
+    As the JAX function does, a stable sort by point id groups each
+    point's rows (entries keep their tile order), and a prefix sum is
+    differenced at the span ends ``min(point_offsets, valid_count)``. The
+    prefix sum is taken in float64, so the difference of two prefixes over
+    millions of entries does not cancel, and blocked (:func:`_prefix_sum_f64`)
+    so the card runs it in parallel. Slots at or past ``valid_count``
+    are never read: the pads sort last, and their positions gather slot 0.
+    """
+    valid = torch.clamp_max(entry_total.to(torch.int64), capacity)
+    order = torch.sort(sorted_pids, stable=True).indices
+    position = torch.arange(order.shape[0], device=order.device)
+    order = torch.where(position < valid, order, torch.zeros_like(order))
+    prefix = _prefix_sum_f64(entry_grads[:, order])
+    hi_raw = torch.minimum(point_offsets.to(torch.int64), valid) - 1
+    hi = prefix[:, hi_raw.clamp_min(0)]
+    hi = torch.where(hi_raw >= 0, hi, torch.zeros_like(hi))
+    lo = torch.nn.functional.pad(hi[:, :-1], (1, 0))
+    return (hi - lo).to(torch.float32)
+
+
+class _Frame(NamedTuple):
+    """What the rasterizer's backward needs beside the saved tensors."""
+
+    tile_count_x: int
+    tile_count_y: int
+    width: int
+    height: int
+    capacity: int
+    block_size: int
+    use_kernels: bool
+
+
+class RasterizeFunction(torch.autograd.Function):
+    """Rasterize per-point rows into an image, differentiably.
+
+    ``apply(point_rows [9, P + 1], positions_2d_grad_norm_ref [P], binning,
+    image_size_half [2], frame)`` returns ``(image [H, W, 3],
+    transmittances [H, W], rendered counts [H, W])``; the last two carry no
+    gradient. The gradient of ``point_rows`` has a zero pad column; that of
+    the ref is the per-point densification signal
+    ``|| dL/d pos2d * (W / 2, H / 2) ||`` (transform_backward/kernel.wgsl:
+    364-370).
+    """
+
+    @staticmethod
+    def forward(ctx, point_rows, grad_norm_ref, binning, image_size_half, frame):
+        # Both rasterizers write the initial state (0, 1, 0) for empty
+        # tiles, so the JAX pipeline's mask_empty_tiles step has no work here.
+        raster = rasterize_forward if frame.use_kernels else rasterize_forward_torch
+        image_tiles, trans_tiles, count_tiles = raster(
+            point_rows, binning.point_indices, binning.tile_ranges,
+            tile_count_x=frame.tile_count_x, block_size=frame.block_size,
+        )
+        ctx.save_for_backward(
+            point_rows, binning.point_indices, binning.tile_ranges,
+            binning.point_offsets, binning.total, image_size_half,
+            image_tiles, count_tiles,
+        )
+        ctx.frame = frame
+        size = frame[:4]
+        image = untile_image(image_tiles, *size)
+        trans, counts = untile_map(trans_tiles, *size), untile_map(count_tiles, *size)
+        ctx.mark_non_differentiable(trans, counts)
+        return image, trans, counts
+
+    @staticmethod
+    def backward(ctx, grad_image, grad_trans, grad_counts):
+        (point_rows, ids, ranges, offsets, total, half,
+         image_tiles, count_tiles) = ctx.saved_tensors
+        frame = ctx.frame
+        grad_tiles = tile_image(grad_image, frame.tile_count_x, frame.tile_count_y)
+        gdotc_tiles = torch.sum(grad_tiles * image_tiles, dim=1)
+        raster = rasterize_backward if frame.use_kernels else rasterize_backward_torch
+        entry_grads = raster(
+            point_rows, ids, ranges, grad_tiles, gdotc_tiles, count_tiles,
+            tile_count_x=frame.tile_count_x, block_size=frame.block_size,
+        )
+        d = reduce_entry_grads(entry_grads, ids, offsets, total, frame.capacity)
+        d_rows = torch.nn.functional.pad(d, (0, 1)) if ctx.needs_input_grad[0] else None
+        grad_norm = None
+        if ctx.needs_input_grad[1]:
+            *_, gx, gy = grad_rows_to_components(d)
+            grad_norm = torch.sqrt((gx * half[0]) ** 2 + (gy * half[1]) ** 2)
+        return d_rows, grad_norm, None, None, None
+
+
 def render(
     scene: GaussianScene,
     view: View,
     options: RenderOptions = RenderOptions(),
+    positions_2d_grad_norm_ref: Optional[torch.Tensor] = None,
     *,
     device=None,
 ) -> RenderOutput:
-    """Render a scene from a view (forward only; no autograd graph).
+    """Render a scene from a view. Differentiable in the scene parameters.
+
+    For the densification signal pass ``positions_2d_grad_norm_ref``
+    (zeros of shape [P] that require grad) and read its gradient, as the
+    reference's dummy-ref side channel (scene/gaussian_3d/mod.rs:222-229).
+    Under ``torch.no_grad()``, or when nothing requires grad, autograd
+    records no node for :class:`RasterizeFunction`: no graph is built and
+    its saved tensors are freed when the call returns.
 
     ``device``: where the render runs; it must hold the scene's
     parameters. ``None`` takes the scene's device.
@@ -156,13 +289,14 @@ def render(
     capacity = _capacity(point_count, options)
     tile_count_x = -(-view.image_width // TILE_SIZE_X)
     tile_count_y = -(-view.image_height // TILE_SIZE_Y)
+    camera = Camera.from_view(view, device=device)
 
     proj = project_gaussians(
         scene.colors_sh,
         scene.positions,
         scene.rotations,
         scene.scalings,
-        Camera.from_view(view, device=device),
+        camera,
         sh_degree=options.colors_sh_degree_max,
         tile_count_x=tile_count_x,
         tile_count_y=tile_count_y,
@@ -170,7 +304,7 @@ def render(
         tight_culling=options.tight_culling,
     )
     binning = bin_gaussians(
-        proj.depths,
+        proj.depths.detach(),
         proj.tile_x_max,
         proj.tile_x_min,
         proj.tile_y_min,
@@ -181,23 +315,21 @@ def render(
         expand=fused_point_orders if use_kernels else make_point_orders,
     )
     point_rows = pack_point_data(proj, torch.sigmoid(scene.opacities[:, 0]))
-    raster = rasterize_forward if use_kernels else rasterize_forward_torch
-    # Both rasterizers write the initial state (0, 1, 0) for empty tiles,
-    # so the JAX pipeline's mask_empty_tiles step has no work here.
-    image_tiles, trans_tiles, count_tiles = raster(
-        point_rows,
-        binning.point_indices,
-        binning.tile_ranges,
-        tile_count_x=tile_count_x,
-        block_size=options.block_size,
+    if positions_2d_grad_norm_ref is None:
+        positions_2d_grad_norm_ref = torch.zeros(
+            (point_count,), dtype=torch.float32, device=device
+        )
+    frame = _Frame(tile_count_x, tile_count_y, view.image_width, view.image_height,
+                   capacity, options.block_size, use_kernels)
+    image, trans, counts = RasterizeFunction.apply(
+        point_rows, positions_2d_grad_norm_ref, binning, camera.image_size_half, frame
     )
-    size = (tile_count_x, tile_count_y, view.image_width, view.image_height)
     return RenderOutput(
-        colors_rgb_2d=untile_image(image_tiles, *size),
+        colors_rgb_2d=image,
         radii=proj.radii,
         tile_point_total=binning.total,
-        transmittances=untile_map(trans_tiles, *size),
-        point_rendered_counts=untile_map(count_tiles, *size),
+        transmittances=trans,
+        point_rendered_counts=counts,
     )
 
 

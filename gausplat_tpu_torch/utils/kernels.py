@@ -33,11 +33,13 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "gausplat_tpu_torch"
 
 #: No ``--use_fast_math`` (it swaps ``expf`` for ``__expf``) and no FMA
 #: contraction: both move rounding at the alpha, density and transmittance
-#: thresholds of the rasterizer and flip rendered counts.
+#: thresholds of the rasterizer and flip rendered counts. ``-Xptxas -v``
+#: only reports each kernel's registers, shared memory and spills (kept in
+#: ``CudaKernel.build_log``).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-fmad=false",
+    "-fmad=false", "-Xptxas", "-v",
 )
 
 #: ctypes argument types used by the C entry points.
@@ -84,6 +86,7 @@ class CudaKernel:
         self.flags = tuple(flags)
         self.launches = 0
         self.build_seconds = None
+        self.build_log = None
         self._fn = None
         self._error_string = None
 
@@ -110,6 +113,7 @@ class CudaKernel:
                     f"{' '.join(cmd)}\n{done.stdout}{done.stderr}"
                 )
             os.replace(tmp, out)
+            self.build_log = done.stdout + done.stderr
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
@@ -143,6 +147,15 @@ class CudaKernel:
                 f"({self._error_string(code).decode()})"
             )
         self.launches += 1
+
+
+def build_all(kernels: Sequence[CudaKernel]) -> None:
+    """Build and load ``kernels`` at once, one ``nvcc`` process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max(len(kernels), 1)) as pool:
+        for future in [pool.submit(k.load) for k in kernels]:
+            future.result()
 
 
 def require_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):

@@ -5,9 +5,12 @@ a card and without JAX it runs alone, from the root of the repository:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the expansion is bit-identical; the rasterizer's image and
-transmittance within 1e-4 (a sequential per-pixel product against the
-plain version's log-step product), rendered counts exactly."""
+Tolerances: the expansion is bit-identical; the forward rasterizer's image
+and transmittance within 1e-4 (a sequential per-pixel product against the
+plain version's log-step product), rendered counts exactly; the backward
+rasterizer's gradient rows, and the render's parameter gradients and
+densification signal, within 1e-3 scaled by each row's or field's largest
+magnitude (sequential sums against log-step sums)."""
 
 import numpy as np
 import pytest
@@ -19,7 +22,8 @@ from gausplat_tpu_torch.ops.binning import bin_gaussians, make_point_orders
 from gausplat_tpu_torch.ops.expand import EXPAND, fused_point_orders
 from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
 from gausplat_tpu_torch.ops.rasterize import (
-    RASTERIZE_FORWARD, pack_point_data, rasterize_forward, rasterize_forward_torch,
+    RASTERIZE_BACKWARD, RASTERIZE_FORWARD, pack_point_data, rasterize_backward,
+    rasterize_backward_torch, rasterize_forward, rasterize_forward_torch, tile_image,
 )
 
 # By module name (pytest puts tests/ on the path), as test_rasterize.py
@@ -31,6 +35,13 @@ from torch_helpers import (  # noqa: F401  (cuda_device is a fixture)
 pytestmark = pytest.mark.cuda
 
 CASES = {"small": SMALL, "medium": MEDIUM}
+SCALED_ATOL = 1e-3
+
+
+def assert_scaled_close(got, want, what):
+    scale = float(want.abs().max().clamp_min(1e-8))
+    err = float((got.double() - want.double()).abs().max()) / scale
+    assert err <= SCALED_ATOL, f"{what}: scaled error {err}"
 
 
 @pytest.mark.parametrize("name", sorted(EXPAND_WORKLOADS))
@@ -78,6 +89,44 @@ def test_forward_kernel_matches_plain(case, cuda_device):
     torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
     torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
     assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_kernel_matches_plain(case, cuda_device):
+    c, (rows, ids, ranges), tcx = _entry_data(case, cuda_device)
+    image, _, counts = rasterize_forward(rows, ids, ranges, tile_count_x=tcx)
+    gen = torch.Generator().manual_seed(11)
+    grad = torch.randn((c["height"], c["width"], 3), generator=gen).to(cuda_device)
+    grad_tiles = tile_image(grad, tcx, -(-c["height"] // 16))
+    gdotc = torch.sum(grad_tiles * image, dim=1)
+    args = (rows, ids, ranges, grad_tiles, gdotc, counts)
+    before = RASTERIZE_BACKWARD.launches
+    got = rasterize_backward(*args, tile_count_x=tcx)
+    want = rasterize_backward_torch(*args, tile_count_x=tcx, block_size=c["block"])
+    torch.cuda.synchronize()
+    assert RASTERIZE_BACKWARD.launches == before + 1
+    valid = int(ranges[:, 1].max())
+    assert valid > 0
+    for r in range(9):
+        assert_scaled_close(got[r, :valid], want[r, :valid], f"row {r}")
+
+
+def test_render_grads_through_kernels_match_plain_path(cuda_device):
+    c = MEDIUM
+    view = port_view(c["width"], c["height"], position=(0.3, -0.2, -4.0))
+    weight = torch.randn((c["height"], c["width"], 3),
+                         generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    grads = {}
+    for backend in ("cuda", "torch"):
+        scene = T.GaussianScene.from_numpy(**scene_arrays(c["p"]), device=cuda_device)
+        ref = torch.zeros(c["p"], device=cuda_device, requires_grad=True)
+        out = T.render(scene, view, T.RenderOptions(backend=backend), ref)
+        torch.sum(out.colors_rgb_2d * weight).backward()
+        grads[backend] = {name: p.grad for name, p in scene.named_parameters()}
+        grads[backend]["norm"] = ref.grad
+    for name, want in grads["torch"].items():
+        assert bool(torch.isfinite(grads["cuda"][name]).all()), name
+        assert_scaled_close(grads["cuda"][name], want, name)
 
 
 def test_render_through_kernels_matches_plain_path(cuda_device):

@@ -3,7 +3,10 @@ chip_smoke.py holds the CUDA path against on the card.
 
 - It is current: JAX renders its inputs again to the stored outputs, and
   no (entry, pixel) pair sits within ``MARGIN`` of a blend threshold.
-- The port's plain path renders it within atol=1e-4, integers exactly.
+- The port's plain path renders it within atol=1e-4, integers exactly,
+  and its gradients (five parameters and the densification signal) match
+  the stored ``jax.grad`` within 1e-4 scaled by each field's largest
+  magnitude.
 - The sequential per-pixel order of the CUDA kernel, run here through the
   oracle of tests/oracle.py on the port's entry data, gives the stored
   rendered counts exactly; so the card's exact-count check tests the
@@ -45,10 +48,14 @@ def _port_inputs(case):
 def test_fixture_is_current(case):
     weights, view = torch_fixture.case_inputs(case)
     g = _stored(case)
-    for name, value in {**weights, **view}.items():
+    for name, value in {**weights, **view, "grad_weight": torch_fixture.grad_weight(case)}.items():
         np.testing.assert_array_equal(g[name], value, err_msg=name)
     for name, value in torch_fixture.render_with_jax(case).items():
-        if value.dtype.kind == "f":
+        if name.startswith("grad_"):
+            scale = np.abs(value).max()
+            np.testing.assert_allclose(g[name] / scale, value / scale, atol=1e-6, rtol=0,
+                                       err_msg=name)
+        elif value.dtype.kind == "f":
             np.testing.assert_allclose(g[name], value, atol=1e-6, rtol=0, err_msg=name)
         else:
             np.testing.assert_array_equal(g[name], value, err_msg=name)
@@ -63,11 +70,26 @@ def test_fixture_keeps_threshold_margin(case):
 def test_port_matches_fixture(case):
     g, scene, view, options = _port_inputs(case)
     out = T.render(scene, view, options)
-    np.testing.assert_allclose(out.colors_rgb_2d.numpy(), g["image"], atol=1e-4, rtol=0)
-    np.testing.assert_allclose(out.transmittances.numpy(), g["transmittance"], atol=1e-4, rtol=0)
-    np.testing.assert_array_equal(out.point_rendered_counts.numpy(), g["counts"])
-    np.testing.assert_array_equal(out.radii.numpy(), g["radii"])
+    np.testing.assert_allclose(out.colors_rgb_2d.detach().numpy(), g["image"], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(out.transmittances.detach().numpy(), g["transmittance"], atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(out.point_rendered_counts.detach().numpy(), g["counts"])
+    np.testing.assert_array_equal(out.radii.detach().numpy(), g["radii"])
     assert int(out.tile_point_total) == int(g["total"])
+
+
+@pytest.mark.parametrize("case", sorted(torch_fixture.CASES))
+def test_port_grads_match_fixture(case):
+    g, scene, view, options = _port_inputs(case)
+    ref = torch.zeros(scene.point_count, requires_grad=True)
+    out = T.render(scene, view, options, ref)
+    torch.sum(out.colors_rgb_2d * torch.as_tensor(g["grad_weight"])).backward()
+    got = {f"grad_{k}": getattr(scene, k).grad.numpy() for k in torch_fixture.PARAMS}
+    got["grad_norm"] = ref.grad.numpy()
+    for name, value in got.items():
+        scale = np.abs(g[name]).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(value / scale, g[name] / scale, atol=1e-4, rtol=0,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("case", sorted(torch_fixture.CASES))

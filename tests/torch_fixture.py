@@ -3,11 +3,14 @@
 The machine with the card has no JAX, so this file carries the JAX
 package's answers there: small seeded scenes rendered by
 ``gausplat_tpu.render(backend="xla")`` on the CPU, inputs and outputs
-(image, transmittance, rendered counts, radii, entry total), stored in
+(image, transmittance, rendered counts, radii, entry total), and the
+``jax.grad`` of ``sum(image * weight)``, with ``weight`` seeded, for the
+five parameters and the densification signal, stored in
 ``tests/data/torch_xcheck.npz``. ``chip_smoke.py`` renders the same
-inputs with the port's kernels and compares (atol 1e-4, integers
-exactly); ``tests/test_torch_fixture.py`` renders them again with JAX and
-checks that the stored file still matches.
+inputs with the port's kernels and compares (images atol 1e-4, integers
+exactly, gradients atol 1e-3 scaled by each field's largest magnitude);
+``tests/test_torch_fixture.py`` renders them again with JAX and checks
+that the stored file still matches.
 
 Every case keeps a relative margin of at least ``MARGIN`` between each
 (entry, pixel) alpha and the 1/255 blend threshold, and between each
@@ -18,7 +21,7 @@ without being a fault of either side.
 
 Regenerate, from the root of the repository:
 
-    python tests/torch_fixture.py
+    PYTHONPATH=. python tests/torch_fixture.py
 """
 
 import pathlib
@@ -74,8 +77,16 @@ def case_inputs(case):
     return weights, view
 
 
+def grad_weight(case):
+    """The seeded weight of the loss ``sum(image * weight)`` of one case."""
+    c = CASES[case]
+    rng = np.random.default_rng(c["seed"] + 1000)
+    return rng.standard_normal((c["height"], c["width"], 3)).astype(np.float32)
+
+
 def render_with_jax(case):
-    """The JAX package's outputs for one case."""
+    """The JAX package's outputs and gradients for one case."""
+    import jax
     import jax.numpy as jnp
 
     import gausplat_tpu as G
@@ -83,22 +94,29 @@ def render_with_jax(case):
     weights, view = case_inputs(case)
     fov_x, fov_y, height, width = view["view_shape"]
     sh_degree, tight, capacity, block = (int(x) for x in view["options"])
-    out = G.render(
-        G.GaussianScene(**{k: jnp.asarray(v) for k, v in weights.items()}),
-        G.View(field_of_view_x=float(fov_x), field_of_view_y=float(fov_y),
-               image_height=int(height), image_width=int(width),
-               view_position=view["view_position"],
-               view_transform=view["view_transform"]),
-        G.RenderOptions(backend="xla", colors_sh_degree_max=sh_degree,
-                        tight_culling=bool(tight), tile_entry_capacity=capacity,
-                        block_size=block),
-    )
+    scene = G.GaussianScene(**{k: jnp.asarray(v) for k, v in weights.items()})
+    jview = G.View(field_of_view_x=float(fov_x), field_of_view_y=float(fov_y),
+                   image_height=int(height), image_width=int(width),
+                   view_position=view["view_position"],
+                   view_transform=view["view_transform"])
+    options = G.RenderOptions(backend="xla", colors_sh_degree_max=sh_degree,
+                              tight_culling=bool(tight), tile_entry_capacity=capacity,
+                              block_size=block)
+    out = G.render(scene, jview, options)
+    weight = grad_weight(case)
+
+    def loss(s, ref):
+        return jnp.sum(G.render(s, jview, options, ref).colors_rgb_2d * weight)
+
+    grads, norm = jax.grad(loss, argnums=(0, 1))(scene, jnp.zeros((CASES[case]["p"],)))
     return dict(
         image=np.asarray(out.colors_rgb_2d),
         transmittance=np.asarray(out.transmittances),
         counts=np.asarray(out.point_rendered_counts),
         radii=np.asarray(out.radii),
         total=np.asarray(out.tile_point_total),
+        **{f"grad_{k}": np.asarray(getattr(grads, k)) for k in PARAMS},
+        grad_norm=np.asarray(norm),
     )
 
 
@@ -160,7 +178,8 @@ def build():
     data = {}
     for case in CASES:
         weights, view = case_inputs(case)
-        for name, value in {**weights, **view, **render_with_jax(case)}.items():
+        extra = dict(grad_weight=grad_weight(case))
+        for name, value in {**weights, **view, **extra, **render_with_jax(case)}.items():
             data[f"{case}/{name}"] = value
     return data
 

@@ -105,11 +105,24 @@ def scenes(arrays):
     return jscene, T.GaussianScene.from_arrays(jscene, device="cpu")
 
 
+#: Gradients against ``jax.grad``: each field scaled by its largest magnitude.
+SCALED_ATOL = 1e-4
+
+
+def assert_scaled_close(got, want, err_msg="", atol=SCALED_ATOL):
+    """``got`` within ``atol`` of ``want``, both divided by ``want``'s
+    largest magnitude."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(np.abs(want).max(), 1e-8)
+    np.testing.assert_allclose(got / scale, want / scale, atol=atol, rtol=0,
+                               err_msg=err_msg)
+
+
 def assert_outputs_match(jax_out, torch_out, atol):
     """Render outputs: floats within ``atol``, integers exactly."""
     for field in jax_out._fields:
         want = np.asarray(getattr(jax_out, field))
-        got = getattr(torch_out, field).numpy()
+        got = getattr(torch_out, field).detach().numpy()
         assert got.shape == want.shape, (field, got.shape, want.shape)
         if want.dtype.kind == "f":
             np.testing.assert_allclose(got, want, atol=atol, rtol=0, err_msg=field)
