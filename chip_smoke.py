@@ -158,6 +158,8 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """Max abs error divided by the reference's largest magnitude."""
+    if not want.numel():
+        return 0.0
     scale = float(want.detach().double().abs().max())
     return max_abs(got, want) / scale if scale > 0 else max_abs(got, want)
 
@@ -304,27 +306,41 @@ def compare_expand(args, capacity, tile_count_x) -> dict:
 
 
 def compare_forward(rows, ids, ranges, tcx, block_size=None) -> tuple[dict, tuple]:
-    """Kernel A against its plain version; returns the record and the
-    kernel's outputs."""
+    """Kernel A against its plain version, and against a second launch of
+    itself (bit for bit); returns the record and the kernel's outputs."""
     from gausplat_tpu_torch.ops.rasterize import (
         DEFAULT_BLOCK_SIZE, rasterize_forward, rasterize_forward_torch,
     )
 
     got = rasterize_forward(rows, ids, ranges, tile_count_x=tcx)
+    again = rasterize_forward(rows, ids, ranges, tile_count_x=tcx)
     ref = rasterize_forward_torch(rows, ids, ranges, tile_count_x=tcx,
                                   block_size=block_size or DEFAULT_BLOCK_SIZE)
     torch.cuda.synchronize()
     return dict(image_max_abs=max_abs(got[0], ref[0]),
                 transmittance_max_abs=max_abs(got[1], ref[1]),
                 count_equal_fraction=float((got[2] == ref[2]).double().mean()),
-                count_mismatches=int((got[2] != ref[2]).sum())), got
+                count_mismatches=int((got[2] != ref[2]).sum()),
+                repeat_bit_identical=all(torch.equal(a, b) for a, b in zip(got, again))), got
 
 
 def forward_close_at_full_size(rec) -> bool:
     """Kernel A's tolerance at full size: image and transmittance within
-    1e-3, at least 99.99% of the rendered counts equal."""
+    1e-3, at least 99.99% of the rendered counts equal, and a second launch
+    bit-identical."""
     return (rec["image_max_abs"] <= 1e-3 and rec["transmittance_max_abs"] <= 1e-3
-            and rec["count_equal_fraction"] >= 0.9999)
+            and rec["count_equal_fraction"] >= 0.9999 and rec["repeat_bit_identical"])
+
+
+def warp_keep_share(rows, ids, ranges, tcx) -> float:
+    """The share of (entry, warp) pairs in the tile ranges that the kernels'
+    footprint keeps (``entry_warp_masks``, the plain version of their mask)."""
+    from gausplat_tpu_torch.ops.rasterize import WARPS_PER_TILE, entry_warp_masks
+
+    masks = entry_warp_masks(rows, ids, ranges, tile_count_x=tcx).to(torch.int32)
+    bits = (masks[:, None] >> torch.arange(WARPS_PER_TILE, device=masks.device)) & 1
+    entries = int((ranges[:, 1] - ranges[:, 0]).clamp_min(0).sum())
+    return int(bits.sum()) / (WARPS_PER_TILE * entries) if entries else 0.0
 
 
 def backward_inputs(rows, ids, ranges, tcx, grad_image):
@@ -339,19 +355,75 @@ def backward_inputs(rows, ids, ranges, tcx, grad_image):
     return (rows, ids, ranges, grad_tiles, gdotc, count_tiles)
 
 
-def compare_backward(args, tcx, block_size) -> dict:
+def compare_backward(args, tcx, block_size) -> tuple[dict, torch.Tensor]:
     """Kernel C against its plain version over the slots below the valid
-    entry count: per-row error scaled by the row's largest magnitude."""
+    entry count (per-row error scaled by the row's largest magnitude, over
+    the slots where the plain row is finite), and against a second launch of
+    itself (bit for bit); returns the record and the kernel's rows."""
     from gausplat_tpu_torch.ops.rasterize import rasterize_backward, rasterize_backward_torch
 
     got = rasterize_backward(*args, tile_count_x=tcx)
+    again = rasterize_backward(*args, tile_count_x=tcx)
     ref = rasterize_backward_torch(*args, tile_count_x=tcx, block_size=block_size)
     torch.cuda.synchronize()
     valid = int(args[2][:, 1].max())
-    rows = [scaled_err(got[r, :valid], ref[r, :valid]) for r in range(9)]
+    finite = torch.isfinite(ref[:, :valid])
+    rows = [scaled_err(got[r, :valid][finite[r]], ref[r, :valid][finite[r]]) for r in range(9)]
     return dict(valid_slots=valid, row_scaled_err=rows,
-                max_abs=max_abs(got[:, :valid], ref[:, :valid]),
-                finite=bool(torch.isfinite(got[:, :valid]).all()))
+                max_abs=max_abs(got[:, :valid][finite], ref[:, :valid][finite]),
+                plain_nonfinite=int((~finite).sum()),
+                finite=bool(torch.isfinite(got[:, :valid]).all()),
+                repeat_bit_identical=bool(torch.equal(got[:, :valid], again[:, :valid]))), got
+
+
+def backward_close(rec) -> bool:
+    """Kernel C's tolerance: finite rows within ``GRAD_SCALED_ATOL`` of the
+    plain version, and a second launch bit-identical."""
+    return (rec["finite"] and max(rec["row_scaled_err"]) <= GRAD_SCALED_ATOL
+            and rec["repeat_bit_identical"])
+
+
+#: Builds of kernels A and C that leave one part of the design out
+#: (``csrc/tile_batch.cuh``'s and ``rasterize_backward.cu``'s switches),
+#: timed at the step's shapes beside the default build. Each must give the
+#: default build's outputs bit for bit.
+VARIANTS = {
+    "no_skip": ("-DGS_FOOTPRINT_SKIP=0",),
+    "sync_staging": ("-DGS_ASYNC_STAGING=0",),
+    "batch_128": ("-DGS_BACKWARD_BATCH=128",),  # kernel C only
+}
+
+
+def time_variants(rows, ids, ranges, tcx, c_args, a_out, c_out) -> dict:
+    """Each variant build of A and C: its time, its ptxas report and launch
+    facts, and whether its outputs equal the default build's bit for bit."""
+    from gausplat_tpu_torch.ops.rasterize import (
+        RASTERIZE_BACKWARD, RASTERIZE_FORWARD, rasterize_backward, rasterize_forward,
+    )
+    from gausplat_tpu_torch.utils.kernels import NVCC_FLAGS, build_all
+
+    builds = {}
+    for variant, flags in VARIANTS.items():
+        if variant != "batch_128":
+            builds["rasterize_forward", variant] = RASTERIZE_FORWARD.with_flags(NVCC_FLAGS + flags)
+        builds["rasterize_backward", variant] = RASTERIZE_BACKWARD.with_flags(NVCC_FLAGS + flags)
+    build_all(list(builds.values()))
+    valid = int(ranges[:, 1].max())
+    out = {}
+    for (name, variant), kernel in builds.items():
+        if name == "rasterize_forward":
+            def run(kernel=kernel):
+                return rasterize_forward(rows, ids, ranges, tile_count_x=tcx, kernel=kernel)
+            same = all(torch.equal(a, b) for a, b in zip(run(), a_out))
+        else:
+            def run(kernel=kernel):
+                return rasterize_backward(*c_args, tile_count_x=tcx, kernel=kernel)
+            same = bool(torch.equal(run()[:, :valid], c_out[:, :valid]))
+        ms, ms_all = cuda_ms(run)
+        out.setdefault(name, {})[variant] = dict(
+            ms=ms, ms_all=ms_all, bit_identical_to_default=same,
+            **kernel.ptxas_usage(), **kernel.launch_info())
+    return out
 
 
 # --- phases ---------------------------------------------------------------------
@@ -588,6 +660,7 @@ def phase_main_path(ctx):
     a_bound = bound(nbytes(rows, ids, ranges) + tiles * 256 * (3 + 1 + 1) * 4,
                     ctx["raster_pairs"] * PAIR_FLOPS_MIN)
     a_bound["pairs"] = ctx["raster_pairs"]
+    a_bound["warp_keep_share"] = warp_keep_share(rows, ids, ranges, tcx)
     b_bound = bound(nbytes(*b_args) + capacity * (8 + 4), 0.0)
     return dict(
         card=ctx["card"], views=len(views), capacity=capacity, launches=launches,
@@ -619,19 +692,48 @@ def phase_rasterize_backward(ctx):
     for tight in (False, True):
         rows, ids, ranges, tcx, _ = raster_inputs(small, small_view(T), 1024, tight, dev)
         grad = torch.randn((40, 56, 3), generator=gen, device=dev)
-        rec = compare_backward(backward_inputs(rows, ids, ranges, tcx, grad), tcx, 64)
+        rec, _ = compare_backward(backward_inputs(rows, ids, ranges, tcx, grad), tcx, 64)
         results[f"small_tight{int(tight)}"] = rec
-        check(rec["finite"] and max(rec["row_scaled_err"]) <= GRAD_SCALED_ATOL,
+        check(backward_close(rec),
               f"backward kernel differs from its plain version on the small scene: {rec}")
 
     rows, ids, ranges, tcx = ctx["raster_inputs"]
     view = ctx["views"][0]
     grad = torch.randn((view.image_height, view.image_width, 3), generator=gen, device=dev)
-    full = compare_backward(backward_inputs(rows, ids, ranges, tcx, grad), tcx, 256)
+    full, _ = compare_backward(backward_inputs(rows, ids, ranges, tcx, grad), tcx, 256)
     results["full_size"] = full
-    check(full["finite"] and max(full["row_scaled_err"]) <= GRAD_SCALED_ATOL,
+    check(backward_close(full),
           f"backward kernel differs from its plain version at full size: {full}")
     return results
+
+
+@torch.no_grad()
+def phase_adversarial(ctx):
+    """Kernels A and C on rows that stress their footprint skip
+    (``tests/torch_helpers.py::adversarial_entries``: near-singular conics,
+    opacities at 1/255 (1 +- 1e-6) and above 252/255, huge and sub-pixel
+    ellipses, pixels on the edge of an ellipse and alone in their strip,
+    non-PD conics, NaN and inf): A's counts equal to the plain version's,
+    image and transmittance within 1e-4; C within GRAD_SCALED_ATOL wherever
+    the plain rows are finite."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_helpers import adversarial_entries
+
+    dev = ctx["device"]
+    rows, ids, ranges, width, height, tcx = adversarial_entries()
+    rows, ids, ranges = (torch.as_tensor(a, device=dev) for a in (rows, ids, ranges))
+    a_rec, _ = compare_forward(rows, ids, ranges, tcx, block_size=64)
+    check(a_rec["count_mismatches"] == 0 and a_rec["image_max_abs"] <= 1e-4
+          and a_rec["transmittance_max_abs"] <= 1e-4 and a_rec["repeat_bit_identical"],
+          f"forward kernel differs from its plain version on the adversarial rows: {a_rec}")
+    grad = torch.randn((height, width, 3), generator=torch.Generator(device=dev).manual_seed(13),
+                       device=dev)
+    c_rec, _ = compare_backward(backward_inputs(rows, ids, ranges, tcx, grad), tcx, 64)
+    check(backward_close(c_rec),
+          f"backward kernel differs from its plain version on the adversarial rows: {c_rec}")
+    return dict(entries=int(ranges[0, 1] - ranges[0, 0]), tiles=int(ranges.shape[0]),
+                warp_keep_share=warp_keep_share(rows, ids, ranges, tcx),
+                rasterize_forward=a_rec, rasterize_backward=c_rec)
 
 
 def phase_grad(ctx):
@@ -766,8 +868,8 @@ def phase_train(ctx):
     image = image.detach().requires_grad_()
     (cotangent,) = torch.autograd.grad(TT.photometric_loss(image, target), image)
     c_args = backward_inputs(rows, ids, ranges, tcx, cotangent)
-    c_rec = compare_backward(c_args, tcx, 256)
-    check(c_rec["finite"] and max(c_rec["row_scaled_err"]) <= GRAD_SCALED_ATOL,
+    c_rec, c_out = compare_backward(c_args, tcx, 256)
+    check(backward_close(c_rec),
           f"backward kernel differs from its plain version at the step's shapes: {c_rec}")
 
     times = {
@@ -791,6 +893,15 @@ def phase_train(ctx):
         "rasterize_backward": bound(nbytes(*c_args) + 9 * c_rec["valid_slots"] * 4,
                                     pairs * PAIR_FLOPS_MIN),
     }
+    keep = warp_keep_share(rows, ids, ranges, tcx)
+    variants = time_variants(rows, ids, ranges, tcx, c_args, a_out, c_out)
+    check(all(v["bit_identical_to_default"] for k in variants.values() for v in k.values()),
+          f"a variant build of A or C changed their outputs: {variants}")
+    # A's and C's footprint skip and their resources (ptxas; the runtime's
+    # dynamic shared memory and resident CTAs per SM).
+    extra = {name: dict(warp_keep_share=keep, **kernel.ptxas_usage(), **kernel.launch_info())
+             for name, kernel in (("rasterize_forward", RASTERIZE_FORWARD),
+                                  ("rasterize_backward", RASTERIZE_BACKWARD))}
     errors = {
         "rasterize_forward": max(a_rec["image_max_abs"], a_rec["transmittance_max_abs"]),
         "expand_point_orders": b_rec["max_abs"],
@@ -806,7 +917,7 @@ def phase_train(ctx):
              replaces=replaces, launches=launches[source], max_abs_err=errors[name],
              ms=times[name][0][0], plain_ms=times[name][1][0],
              bound_ms=bounds[name]["bound_ms"], bound_by=bounds[name]["bound_by"],
-             library_ms=None)
+             library_ms=None, **extra.get(name, {}))
         for name, source, replaces in kernel_rows
     ]
 
@@ -835,7 +946,7 @@ def phase_train(ctx):
                          rasterize_backward=c_rec),
             ms_all={name: t[0][1] for name, t in times.items()},
             plain_ms_all={name: t[1][1] for name, t in times.items()},
-            bounds=bounds,
+            bounds=bounds, warp_keep_share=keep, variants=variants,
         ),
         grad_norm_max=float(norm.max()), culled_points=int(culled.sum()),
         step_profile=breakdown,
@@ -855,7 +966,8 @@ def main() -> int:
 
     phases = [("env", phase_env), ("expand", phase_expand), ("rasterize", phase_rasterize),
               ("fixture", phase_fixture), ("main_path", phase_main_path),
-              ("rasterize_backward", phase_rasterize_backward), ("grad", phase_grad),
+              ("rasterize_backward", phase_rasterize_backward),
+              ("adversarial", phase_adversarial), ("grad", phase_grad),
               ("train", phase_train)]
     for name, phase in phases:
         start = time.perf_counter()

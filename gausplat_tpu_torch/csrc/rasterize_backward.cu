@@ -30,22 +30,35 @@
 // kept pair costs some 45 f32 operations (the density terms again, the
 // replay, nine products and nine sums), against some 150 MB of traffic
 // (per-point rows and ids, the grad / <g, C> / count tiles, the [9, cap]
-// output).
+// output). Most of the pairs in range cannot blend: the design spends the
+// operations on the pairs that can.
 //
 // Design: one 256-thread CTA per tile, thread = ly * 16 + lx, as the
-// forward kernel. The CTA stages 128 entries at a time into shared memory
-// and every pixel walks them in order. The nine per-entry sums reduce
-// inside the CTA, so no atomics are needed and the order is fixed: for each
-// entry each warp sums its 32 lanes with __shfl_xor_sync and lane 0 writes
-// the nine partials to partial[warp][row][j]; after the batch, thread j adds
-// the 8 warp partials of entry j in warp order and writes column base + j.
-// A warp in which no lane blends entry j skips the shuffles (__any_sync),
-// which is most warps for most entries. The partials take 8 x 9 x 128 x 4 =
-// 36,864 bytes and the staged entries 4,608, under the 48 KB of static
-// shared memory, so a batch is 128 entries rather than 256. The CTA stops
-// replaying once the batch passes the tile's largest forward count (the
-// JAX window skip at rasterize.py:525-529) and writes zeros for the rest of
-// its range.
+// forward kernel, walking its range in batches of kBatch (256) entries.
+// - Staging: thread j gathers entry j's nine floats with 4-byte cp.async
+//   copies into one of two shared buffers; the gather of batch k + 1 is in
+//   flight while the CTA walks batch k (tile_batch.cuh). The id of the
+//   batch after that is loaded into a register a batch ahead.
+// - Footprint skip: once its copies land, thread j computes entry j's warp
+//   mask (tile_batch.cuh::entry_warp_mask, shared with the forward kernel):
+//   the tile's 16x2 warp strips that its alpha >= 1/255 ellipse can reach.
+//   Each warp walks only the entries whose bit it holds (a ballot per 32
+//   entries, then the set bits in order) and below its own largest count;
+//   a skipped entry costs the warp nothing (no expf, no vote, no shuffle).
+//   A skipped pair cannot blend, so T and P do not change and it adds 0.
+// - Reduction: a warp in which some lane blends entry j sums its 32 lanes
+//   with __shfl_xor_sync; lane 0 writes the nine partials to
+//   partial[warp][row][j] and sets the warp's bit in contrib[j] (an integer
+//   atomicOr in shared memory). After the batch thread j adds the partials
+//   of the warps in contrib[j], in warp order, and writes column base + j:
+//   the same sums, in the same order, as adding every warp's partial with
+//   zeros for the rest. No float atomics; a launch is deterministic.
+// - The partials take 8 x 9 x 256 x 4 = 73,728 bytes and the two staging
+//   buffers 18,432, so the batch lives in dynamic shared memory (about
+//   94 KB, two CTAs per SM), set once per device at the first launch.
+// - The CTA stops replaying once the batch passes the tile's largest
+//   forward count (the JAX window skip at rasterize.py:525-529) and writes
+//   zeros for the rest of its range.
 //
 // Rounding: built without fast math and with -fmad=false, and the density
 // terms keep the JAX evaluation order, as the forward kernel does, so the
@@ -54,13 +67,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_batch.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;
-constexpr int kWarps = kPixels / 32;
-constexpr int kBatch = 128;
-constexpr int kRows = 9;  // r, g, b, cxx, cxy, cyy, opacity, px, py
+using namespace gs;
+
+// Entries per batch; GS_BACKWARD_BATCH=128 builds the batch of the kernel
+// before the redesign (about 47 KB, four CTAs per SM), for measuring.
+#ifndef GS_BACKWARD_BATCH
+#define GS_BACKWARD_BATCH 256
+#endif
+constexpr int kBatch = GS_BACKWARD_BATCH;
+constexpr uint32_t kAllLanes = 0xffffffffu;
+
+struct BackwardShared {
+  float staged[2][kRows][kBatch];
+  float partial[kWarps][kRows][kBatch];
+  uint32_t contrib[kBatch];  // bit w: warp w blended the entry
+  uint8_t mask[kBatch];      // bit w: warp w walks the entry
+  int32_t max_count;
+};
 
 __global__ void __launch_bounds__(kPixels) rasterize_backward_kernel(
     const float* __restrict__ point_rows,  // [9, row_stride]
@@ -75,16 +102,17 @@ __global__ void __launch_bounds__(kPixels) rasterize_backward_kernel(
     float opacity_min,
     int64_t capacity,
     float* __restrict__ out) {  // [9, capacity]
-  __shared__ float staged[kRows][kBatch];
-  __shared__ float partial[kWarps][kRows][kBatch];
-  __shared__ int32_t max_count;
+  extern __shared__ __align__(16) unsigned char smem[];
+  BackwardShared& sh = *reinterpret_cast<BackwardShared*>(smem);
 
   const int32_t tile = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const float pix_x = (float)((tile % tile_count_x) * kTile + tid % kTile);
-  const float pix_y = (float)((tile / tile_count_x) * kTile + tid / kTile);
+  const int32_t x0 = (tile % tile_count_x) * kTile;
+  const int32_t y0 = (tile / tile_count_x) * kTile;
+  const float pix_x = (float)(x0 + tid % kTile);
+  const float pix_y = (float)(y0 + tid / kTile);
   const int32_t r0 = tile_ranges[2 * tile];
   const int32_t r1 = tile_ranges[2 * tile + 1];
   const int64_t pixel = (int64_t)tile * kPixels + tid;
@@ -93,91 +121,129 @@ __global__ void __launch_bounds__(kPixels) rasterize_backward_kernel(
   const float gb = grad_tiles[((int64_t)tile * 3 + 2) * kPixels + tid];
   const float gdotc = gdotc_tiles[pixel];
   const int32_t count = count_tiles[pixel];
+  const int32_t warp_count = __reduce_max_sync(kAllLanes, count);
 
-  if (tid == 0) max_count = 0;
+  if (tid == 0) sh.max_count = 0;
   __syncthreads();
-  atomicMax(&max_count, count);
+  if (lane == 0) atomicMax(&sh.max_count, warp_count);
   __syncthreads();
+  // Entries at or past `end` are blended by no pixel of the tile.
+  const int32_t end = min(r1, r0 + sh.max_count);
+
+  // Stage batch 0, and hold the id of batch 1.
+  if (tid < kBatch && r0 + tid < end) {
+    stage_entry<kBatch>(sh.staged[0], tid, point_rows, row_stride, sorted_ids[r0 + tid]);
+  }
+  cp_async_commit();
+  int32_t next_id = (tid < kBatch && r0 + kBatch + tid < end) ? sorted_ids[r0 + kBatch + tid] : -1;
 
   float t = 1.0f;       // transmittance before the next entry
   float prefix = 0.0f;  // <g, colour blended so far>
 
   int32_t base = r0;
-  for (; base < r1 && base - r0 < max_count; base += kBatch) {
-    const int n = min(kBatch, r1 - base);
-    if (tid < n) {
-      const int64_t pid = sorted_ids[base + tid];
-#pragma unroll
-      for (int k = 0; k < kRows; ++k) {
-        staged[k][tid] = point_rows[k * row_stride + pid];
+  for (int buf = 0; base < end; base += kBatch, buf ^= 1) {
+    // Gather batch k + 1 while batch k is walked. Its buffer held batch
+    // k - 1, which every warp finished before the barrier ending the last
+    // walk.
+    if (next_id >= 0) {
+      stage_entry<kBatch>(sh.staged[buf ^ 1], tid, point_rows, row_stride, next_id);
+    }
+    cp_async_commit();
+    const int32_t after = base + 2 * kBatch + tid;
+    next_id = (tid < kBatch && after < end) ? sorted_ids[after] : -1;
+    cp_async_wait<1>();
+
+    const float(*staged)[kBatch] = sh.staged[buf];
+    float cxx = 0.0f, cxy = 0.0f, cyy = 0.0f;
+    if (tid < kBatch) {
+      uint32_t m = 0u;
+      if (base + tid < end) {
+        cxx = staged[3][tid];
+        cxy = staged[4][tid];
+        cyy = staged[5][tid];
+        m = staged_warp_mask<kBatch>(staged, tid, x0, y0, opacity_min);
       }
+      sh.mask[tid] = (uint8_t)m;
+      sh.contrib[tid] = 0u;
     }
     __syncthreads();
 
-    for (int j = 0; j < n; ++j) {
-      float v[kRows];
+    // This warp's entries of the batch: footprint bit set, below its count.
+    const int warp_end = min(min(kBatch, end - base), warp_count - (base - r0));
+    for (int word = 0; word * 32 < warp_end; ++word) {
+      const int jj = word * 32 + lane;
+      uint32_t bits = __ballot_sync(kAllLanes, jj < warp_end && ((sh.mask[jj] >> warp) & 1u));
+      while (bits) {
+        const int j = word * 32 + __ffs(bits) - 1;
+        bits &= bits - 1u;
+        float v[kRows];
 #pragma unroll
-      for (int k = 0; k < kRows; ++k) v[k] = 0.0f;
-      bool blended = false;
-      if (base - r0 + j < count) {
-        const float dx = staged[7][j] - pix_x;
-        const float dy = staged[8][j] - pix_y;
-        const float quad = staged[3][j] * dx * dx
-                         + 2.0f * staged[4][j] * dx * dy
-                         + staged[5][j] * dy * dy;
-        const float density = expf(-0.5f * quad);
-        const float opacity = staged[6][j];
-        const float a = opacity * density;
-        const float alpha = a > opacity_max ? opacity_max : a;
-        if (density <= 1.0f && alpha >= opacity_min) {
-          blended = true;
-          const float w = alpha * t;
-          const float gdc = staged[0][j] * gr + staged[1][j] * gg + staged[2][j] * gb;
-          const float prefix_n = prefix + w * gdc;
-          const float one_minus = 1.0f - alpha;
-          const float d_alpha = t * gdc - (gdotc - prefix_n) / one_minus;
-          const float t0 = density * d_alpha;
-          const float k = t0 * (-opacity);
-          const float t1 = k * dx;
-          const float t2 = k * dy;
-          v[0] = w * gr;
-          v[1] = w * gg;
-          v[2] = w * gb;
-          v[3] = t1 * dx;
-          v[4] = t1 * dy;
-          v[5] = t2 * dy;
-          v[6] = t0;
-          v[7] = t1;
-          v[8] = t2;
-          t *= one_minus;
-          prefix = prefix_n;
+        for (int k = 0; k < kRows; ++k) v[k] = 0.0f;
+        bool blended = false;
+        if (base - r0 + j < count) {
+          const float dx = staged[7][j] - pix_x;
+          const float dy = staged[8][j] - pix_y;
+          const float quad = staged[3][j] * dx * dx
+                           + 2.0f * staged[4][j] * dx * dy
+                           + staged[5][j] * dy * dy;
+          const float density = expf(-0.5f * quad);
+          const float opacity = staged[6][j];
+          const float a = opacity * density;
+          const float alpha = a > opacity_max ? opacity_max : a;
+          if (density <= 1.0f && alpha >= opacity_min) {
+            blended = true;
+            const float w = alpha * t;
+            const float gdc = staged[0][j] * gr + staged[1][j] * gg + staged[2][j] * gb;
+            const float prefix_n = prefix + w * gdc;
+            const float one_minus = 1.0f - alpha;
+            const float d_alpha = t * gdc - (gdotc - prefix_n) / one_minus;
+            const float t0 = density * d_alpha;
+            const float k = t0 * (-opacity);
+            const float t1 = k * dx;
+            const float t2 = k * dy;
+            v[0] = w * gr;
+            v[1] = w * gg;
+            v[2] = w * gb;
+            v[3] = t1 * dx;
+            v[4] = t1 * dy;
+            v[5] = t2 * dy;
+            v[6] = t0;
+            v[7] = t1;
+            v[8] = t2;
+            t *= one_minus;
+            prefix = prefix_n;
+          }
         }
-      }
-      if (__any_sync(0xffffffffu, blended)) {
+        if (__any_sync(kAllLanes, blended)) {
 #pragma unroll
-        for (int k = 0; k < kRows; ++k) {
+          for (int k = 0; k < kRows; ++k) {
 #pragma unroll
-          for (int off = 16; off > 0; off /= 2) {
-            v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
+            for (int off = 16; off > 0; off /= 2) {
+              v[k] += __shfl_xor_sync(kAllLanes, v[k], off);
+            }
+          }
+          if (lane == 0) {
+#pragma unroll
+            for (int k = 0; k < kRows; ++k) sh.partial[warp][k][j] = v[k];
+            atomicOr(&sh.contrib[j], 1u << warp);
           }
         }
       }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < kRows; ++k) partial[warp][k][j] = v[k];
-      }
     }
-    __syncthreads();
+    __syncthreads();  // every partial and contrib bit of the batch is written
 
+    const int n = min(kBatch, r1 - base);
     if (tid < n) {
+      const uint32_t m = sh.contrib[tid];
       float s[kRows];
 #pragma unroll
       for (int k = 0; k < kRows; ++k) {
         float acc = 0.0f;
-        for (int w = 0; w < kWarps; ++w) acc += partial[w][k][tid];
+        for (int w = 0; w < kWarps; ++w) {
+          if ((m >> w) & 1u) acc += sh.partial[w][k][tid];
+        }
         s[k] = acc;
       }
-      const float cxx = staged[3][tid], cxy = staged[4][tid], cyy = staged[5][tid];
       const int64_t e = base + tid;
       out[0 * capacity + e] = s[0];
       out[1 * capacity + e] = s[1];
@@ -186,17 +252,33 @@ __global__ void __launch_bounds__(kPixels) rasterize_backward_kernel(
       out[4 * capacity + e] = s[4];
       out[5 * capacity + e] = 0.5f * s[5];
       out[6 * capacity + e] = s[6];
-      out[7 * capacity + e] = cxx * s[7] + cxy * s[8];
-      out[8 * capacity + e] = cxy * s[7] + cyy * s[8];
+      out[7 * capacity + e] = m ? cxx * s[7] + cxy * s[8] : 0.0f;
+      out[8 * capacity + e] = m ? cxy * s[7] + cyy * s[8] : 0.0f;
     }
-    __syncthreads();  // the next batch overwrites `staged` and `partial`
   }
+  cp_async_wait<0>();
 
   // Entries past every pixel's count were blended by no pixel.
   for (int64_t e = (int64_t)base + tid; e < r1; e += kPixels) {
 #pragma unroll
     for (int k = 0; k < kRows; ++k) out[k * capacity + e] = 0.0f;
   }
+}
+
+// cudaFuncSetAttribute once per device, before the first launch there.
+constexpr int kMaxDevices = 64;
+bool configured[kMaxDevices];
+
+cudaError_t configure() {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && configured[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(rasterize_backward_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sizeof(BackwardShared));
+  if (err == cudaSuccess && device < kMaxDevices) configured[device] = true;
+  return err;
 }
 
 }  // namespace
@@ -208,13 +290,29 @@ extern "C" int gs_rasterize_backward(
     float opacity_max, float opacity_min, int64_t capacity, void* out,
     void* stream) {
   if (num_tiles > 0) {
-    rasterize_backward_kernel<<<num_tiles, kPixels, 0, (cudaStream_t)stream>>>(
+    const cudaError_t err = configure();
+    if (err != cudaSuccess) return (int)err;
+    rasterize_backward_kernel<<<num_tiles, kPixels, sizeof(BackwardShared),
+                                (cudaStream_t)stream>>>(
         (const float*)point_rows, row_stride, (const int32_t*)sorted_ids,
         (const int32_t*)tile_ranges, tile_count_x, (const float*)grad_tiles,
         (const float*)gdotc_tiles, (const int32_t*)count_tiles, opacity_max,
         opacity_min, capacity, (float*)out);
   }
   return (int)cudaGetLastError();
+}
+
+// Launch facts for a report: dynamic shared memory per CTA, and resident
+// CTAs per SM at 256 threads.
+extern "C" int gs_kernel_info(int32_t* dynamic_smem_bytes, int32_t* blocks_per_sm) {
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return (int)err;
+  *dynamic_smem_bytes = (int32_t)sizeof(BackwardShared);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, rasterize_backward_kernel, kPixels, sizeof(BackwardShared));
+  *blocks_per_sm = blocks;
+  return (int)err;
 }
 
 extern "C" const char* gs_error_string(int code) {

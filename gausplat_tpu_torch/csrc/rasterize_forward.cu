@@ -18,18 +18,27 @@
 //
 // What bounds it on this card: the per-(entry, pixel) exp and the dozen
 // flops around it, not bytes. At the 1080p / 1M-point shape there are
-// about 1.76M entries x 256 pixels = 450M pairs; the entry data is 9 floats
-// per entry (63 MB with the ids), read once per tile.
+// about 1.76M entries x 256 pixels = 450M pairs in the tile ranges; the
+// entry data is 9 floats per entry (63 MB with the ids), read once per
+// tile. Most of those pairs cannot blend: the design spends the exp on the
+// pairs that can.
 //
 // Design: one 256-thread CTA per tile, thread = ly * 16 + lx (the lane
-// order of rasterize.py::_pixel_coords). The CTA walks its range in batches
-// of 256: each thread stages one entry's nine floats into shared memory,
-// then every pixel walks the batch in order, as the reference's per-pixel
-// loop does (tests/oracle.py). All threads read the same shared word at
-// once, which is a broadcast. The whole tile leaves early once every pixel
-// is done (__syncthreads_count). The TPU kernel's window/step machinery is
-// gone: a CTA loops over its own range instead of the grid stepping
-// through (tile, window) pairs.
+// order of rasterize.py::_pixel_coords), walking its range in batches of
+// 256 entries, as the backward kernel does (tile_batch.cuh):
+// - each thread gathers one entry's nine floats with 4-byte cp.async
+//   copies into one of two shared buffers, so batch k + 1 is in flight
+//   while the CTA walks batch k;
+// - once its copies land, the thread computes the entry's warp mask
+//   (tile_batch.cuh::entry_warp_mask, shared with the backward kernel), and
+//   each warp walks only the entries whose bit it holds, in order (a ballot
+//   per 32 entries, then the set bits). A skipped pair cannot blend, so the
+//   per-pixel order of the blended entries, and every output, is that of
+//   walking every entry;
+// - all threads read the same shared word at once (a broadcast); the whole
+//   tile leaves early once every pixel is done (__syncthreads_count). The
+//   TPU kernel's window/step machinery is gone: a CTA loops over its own
+//   range instead of the grid stepping through (tile, window) pairs.
 //
 // Rounding: built without fast math (expf, not __expf) and with
 // -fmad=false, and the quadratic form keeps the JAX evaluation order
@@ -39,11 +48,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_batch.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;
-constexpr int kRows = 9;  // r, g, b, cxx, cxy, cyy, opacity, px, py
+using namespace gs;
+
+constexpr uint32_t kAllLanes = 0xffffffffu;
 
 __global__ void __launch_bounds__(kPixels) rasterize_forward_kernel(
     const float* __restrict__ point_rows,  // [9, row_stride]
@@ -57,12 +68,17 @@ __global__ void __launch_bounds__(kPixels) rasterize_forward_kernel(
     float* __restrict__ image,  // [num_tiles, 3, 256]
     float* __restrict__ transmittance,  // [num_tiles, 256]
     int32_t* __restrict__ counts) {  // [num_tiles, 256]
-  __shared__ float staged[kRows][kPixels];
+  __shared__ __align__(16) float staged_buffers[2][kRows][kPixels];
+  __shared__ uint8_t mask[kPixels];  // bit w: warp w walks the entry
 
   const int32_t tile = blockIdx.x;
   const int tid = threadIdx.x;
-  const float pix_x = (float)((tile % tile_count_x) * kTile + tid % kTile);
-  const float pix_y = (float)((tile / tile_count_x) * kTile + tid / kTile);
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int32_t x0 = (tile % tile_count_x) * kTile;
+  const int32_t y0 = (tile / tile_count_x) * kTile;
+  const float pix_x = (float)(x0 + tid % kTile);
+  const float pix_y = (float)(y0 + tid / kTile);
   const int32_t r0 = tile_ranges[2 * tile];
   const int32_t r1 = tile_ranges[2 * tile + 1];
 
@@ -71,44 +87,66 @@ __global__ void __launch_bounds__(kPixels) rasterize_forward_kernel(
   int32_t rendered = 0;
   int done = 0;
 
-  for (int32_t base = r0; base < r1; base += kPixels) {
+  // Stage batch 0, and hold the id of batch 1.
+  if (r0 + tid < r1) {
+    stage_entry<kPixels>(staged_buffers[0], tid, point_rows, row_stride, sorted_ids[r0 + tid]);
+  }
+  cp_async_commit();
+  int32_t next_id = (r0 + kPixels + tid < r1) ? sorted_ids[r0 + kPixels + tid] : -1;
+
+  int32_t base = r0;
+  for (int buf = 0; base < r1; base += kPixels, buf ^= 1) {
+    // Also the barrier after the last walk: the buffer staged next held
+    // batch k - 1, and `mask` is rewritten below.
     if (__syncthreads_count(done) == kPixels) break;
-    const int32_t e = base + tid;
-    if (e < r1) {
-      const int64_t pid = sorted_ids[e];
-#pragma unroll
-      for (int k = 0; k < kRows; ++k) {
-        staged[k][tid] = point_rows[k * row_stride + pid];
-      }
+    if (next_id >= 0) {
+      stage_entry<kPixels>(staged_buffers[buf ^ 1], tid, point_rows, row_stride, next_id);
     }
+    cp_async_commit();
+    const int32_t after = base + 2 * kPixels + tid;
+    next_id = after < r1 ? sorted_ids[after] : -1;
+    cp_async_wait<1>();
+
+    const float(*staged)[kPixels] = staged_buffers[buf];
+    mask[tid] = base + tid < r1
+                    ? (uint8_t)staged_warp_mask<kPixels>(staged, tid, x0, y0, opacity_min)
+                    : (uint8_t)0;
     __syncthreads();
 
     const int n = min(kPixels, r1 - base);
-    for (int j = 0; j < n && !done; ++j) {
-      const float dx = staged[7][j] - pix_x;
-      const float dy = staged[8][j] - pix_y;
-      const float quad = staged[3][j] * dx * dx
-                       + 2.0f * staged[4][j] * dx * dy
-                       + staged[5][j] * dy * dy;
-      const float density = expf(-0.5f * quad);
-      if (!(density <= 1.0f)) continue;
-      const float a = staged[6][j] * density;
-      const float alpha = a > opacity_max ? opacity_max : a;
-      if (!(alpha >= opacity_min)) continue;
-      const float t_next = t * (1.0f - alpha);
-      if (!(t_next >= transmittance_min)) {
-        done = 1;
-        break;
+    for (int word = 0; word * 32 < n; ++word) {
+      if (__all_sync(kAllLanes, done)) break;
+      const int jj = word * 32 + lane;
+      uint32_t bits = __ballot_sync(kAllLanes, jj < n && ((mask[jj] >> warp) & 1u));
+      if (done) continue;
+      while (bits) {
+        const int j = word * 32 + __ffs(bits) - 1;
+        bits &= bits - 1u;
+        const float dx = staged[7][j] - pix_x;
+        const float dy = staged[8][j] - pix_y;
+        const float quad = staged[3][j] * dx * dx
+                         + 2.0f * staged[4][j] * dx * dy
+                         + staged[5][j] * dy * dy;
+        const float density = expf(-0.5f * quad);
+        if (!(density <= 1.0f)) continue;
+        const float a = staged[6][j] * density;
+        const float alpha = a > opacity_max ? opacity_max : a;
+        if (!(alpha >= opacity_min)) continue;
+        const float t_next = t * (1.0f - alpha);
+        if (!(t_next >= transmittance_min)) {
+          done = 1;
+          break;
+        }
+        const float w = alpha * t;
+        cr += staged[0][j] * w;
+        cg += staged[1][j] * w;
+        cb += staged[2][j] * w;
+        rendered = base - r0 + j + 1;
+        t = t_next;
       }
-      const float w = alpha * t;
-      cr += staged[0][j] * w;
-      cg += staged[1][j] * w;
-      cb += staged[2][j] * w;
-      rendered = base - r0 + j + 1;
-      t = t_next;
     }
-    __syncthreads();  // the next batch overwrites `staged`
   }
+  cp_async_wait<0>();
 
   image[((int64_t)tile * 3 + 0) * kPixels + tid] = cr;
   image[((int64_t)tile * 3 + 1) * kPixels + tid] = cg;
@@ -132,6 +170,17 @@ extern "C" int gs_rasterize_forward(
         (int32_t*)counts);
   }
   return (int)cudaGetLastError();
+}
+
+// Launch facts for a report: dynamic shared memory per CTA (none: the
+// staging buffers are static), and resident CTAs per SM at 256 threads.
+extern "C" int gs_kernel_info(int32_t* dynamic_smem_bytes, int32_t* blocks_per_sm) {
+  *dynamic_smem_bytes = 0;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, rasterize_forward_kernel, kPixels, 0);
+  *blocks_per_sm = blocks;
+  return (int)err;
 }
 
 extern "C" const char* gs_error_string(int code) {

@@ -20,6 +20,10 @@ early exit) and .../jit/kernel/rasterize_backward/kernel.wgsl:71-274.
   the forward in order); :func:`rasterize_backward_torch` is its plain
   version, with the same windows, carrying
   :class:`~gausplat_tpu_torch.ops.blend.BackwardState` across them.
+- Both kernels skip the (entry, warp) pairs outside the entry's footprint
+  (``csrc/tile_batch.cuh``); :func:`footprint_warp_masks` and
+  :func:`entry_warp_masks` are its plain version, for the tests and
+  reports. The plain rasterizers evaluate every pair.
 
 Outputs keep the JAX tiled layout: image ``[T, 3, 256]``, transmittance
 ``[T, 256]``, rendered count ``[T, 256]``; the backward gives per-entry
@@ -39,6 +43,7 @@ from ..constants import (
 )
 from ..utils.kernels import F32, I32, I64, PTR, CudaKernel, require_cuda, stream_of
 from .blend import (
+    _OPACITY_MIN,
     BackwardState,
     EntryBlock,
     ForwardState,
@@ -92,6 +97,82 @@ def pixel_coords(tiles: torch.Tensor, tile_count_x: int):
     pix_x = (tx * TILE_SIZE_X + lane % TILE_SIZE_X).to(torch.float32)
     pix_y = (ty * TILE_SIZE_Y + lane // TILE_SIZE_X).to(torch.float32)
     return pix_x[:, None, :], pix_y[:, None, :]
+
+
+#: Warps per tile; warp w holds the 16x2 strip of rows 2w and 2w + 1.
+WARPS_PER_TILE = PIXELS_PER_TILE // 32
+FULL_WARP_MASK = (1 << WARPS_PER_TILE) - 1
+
+#: Margins of the footprint, derived in ``csrc/tile_batch.cuh``: absolute
+#: and relative on the exponent bound, per unit of the conic's tr^2 / det,
+#: and in pixels on each half-extent.
+FOOTPRINT_MARGIN_Q_ABS = 1e-5
+FOOTPRINT_MARGIN_Q_REL = 1e-4
+FOOTPRINT_MARGIN_COND = 1e-6
+FOOTPRINT_MARGIN_PIXELS = 1e-3
+
+
+def footprint_warp_masks(rows: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernels' footprint
+    (``csrc/tile_batch.cuh::entry_warp_mask``), in float64 as they compute it.
+
+    ``rows`` [9, n] f32 are entries in the canonical row order, ``x0``,
+    ``y0`` [n] the top-left pixels of their tiles. Returns [n] uint8: bit w
+    set where warp w of the tile may blend the entry (the strips that the
+    entry's alpha >= 1/255 ellipse, boxed and widened by the margins,
+    reaches); 0 for an opacity below 1/255; every bit for a conic that is
+    not positive definite or too near singular, or any value that is not
+    finite.
+    """
+    f = rows.to(torch.float64)
+    cxx, cxy, cyy, opacity, px, py = f[3], f[4], f[5], f[6], f[7], f[8]
+    det = cxx * cyy - cxy * cxy
+    tr = cxx + cyy
+    cond = FOOTPRINT_MARGIN_COND * (tr * tr / det)
+    full = ~(torch.isfinite(rows[3:9]).all(dim=0) & (cxx > 0) & (det > 0) & (cond < 0.5))
+    q_max = 2.0 * torch.log(opacity / _OPACITY_MIN)
+    q = (q_max + FOOTPRINT_MARGIN_Q_ABS) * (1.0 + FOOTPRINT_MARGIN_Q_REL) / (1.0 - cond)
+    half_x = torch.sqrt(q * cyy / det) + FOOTPRINT_MARGIN_PIXELS
+    half_y = torch.sqrt(q * cxx / det) + FOOTPRINT_MARGIN_PIXELS
+    cx = px - x0.to(torch.float64)
+    cy = py - y0.to(torch.float64)
+    col_lo = torch.clamp_min(torch.ceil(cx - half_x), 0.0)
+    col_hi = torch.clamp_max(torch.floor(cx + half_x), TILE_SIZE_X - 1.0)
+    row_lo = torch.clamp_min(torch.ceil(cy - half_y), 0.0)
+    row_hi = torch.clamp_max(torch.floor(cy + half_y), TILE_SIZE_Y - 1.0)
+    w = torch.arange(WARPS_PER_TILE, dtype=torch.float64, device=rows.device)[:, None]
+    strips = (w >= torch.floor(row_lo / 2)) & (w <= torch.floor(row_hi / 2)) & (col_lo <= col_hi)
+    weights = (1 << torch.arange(WARPS_PER_TILE, device=rows.device))[:, None]
+    mask = torch.sum(strips * weights, dim=0)
+    mask = torch.where(full, FULL_WARP_MASK, mask)
+    mask = torch.where(rows[6] < _OPACITY_MIN, 0, mask)
+    return mask.to(torch.uint8)
+
+
+def entry_warp_masks(
+    point_rows: torch.Tensor,
+    sorted_ids: torch.Tensor,
+    tile_ranges: torch.Tensor,
+    *,
+    tile_count_x: int,
+) -> torch.Tensor:
+    """The kernels' warp mask of every entry in its tile: ``[capacity]``
+    uint8 at the sorted positions, 0 outside every tile's range. Used to
+    test and report the skip; the kernels compute it themselves."""
+    r0 = tile_ranges[:, 0].to(torch.int64)
+    lengths = (tile_ranges[:, 1].to(torch.int64) - r0).clamp_min(0)
+    device = point_rows.device
+    tiles = torch.repeat_interleave(torch.arange(lengths.shape[0], device=device), lengths)
+    starts = torch.cumsum(lengths, 0) - lengths
+    slots = r0[tiles] + torch.arange(tiles.shape[0], device=device) - starts[tiles]
+    masks = footprint_warp_masks(
+        point_rows[:, sorted_ids[slots].long()],
+        (tiles % tile_count_x) * TILE_SIZE_X,
+        (tiles // tile_count_x) * TILE_SIZE_Y,
+    )
+    out = torch.zeros(sorted_ids.shape[0], dtype=torch.uint8, device=device)
+    out[slots] = masks
+    return out
 
 
 def _windows(tile_ranges: torch.Tensor, b: int):
@@ -278,12 +359,15 @@ def rasterize_backward(
     *,
     tile_count_x: int,
     block_size: int = DEFAULT_BLOCK_SIZE,
+    kernel: CudaKernel = RASTERIZE_BACKWARD,
 ) -> torch.Tensor:
     """Backward rasterization of every tile: per-entry gradient rows
     ``[9, capacity]`` at the sorted positions.
 
     CPU tensors go to :func:`rasterize_backward_torch`; CUDA tensors launch
-    ``RASTERIZE_BACKWARD``, and anything the kernel does not take raises. The kernel
+    ``kernel`` (the library built with the default flags unless a caller
+    measures another build of it), and anything the kernel does not take
+    raises. The kernel
     writes the slots of every tile's range and no other, so slots at or
     past ``min(total, capacity)`` hold whatever the allocator left there:
     callers read only the slots below it.
@@ -302,7 +386,7 @@ def rasterize_backward(
     )
     capacity = sorted_ids.shape[0]
     out = torch.empty((ENTRY_ROWS, capacity), dtype=torch.float32, device=point_rows.device)
-    RASTERIZE_BACKWARD.launch(
+    kernel.launch(
         point_rows.data_ptr(), point_rows.shape[1], sorted_ids.data_ptr(),
         tile_ranges.data_ptr(), t, tile_count_x, grad_tiles.data_ptr(),
         gdotc_tiles.data_ptr(), count_tiles.data_ptr(), OPACITY_2D_MAX,

@@ -1,11 +1,12 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 Each kernel library is one ``.cu`` file under ``gausplat_tpu_torch/csrc/``
-with a plain C interface: every entry point takes raw device pointers and
-a CUDA stream, launches on that stream and returns ``cudaGetLastError()``.
-At first use the file is compiled with ``nvcc`` for ``sm_90a`` into
-``build/gausplat_tpu_torch/`` at the root of the checkout, under a name
-keyed by a hash of the source and the flags, and loaded with ``ctypes``.
+(which may include the ``.cuh`` headers there) with a plain C interface:
+every entry point takes raw device pointers and a CUDA stream, launches on
+that stream and returns ``cudaGetLastError()``. At first use the file is
+compiled with ``nvcc`` for ``sm_90a`` into ``build/gausplat_tpu_torch/`` at
+the root of the checkout, under a name keyed by a hash of the source, the
+headers and the flags, and loaded with ``ctypes``.
 Nothing is built when this module is imported, and nothing here falls back
 to a plain version: a kernel that does not build, load or launch raises
 :class:`~gausplat_tpu_torch.errors.KernelError`.
@@ -17,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -87,6 +89,7 @@ class CudaKernel:
         self.launches = 0
         self.build_seconds = None
         self.build_log = None
+        self._lib = None
         self._fn = None
         self._error_string = None
 
@@ -95,8 +98,9 @@ class CudaKernel:
         return CudaKernel(self.source.name, self.entry, self.argtypes, flags)
 
     def library_path(self) -> pathlib.Path:
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
         digest = hashlib.sha256(
-            self.source.read_bytes() + "\0".join(self.flags).encode()
+            self.source.read_bytes() + headers + "\0".join(self.flags).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 
@@ -135,7 +139,7 @@ class CudaKernel:
             err = lib.gs_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            self._fn, self._error_string = fn, err
+            self._lib, self._fn, self._error_string = lib, fn, err
             self.build_seconds = time.perf_counter() - start
         return self._fn
 
@@ -147,6 +151,26 @@ class CudaKernel:
                 f"({self._error_string(code).decode()})"
             )
         self.launches += 1
+
+    def ptxas_usage(self) -> dict:
+        """Registers and static shared memory of the kernel, from ptxas's
+        ``-v`` report of the build (empty if this process did not build it)."""
+        found = re.search(r"Used (\d+) registers(?:, (\d+) bytes smem)?", self.build_log or "")
+        return dict(registers=int(found[1]), shared_bytes=int(found[2] or 0)) if found else {}
+
+    def launch_info(self) -> dict:
+        """Dynamic shared memory per CTA and resident CTAs per SM, as the
+        library's ``gs_kernel_info`` reports them on the current device."""
+        self.load()
+        info = self._lib.gs_kernel_info
+        info.argtypes = [ctypes.POINTER(ctypes.c_int32)] * 2
+        info.restype = ctypes.c_int
+        dynamic, blocks = ctypes.c_int32(), ctypes.c_int32()
+        code = info(ctypes.byref(dynamic), ctypes.byref(blocks))
+        if code != 0:
+            raise KernelError(f"gs_kernel_info of {self.source.name}: CUDA error {code} "
+                              f"({self._error_string(code).decode()})")
+        return dict(dynamic_shared_bytes=dynamic.value, blocks_per_sm=blocks.value)
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> None:

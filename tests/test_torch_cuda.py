@@ -10,7 +10,10 @@ and transmittance within 1e-4 (a sequential per-pixel product against the
 plain version's log-step product), rendered counts exactly; the backward
 rasterizer's gradient rows, and the render's parameter gradients and
 densification signal, within 1e-3 scaled by each row's or field's largest
-magnitude (sequential sums against log-step sums)."""
+magnitude (sequential sums against log-step sums). Both rasterizers give
+bit-identical outputs from launch to launch, and hold on the adversarial
+rows of ``torch_helpers.adversarial_entries`` that stress their footprint
+skip (the backward's rows compared where the plain rows are finite)."""
 
 import numpy as np
 import pytest
@@ -29,7 +32,8 @@ from gausplat_tpu_torch.ops.rasterize import (
 # By module name (pytest puts tests/ on the path), as test_rasterize.py
 # imports ``oracle``: a machine may have another top-level ``tests``.
 from torch_helpers import (  # noqa: F401  (cuda_device is a fixture)
-    EXPAND_WORKLOADS, MEDIUM, SMALL, cuda_device, port_view, scene_arrays,
+    EXPAND_WORKLOADS, MEDIUM, SMALL, adversarial_entries, cuda_device, port_view,
+    scene_arrays,
 )
 
 pytestmark = pytest.mark.cuda
@@ -78,6 +82,14 @@ def _entry_data(case, device):
     return c, (rows, binning.point_indices, binning.tile_ranges), tcx
 
 
+def _backward_args(rows, ids, ranges, tcx, width, height, seed=11):
+    image, _, counts = rasterize_forward(rows, ids, ranges, tile_count_x=tcx)
+    gen = torch.Generator().manual_seed(seed)
+    grad = torch.randn((height, width, 3), generator=gen).to(rows.device)
+    grad_tiles = tile_image(grad, tcx, -(-height // 16))
+    return rows, ids, ranges, grad_tiles, torch.sum(grad_tiles * image, dim=1), counts
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_forward_kernel_matches_plain(case, cuda_device):
     c, args, tcx = _entry_data(case, cuda_device)
@@ -94,12 +106,7 @@ def test_forward_kernel_matches_plain(case, cuda_device):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_backward_kernel_matches_plain(case, cuda_device):
     c, (rows, ids, ranges), tcx = _entry_data(case, cuda_device)
-    image, _, counts = rasterize_forward(rows, ids, ranges, tile_count_x=tcx)
-    gen = torch.Generator().manual_seed(11)
-    grad = torch.randn((c["height"], c["width"], 3), generator=gen).to(cuda_device)
-    grad_tiles = tile_image(grad, tcx, -(-c["height"] // 16))
-    gdotc = torch.sum(grad_tiles * image, dim=1)
-    args = (rows, ids, ranges, grad_tiles, gdotc, counts)
+    args = _backward_args(rows, ids, ranges, tcx, c["width"], c["height"])
     before = RASTERIZE_BACKWARD.launches
     got = rasterize_backward(*args, tile_count_x=tcx)
     want = rasterize_backward_torch(*args, tile_count_x=tcx, block_size=c["block"])
@@ -109,6 +116,53 @@ def test_backward_kernel_matches_plain(case, cuda_device):
     assert valid > 0
     for r in range(9):
         assert_scaled_close(got[r, :valid], want[r, :valid], f"row {r}")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_rasterize_kernels_are_deterministic(case, cuda_device):
+    c, (rows, ids, ranges), tcx = _entry_data(case, cuda_device)
+    first = rasterize_forward(rows, ids, ranges, tile_count_x=tcx)
+    second = rasterize_forward(rows, ids, ranges, tile_count_x=tcx)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    args = _backward_args(rows, ids, ranges, tcx, c["width"], c["height"])
+    valid = int(ranges[:, 1].max())
+    got = [rasterize_backward(*args, tile_count_x=tcx)[:, :valid] for _ in range(2)]
+    assert torch.equal(got[0], got[1])
+
+
+def _adversarial(device):
+    rows, ids, ranges, width, height, tcx = adversarial_entries()
+    return [torch.as_tensor(a, device=device) for a in (rows, ids, ranges)], width, height, tcx
+
+
+def test_forward_kernel_on_adversarial_rows(cuda_device):
+    args, _, _, tcx = _adversarial(cuda_device)
+    got = rasterize_forward(*args, tile_count_x=tcx)
+    want = rasterize_forward_torch(*args, tile_count_x=tcx, block_size=64)
+    assert torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+    assert int(got[2].max()) > 0
+
+
+def test_backward_kernel_on_adversarial_rows(cuda_device):
+    (rows, ids, ranges), width, height, tcx = _adversarial(cuda_device)
+    args = _backward_args(rows, ids, ranges, tcx, width, height)
+    got = rasterize_backward(*args, tile_count_x=tcx)
+    want = rasterize_backward_torch(*args, tile_count_x=tcx, block_size=64)
+    valid = int(ranges[:, 1].max())
+    assert bool(torch.isfinite(got[:, :valid]).all())
+    for r in range(9):
+        finite = torch.isfinite(want[r, :valid])
+        assert_scaled_close(got[r, :valid][finite], want[r, :valid][finite], f"row {r}")
+
+
+def test_rasterize_kernels_launch_info(cuda_device):
+    forward = RASTERIZE_FORWARD.launch_info()
+    backward = RASTERIZE_BACKWARD.launch_info()
+    assert forward["dynamic_shared_bytes"] == 0 and forward["blocks_per_sm"] >= 1
+    assert backward["dynamic_shared_bytes"] > 48 * 1024 and backward["blocks_per_sm"] >= 1
 
 
 def test_render_grads_through_kernels_match_plain_path(cuda_device):

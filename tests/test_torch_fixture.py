@@ -44,21 +44,34 @@ def _port_inputs(case):
     return g, scene, view, options
 
 
+#: Stored gradients against JAX's, each field scaled by its largest
+#: magnitude. XLA CPU builds and hosts differ in the order of their fused
+#: sums: by about 1.6e-6 scaled in ``grad_colors_sh`` and up to 7.8e-6 in
+#: ``grad_rotations`` from the stored file (JAX 0.9.0), so a staleness
+#: check at 1e-6 depends on the host. 1e-5 is still 10x tighter than the
+#: port's 1e-4 against ``jax.grad`` and 100x tighter than the card's 1e-3.
+#: Images and transmittances keep 1e-6, integers stay exact.
+GRAD_STALE_ATOL = 1e-5
+
+
 @pytest.mark.parametrize("case", sorted(torch_fixture.CASES))
 def test_fixture_is_current(case):
     weights, view = torch_fixture.case_inputs(case)
     g = _stored(case)
     for name, value in {**weights, **view, "grad_weight": torch_fixture.grad_weight(case)}.items():
         np.testing.assert_array_equal(g[name], value, err_msg=name)
+    stale = {}
     for name, value in torch_fixture.render_with_jax(case).items():
         if name.startswith("grad_"):
             scale = np.abs(value).max()
-            np.testing.assert_allclose(g[name] / scale, value / scale, atol=1e-6, rtol=0,
-                                       err_msg=name)
+            err = float(np.abs(g[name] / scale - value / scale).max())
+            if err > GRAD_STALE_ATOL:
+                stale[name] = err
         elif value.dtype.kind == "f":
             np.testing.assert_allclose(g[name], value, atol=1e-6, rtol=0, err_msg=name)
         else:
             np.testing.assert_array_equal(g[name], value, err_msg=name)
+    assert not stale, f"stored gradients are stale (scaled error above {GRAD_STALE_ATOL}): {stale}"
 
 
 @pytest.mark.parametrize("case", sorted(torch_fixture.CASES))
