@@ -4,9 +4,11 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It imports torch, numpy and ``gausplat_tpu_torch`` only (no JAX), builds
-the three hand-written kernels from ``gausplat_tpu_torch/csrc`` into
-``build/gausplat_tpu_torch/`` (one nvcc each, all at once), and runs eight
+It imports torch, numpy and ``gausplat_tpu_torch`` only (no JAX; the
+adversarial rows come from ``tests/torch_helpers.py``, which imports JAX
+only inside the helpers it does not call here), builds the three
+hand-written kernels from ``gausplat_tpu_torch/csrc`` into
+``build/gausplat_tpu_torch/`` (one nvcc each, all at once), and runs nine
 phases, each printing one JSON line:
 
 1. env: versions, the card, the kernel builds and their ptxas reports;
@@ -16,8 +18,8 @@ phases, each printing one JSON line:
 3. rasterize: the forward kernel against its plain version on a small
    scene (image / transmittance atol 1e-4, counts exact) and at full size
    (image / transmittance within 1e-3, >= 99.99% of rendered counts
-   equal), plus the count flips of an FMA-contracting build of the same
-   source;
+   equal), a second launch bit for bit, plus the count flips of an
+   FMA-contracting build of the same source;
 4. fixture: the CUDA render and its gradients against outputs stored by
    the JAX package (``tests/data/torch_xcheck.npz``): images atol 1e-4,
    integers exact, gradients within 1e-3 scaled by each field's largest
@@ -26,27 +28,36 @@ phases, each printing one JSON line:
    1920x1080 rendered for 5 views through ``render`` and once through
    ``render_views``, with the launch counts of both forward kernels, then
    CUDA-event timings of the render and of both forward kernels beside
-   their plain versions at the serving shapes, and a torch.profiler
-   breakdown of the render;
+   their plain versions at the serving shapes (and the share of (entry,
+   warp) pairs that the rasterizers' footprint keeps), and a
+   torch.profiler breakdown of the render;
 6. rasterize_backward: the backward kernel against its plain version on
    the small scene (tight culling on and off) and at full size on the
    bench view with a seeded cotangent, per gradient row within 1e-3
    scaled by the row's largest magnitude, over the slots below the valid
-   entry count;
-7. grad: the whole render backward through the kernels against the plain
+   entry count, and a second launch bit for bit;
+7. adversarial: both rasterizers on rows that stress their footprint skip
+   (near-singular conics, opacities at the thresholds, huge and sub-pixel
+   ellipses, pixels on an ellipse's edge, non-PD conics, NaN and inf):
+   A's counts equal to the plain version's, C within 1e-3 scaled wherever
+   the plain rows are finite;
+8. grad: the whole render backward through the kernels against the plain
    path on the small scene (five parameter gradients and the grad norm);
-8. train: the slice's main path: ``Trainer.fit`` for 10 steps on the
+9. train: the slice's main path: ``Trainer.fit`` for 10 steps on the
    full-size scene (every SH degree, a densify, an opacity reset), with
    the launch counts of all three kernels; then, at the step's shapes,
    each kernel against its plain version (tolerances as in phases 2, 3
-   and 6) and timed beside it; timings of a step and of forward +
-   backward, the peak memory, and a profile of a step.
+   and 6) and timed beside it, A and C also built without their footprint
+   skip (bit-identical outputs required) and timed; timings of a step and
+   of forward + backward, the peak memory, and a profile of a step.
 
 Then it prints the card's name and power limit, one JSON line of
 per-kernel results, every number of which comes from the training path
 (its launches, and the error, time, plain time and bound at the step's
-shapes), and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-without the last line; so does a machine without a CUDA device.
+shapes; for A and C also the footprint's kept share and their registers,
+shared memory and resident CTAs per SM), and last
+``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
+last line; so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -383,46 +394,38 @@ def backward_close(rec) -> bool:
             and rec["repeat_bit_identical"])
 
 
-#: Builds of kernels A and C that leave one part of the design out
-#: (``csrc/tile_batch.cuh``'s and ``rasterize_backward.cu``'s switches),
-#: timed at the step's shapes beside the default build. Each must give the
-#: default build's outputs bit for bit.
-VARIANTS = {
-    "no_skip": ("-DGS_FOOTPRINT_SKIP=0",),
-    "sync_staging": ("-DGS_ASYNC_STAGING=0",),
-    "batch_128": ("-DGS_BACKWARD_BATCH=128",),  # kernel C only
-}
-
-
-def time_variants(rows, ids, ranges, tcx, c_args, a_out, c_out) -> dict:
-    """Each variant build of A and C: its time, its ptxas report and launch
-    facts, and whether its outputs equal the default build's bit for bit."""
+def time_without_skip(rows, ids, ranges, tcx, c_args, a_out, c_out) -> dict:
+    """Kernels A and C built without their footprint skip
+    (``-DGS_FOOTPRINT_SKIP=0``, csrc/tile_batch.cuh): each build's time,
+    launch facts, and whether its outputs equal the default build's bit for
+    bit (they must: a skipped pair cannot blend)."""
     from gausplat_tpu_torch.ops.rasterize import (
         RASTERIZE_BACKWARD, RASTERIZE_FORWARD, rasterize_backward, rasterize_forward,
     )
     from gausplat_tpu_torch.utils.kernels import NVCC_FLAGS, build_all
 
-    builds = {}
-    for variant, flags in VARIANTS.items():
-        if variant != "batch_128":
-            builds["rasterize_forward", variant] = RASTERIZE_FORWARD.with_flags(NVCC_FLAGS + flags)
-        builds["rasterize_backward", variant] = RASTERIZE_BACKWARD.with_flags(NVCC_FLAGS + flags)
-    build_all(list(builds.values()))
+    flags = NVCC_FLAGS + ("-DGS_FOOTPRINT_SKIP=0",)
+    a_kernel, c_kernel = RASTERIZE_FORWARD.with_flags(flags), RASTERIZE_BACKWARD.with_flags(flags)
+    build_all([a_kernel, c_kernel])
     valid = int(ranges[:, 1].max())
+
+    def run_a():
+        return rasterize_forward(rows, ids, ranges, tile_count_x=tcx, kernel=a_kernel)
+
+    def run_c():
+        return rasterize_backward(*c_args, tile_count_x=tcx, kernel=c_kernel)
+
     out = {}
-    for (name, variant), kernel in builds.items():
-        if name == "rasterize_forward":
-            def run(kernel=kernel):
-                return rasterize_forward(rows, ids, ranges, tile_count_x=tcx, kernel=kernel)
-            same = all(torch.equal(a, b) for a, b in zip(run(), a_out))
-        else:
-            def run(kernel=kernel):
-                return rasterize_backward(*c_args, tile_count_x=tcx, kernel=kernel)
-            same = bool(torch.equal(run()[:, :valid], c_out[:, :valid]))
+    for name, kernel, run, same in (
+        ("rasterize_forward", a_kernel, run_a,
+         lambda got: all(torch.equal(a, b) for a, b in zip(got, a_out))),
+        ("rasterize_backward", c_kernel, run_c,
+         lambda got: bool(torch.equal(got[:, :valid], c_out[:, :valid]))),
+    ):
+        identical = same(run())
         ms, ms_all = cuda_ms(run)
-        out.setdefault(name, {})[variant] = dict(
-            ms=ms, ms_all=ms_all, bit_identical_to_default=same,
-            **kernel.ptxas_usage(), **kernel.launch_info())
+        out[name] = dict(ms=ms, ms_all=ms_all, bit_identical_to_default=identical,
+                         **kernel.launch_info())
     return out
 
 
@@ -894,12 +897,12 @@ def phase_train(ctx):
                                     pairs * PAIR_FLOPS_MIN),
     }
     keep = warp_keep_share(rows, ids, ranges, tcx)
-    variants = time_variants(rows, ids, ranges, tcx, c_args, a_out, c_out)
-    check(all(v["bit_identical_to_default"] for k in variants.values() for v in k.values()),
-          f"a variant build of A or C changed their outputs: {variants}")
-    # A's and C's footprint skip and their resources (ptxas; the runtime's
-    # dynamic shared memory and resident CTAs per SM).
-    extra = {name: dict(warp_keep_share=keep, **kernel.ptxas_usage(), **kernel.launch_info())
+    no_skip = time_without_skip(rows, ids, ranges, tcx, c_args, a_out, c_out)
+    check(all(rec["bit_identical_to_default"] for rec in no_skip.values()),
+          f"the skip changed an output of A or C: {no_skip}")
+    # A's and C's footprint skip and their resources (registers and shared
+    # memory as ptxas set them, and resident CTAs per SM).
+    extra = {name: dict(warp_keep_share=keep, **kernel.launch_info())
              for name, kernel in (("rasterize_forward", RASTERIZE_FORWARD),
                                   ("rasterize_backward", RASTERIZE_BACKWARD))}
     errors = {
@@ -946,7 +949,7 @@ def phase_train(ctx):
                          rasterize_backward=c_rec),
             ms_all={name: t[0][1] for name, t in times.items()},
             plain_ms_all={name: t[1][1] for name, t in times.items()},
-            bounds=bounds, warp_keep_share=keep, variants=variants,
+            bounds=bounds, warp_keep_share=keep, no_skip=no_skip,
         ),
         grad_norm_max=float(norm.max()), culled_points=int(culled.sum()),
         step_profile=breakdown,

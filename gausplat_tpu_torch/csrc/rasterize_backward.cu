@@ -34,28 +34,31 @@
 // operations on the pairs that can.
 //
 // Design: one 256-thread CTA per tile, thread = ly * 16 + lx, as the
-// forward kernel, walking its range in batches of kBatch (256) entries.
-// - Staging: thread j gathers entry j's nine floats with 4-byte cp.async
-//   copies into one of two shared buffers; the gather of batch k + 1 is in
-//   flight while the CTA walks batch k (tile_batch.cuh). The id of the
-//   batch after that is loaded into a register a batch ahead.
-// - Footprint skip: once its copies land, thread j computes entry j's warp
-//   mask (tile_batch.cuh::entry_warp_mask, shared with the forward kernel):
-//   the tile's 16x2 warp strips that its alpha >= 1/255 ellipse can reach.
-//   Each warp walks only the entries whose bit it holds (a ballot per 32
-//   entries, then the set bits in order) and below its own largest count;
-//   a skipped entry costs the warp nothing (no expf, no vote, no shuffle).
-//   A skipped pair cannot blend, so T and P do not change and it adds 0.
+// forward kernel, walking its range in batches of kBatch (64) entries.
+// - Staging: thread j gathers entry j's nine floats into shared memory and
+//   computes its warp mask from them (tile_batch.cuh::entry_warp_mask,
+//   shared with the forward kernel): the tile's 16x2 warp strips that its
+//   alpha >= 1/255 ellipse can reach.
+// - Footprint skip: each warp walks only the entries whose bit it holds (a
+//   ballot per 32 entries, then the set bits in order) and below its own
+//   largest count; a skipped entry costs the warp nothing (no expf, no
+//   vote, no shuffle). A skipped pair cannot blend, so T and P do not
+//   change and it adds 0.
 // - Reduction: a warp in which some lane blends entry j sums its 32 lanes
-//   with __shfl_xor_sync; lane 0 writes the nine partials to
-//   partial[warp][row][j] and sets the warp's bit in contrib[j] (an integer
-//   atomicOr in shared memory). After the batch thread j adds the partials
-//   of the warps in contrib[j], in warp order, and writes column base + j:
-//   the same sums, in the same order, as adding every warp's partial with
-//   zeros for the rest. No float atomics; a launch is deterministic.
-// - The partials take 8 x 9 x 256 x 4 = 73,728 bytes and the two staging
-//   buffers 18,432, so the batch lives in dynamic shared memory (about
-//   94 KB, two CTAs per SM), set once per device at the first launch.
+//   in 14 shuffles (warp_sum_rows: a transposing reduce-scatter of rows
+//   0-7, a butterfly for row 8) instead of 9 x 5; lane 4r then holds row r
+//   and writes partial[warp][r][j], lane 0 also row 8, and sets the warp's
+//   bit in contrib[j] (an integer atomicOr in shared memory). After the
+//   batch thread j adds the partials of the warps in contrib[j], in warp
+//   order, and writes column base + j. No float atomics; the order is
+//   fixed, so a launch is deterministic.
+// - Occupancy over batch size: partials 8 x 9 x 64 x 4 = 18,432 bytes and
+//   the staged batch 2,304, static, and __launch_bounds__(256, 6) (40
+//   registers): six CTAs per SM. Once the skip leaves warps uneven work,
+//   resident CTAs pay better than fewer barriers: 256 entries in 94 KB of
+//   dynamic shared memory (two CTAs per SM), 128 entries (four), and
+//   double-buffered cp.async staging were each measured slower (PERF.md,
+//   Findings).
 // - The CTA stops replaying once the batch passes the tile's largest
 //   forward count (the JAX window skip at rasterize.py:525-529) and writes
 //   zeros for the rest of its range.
@@ -73,23 +76,43 @@ namespace {
 
 using namespace gs;
 
-// Entries per batch; GS_BACKWARD_BATCH=128 builds the batch of the kernel
-// before the redesign (about 47 KB, four CTAs per SM), for measuring.
-#ifndef GS_BACKWARD_BATCH
-#define GS_BACKWARD_BATCH 256
-#endif
-constexpr int kBatch = GS_BACKWARD_BATCH;
+constexpr int kBatch = 64;     // entries per batch
+constexpr int kMinBlocks = 6;  // resident CTAs per SM: at most 40 registers
 constexpr uint32_t kAllLanes = 0xffffffffu;
 
-struct BackwardShared {
-  float staged[2][kRows][kBatch];
-  float partial[kWarps][kRows][kBatch];
-  uint32_t contrib[kBatch];  // bit w: warp w blended the entry
-  uint8_t mask[kBatch];      // bit w: warp w walks the entry
-  int32_t max_count;
-};
+// Sum v[0..8] over the warp's 32 lanes. Rows 0-7 reduce as a transpose:
+// at each of three steps a lane keeps half of its rows and adds its
+// partner's copy of them (4 + 2 + 1 shuffles), which leaves lane L with
+// row 4 (L >> 4 & 1) + 2 (L >> 3 & 1) + (L >> 2 & 1) summed over the 8
+// lanes that share L's two low bits; two butterfly steps finish the sum,
+// so lane 4r holds row r. Row 8 takes a plain butterfly and ends in every
+// lane. The order of the additions is fixed.
+__device__ __forceinline__ float warp_sum_rows(const float (&v)[kRows], int lane, float& row8) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float give = b4 ? v[i] : v[i + 4];
+    u[i] = (b4 ? v[i + 4] : v[i]) + __shfl_xor_sync(kAllLanes, give, 16);
+  }
+  float w[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float give = b3 ? u[i] : u[i + 2];
+    w[i] = (b3 ? u[i + 2] : u[i]) + __shfl_xor_sync(kAllLanes, give, 8);
+  }
+  const float give = b2 ? w[0] : w[1];
+  float x = (b2 ? w[1] : w[0]) + __shfl_xor_sync(kAllLanes, give, 4);
+  x += __shfl_xor_sync(kAllLanes, x, 2);
+  x += __shfl_xor_sync(kAllLanes, x, 1);
+  float y = v[8];
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) y += __shfl_xor_sync(kAllLanes, y, off);
+  row8 = y;
+  return x;
+}
 
-__global__ void __launch_bounds__(kPixels) rasterize_backward_kernel(
+__global__ void __launch_bounds__(kPixels, kMinBlocks) rasterize_backward_kernel(
     const float* __restrict__ point_rows,  // [9, row_stride]
     int64_t row_stride,
     const int32_t* __restrict__ sorted_ids,  // [capacity]
@@ -102,8 +125,11 @@ __global__ void __launch_bounds__(kPixels) rasterize_backward_kernel(
     float opacity_min,
     int64_t capacity,
     float* __restrict__ out) {  // [9, capacity]
-  extern __shared__ __align__(16) unsigned char smem[];
-  BackwardShared& sh = *reinterpret_cast<BackwardShared*>(smem);
+  __shared__ float staged[kRows][kBatch];
+  __shared__ float partial[kWarps][kRows][kBatch];
+  __shared__ uint32_t contrib[kBatch];  // bit w: warp w blended the entry
+  __shared__ uint8_t mask[kBatch];      // bit w: warp w walks the entry
+  __shared__ int32_t max_count;
 
   const int32_t tile = blockIdx.x;
   const int tid = threadIdx.x;
@@ -123,48 +149,26 @@ __global__ void __launch_bounds__(kPixels) rasterize_backward_kernel(
   const int32_t count = count_tiles[pixel];
   const int32_t warp_count = __reduce_max_sync(kAllLanes, count);
 
-  if (tid == 0) sh.max_count = 0;
+  if (tid == 0) max_count = 0;
   __syncthreads();
-  if (lane == 0) atomicMax(&sh.max_count, warp_count);
+  if (lane == 0) atomicMax(&max_count, warp_count);
   __syncthreads();
   // Entries at or past `end` are blended by no pixel of the tile.
-  const int32_t end = min(r1, r0 + sh.max_count);
-
-  // Stage batch 0, and hold the id of batch 1.
-  if (tid < kBatch && r0 + tid < end) {
-    stage_entry<kBatch>(sh.staged[0], tid, point_rows, row_stride, sorted_ids[r0 + tid]);
-  }
-  cp_async_commit();
-  int32_t next_id = (tid < kBatch && r0 + kBatch + tid < end) ? sorted_ids[r0 + kBatch + tid] : -1;
+  const int32_t end = min(r1, r0 + max_count);
 
   float t = 1.0f;       // transmittance before the next entry
   float prefix = 0.0f;  // <g, colour blended so far>
 
   int32_t base = r0;
-  for (int buf = 0; base < end; base += kBatch, buf ^= 1) {
-    // Gather batch k + 1 while batch k is walked. Its buffer held batch
-    // k - 1, which every warp finished before the barrier ending the last
-    // walk.
-    if (next_id >= 0) {
-      stage_entry<kBatch>(sh.staged[buf ^ 1], tid, point_rows, row_stride, next_id);
-    }
-    cp_async_commit();
-    const int32_t after = base + 2 * kBatch + tid;
-    next_id = (tid < kBatch && after < end) ? sorted_ids[after] : -1;
-    cp_async_wait<1>();
-
-    const float(*staged)[kBatch] = sh.staged[buf];
-    float cxx = 0.0f, cxy = 0.0f, cyy = 0.0f;
+  for (; base < end; base += kBatch) {
+    // The last batch's walk ended at a barrier, and its write-back reads
+    // only this thread's own column.
     if (tid < kBatch) {
-      uint32_t m = 0u;
-      if (base + tid < end) {
-        cxx = staged[3][tid];
-        cxy = staged[4][tid];
-        cyy = staged[5][tid];
-        m = staged_warp_mask<kBatch>(staged, tid, x0, y0, opacity_min);
-      }
-      sh.mask[tid] = (uint8_t)m;
-      sh.contrib[tid] = 0u;
+      const int32_t e = base + tid;
+      mask[tid] = e < end ? (uint8_t)stage_entry<kBatch>(staged, tid, point_rows, row_stride,
+                                                         sorted_ids[e], x0, y0, opacity_min)
+                          : (uint8_t)0;
+      contrib[tid] = 0u;
     }
     __syncthreads();
 
@@ -172,7 +176,7 @@ __global__ void __launch_bounds__(kPixels) rasterize_backward_kernel(
     const int warp_end = min(min(kBatch, end - base), warp_count - (base - r0));
     for (int word = 0; word * 32 < warp_end; ++word) {
       const int jj = word * 32 + lane;
-      uint32_t bits = __ballot_sync(kAllLanes, jj < warp_end && ((sh.mask[jj] >> warp) & 1u));
+      uint32_t bits = __ballot_sync(kAllLanes, jj < warp_end && ((mask[jj] >> warp) & 1u));
       while (bits) {
         const int j = word * 32 + __ffs(bits) - 1;
         bits &= bits - 1u;
@@ -215,17 +219,12 @@ __global__ void __launch_bounds__(kPixels) rasterize_backward_kernel(
           }
         }
         if (__any_sync(kAllLanes, blended)) {
-#pragma unroll
-          for (int k = 0; k < kRows; ++k) {
-#pragma unroll
-            for (int off = 16; off > 0; off /= 2) {
-              v[k] += __shfl_xor_sync(kAllLanes, v[k], off);
-            }
-          }
+          float row8;
+          const float x = warp_sum_rows(v, lane, row8);
+          if ((lane & 3) == 0) partial[warp][lane >> 2][j] = x;
           if (lane == 0) {
-#pragma unroll
-            for (int k = 0; k < kRows; ++k) sh.partial[warp][k][j] = v[k];
-            atomicOr(&sh.contrib[j], 1u << warp);
+            partial[warp][8][j] = row8;
+            atomicOr(&contrib[j], 1u << warp);
           }
         }
       }
@@ -234,13 +233,13 @@ __global__ void __launch_bounds__(kPixels) rasterize_backward_kernel(
 
     const int n = min(kBatch, r1 - base);
     if (tid < n) {
-      const uint32_t m = sh.contrib[tid];
+      const uint32_t m = contrib[tid];
       float s[kRows];
 #pragma unroll
       for (int k = 0; k < kRows; ++k) {
         float acc = 0.0f;
         for (int w = 0; w < kWarps; ++w) {
-          if ((m >> w) & 1u) acc += sh.partial[w][k][tid];
+          if ((m >> w) & 1u) acc += partial[w][k][tid];
         }
         s[k] = acc;
       }
@@ -252,33 +251,17 @@ __global__ void __launch_bounds__(kPixels) rasterize_backward_kernel(
       out[4 * capacity + e] = s[4];
       out[5 * capacity + e] = 0.5f * s[5];
       out[6 * capacity + e] = s[6];
-      out[7 * capacity + e] = m ? cxx * s[7] + cxy * s[8] : 0.0f;
-      out[8 * capacity + e] = m ? cxy * s[7] + cyy * s[8] : 0.0f;
+      // No contribution: zeros, whatever the conic (it may not be finite).
+      out[7 * capacity + e] = m ? staged[3][tid] * s[7] + staged[4][tid] * s[8] : 0.0f;
+      out[8 * capacity + e] = m ? staged[4][tid] * s[7] + staged[5][tid] * s[8] : 0.0f;
     }
   }
-  cp_async_wait<0>();
 
   // Entries past every pixel's count were blended by no pixel.
   for (int64_t e = (int64_t)base + tid; e < r1; e += kPixels) {
 #pragma unroll
     for (int k = 0; k < kRows; ++k) out[k * capacity + e] = 0.0f;
   }
-}
-
-// cudaFuncSetAttribute once per device, before the first launch there.
-constexpr int kMaxDevices = 64;
-bool configured[kMaxDevices];
-
-cudaError_t configure() {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device < kMaxDevices && configured[device]) return cudaSuccess;
-  err = cudaFuncSetAttribute(rasterize_backward_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sizeof(BackwardShared));
-  if (err == cudaSuccess && device < kMaxDevices) configured[device] = true;
-  return err;
 }
 
 }  // namespace
@@ -290,10 +273,7 @@ extern "C" int gs_rasterize_backward(
     float opacity_max, float opacity_min, int64_t capacity, void* out,
     void* stream) {
   if (num_tiles > 0) {
-    const cudaError_t err = configure();
-    if (err != cudaSuccess) return (int)err;
-    rasterize_backward_kernel<<<num_tiles, kPixels, sizeof(BackwardShared),
-                                (cudaStream_t)stream>>>(
+    rasterize_backward_kernel<<<num_tiles, kPixels, 0, (cudaStream_t)stream>>>(
         (const float*)point_rows, row_stride, (const int32_t*)sorted_ids,
         (const int32_t*)tile_ranges, tile_count_x, (const float*)grad_tiles,
         (const float*)gdotc_tiles, (const int32_t*)count_tiles, opacity_max,
@@ -302,15 +282,19 @@ extern "C" int gs_rasterize_backward(
   return (int)cudaGetLastError();
 }
 
-// Launch facts for a report: dynamic shared memory per CTA, and resident
-// CTAs per SM at 256 threads.
-extern "C" int gs_kernel_info(int32_t* dynamic_smem_bytes, int32_t* blocks_per_sm) {
-  cudaError_t err = configure();
+// Launch facts for a report: registers and static shared memory per thread
+// and CTA (the numbers ptxas reports), dynamic shared memory per CTA
+// (none), and resident CTAs per SM at 256 threads.
+extern "C" int gs_kernel_info(int32_t* registers, int32_t* shared_bytes,
+                              int32_t* dynamic_shared_bytes, int32_t* blocks_per_sm) {
+  cudaFuncAttributes attributes;
+  cudaError_t err = cudaFuncGetAttributes(&attributes, rasterize_backward_kernel);
   if (err != cudaSuccess) return (int)err;
-  *dynamic_smem_bytes = (int32_t)sizeof(BackwardShared);
+  *registers = attributes.numRegs;
+  *shared_bytes = (int32_t)attributes.sharedSizeBytes;
+  *dynamic_shared_bytes = 0;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, rasterize_backward_kernel, kPixels, sizeof(BackwardShared));
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rasterize_backward_kernel, kPixels, 0);
   *blocks_per_sm = blocks;
   return (int)err;
 }

@@ -25,20 +25,26 @@
 //
 // Design: one 256-thread CTA per tile, thread = ly * 16 + lx (the lane
 // order of rasterize.py::_pixel_coords), walking its range in batches of
-// 256 entries, as the backward kernel does (tile_batch.cuh):
-// - each thread gathers one entry's nine floats with 4-byte cp.async
-//   copies into one of two shared buffers, so batch k + 1 is in flight
-//   while the CTA walks batch k;
-// - once its copies land, the thread computes the entry's warp mask
-//   (tile_batch.cuh::entry_warp_mask, shared with the backward kernel), and
-//   each warp walks only the entries whose bit it holds, in order (a ballot
-//   per 32 entries, then the set bits). A skipped pair cannot blend, so the
-//   per-pixel order of the blended entries, and every output, is that of
-//   walking every entry;
+// 256 entries, one per thread (tile_batch.cuh):
+// - thread j gathers entry j's nine floats into shared memory and computes
+//   the entry's warp mask from them (tile_batch.cuh::entry_warp_mask,
+//   shared with the backward kernel): the tile's 16x2 warp strips that its
+//   alpha >= 1/255 ellipse can reach;
+// - each warp walks only the entries whose bit it holds, in order (a ballot
+//   per 32 entries, then the set bits); a skipped entry costs the warp no
+//   exp. A skipped pair cannot blend, so the per-pixel order of the blended
+//   entries, and every output, is that of walking every entry;
 // - all threads read the same shared word at once (a broadcast); the whole
-//   tile leaves early once every pixel is done (__syncthreads_count). The
-//   TPU kernel's window/step machinery is gone: a CTA loops over its own
-//   range instead of the grid stepping through (tile, window) pairs.
+//   tile leaves early once every pixel is done (__syncthreads_count, also
+//   the barrier before the next batch overwrites the staged one). The TPU
+//   kernel's window/step machinery is gone: a CTA loops over its own range
+//   instead of the grid stepping through (tile, window) pairs.
+// - Two barriers per batch. Overlapping the next batch's gather with the
+//   walk (double-buffered cp.async) was measured and did not pay (PERF.md,
+//   Findings): the CTAs resident beside a staging CTA hide its gather. The
+//   footprint is f32 (but for the determinant) to keep the registers, and
+//   so the resident CTAs, where they were: in double it took 54 registers
+//   and four CTAs per SM.
 //
 // Rounding: built without fast math (expf, not __expf) and with
 // -fmad=false, and the quadratic form keeps the JAX evaluation order
@@ -68,7 +74,7 @@ __global__ void __launch_bounds__(kPixels) rasterize_forward_kernel(
     float* __restrict__ image,  // [num_tiles, 3, 256]
     float* __restrict__ transmittance,  // [num_tiles, 256]
     int32_t* __restrict__ counts) {  // [num_tiles, 256]
-  __shared__ __align__(16) float staged_buffers[2][kRows][kPixels];
+  __shared__ float staged[kRows][kPixels];
   __shared__ uint8_t mask[kPixels];  // bit w: warp w walks the entry
 
   const int32_t tile = blockIdx.x;
@@ -87,30 +93,12 @@ __global__ void __launch_bounds__(kPixels) rasterize_forward_kernel(
   int32_t rendered = 0;
   int done = 0;
 
-  // Stage batch 0, and hold the id of batch 1.
-  if (r0 + tid < r1) {
-    stage_entry<kPixels>(staged_buffers[0], tid, point_rows, row_stride, sorted_ids[r0 + tid]);
-  }
-  cp_async_commit();
-  int32_t next_id = (r0 + kPixels + tid < r1) ? sorted_ids[r0 + kPixels + tid] : -1;
-
-  int32_t base = r0;
-  for (int buf = 0; base < r1; base += kPixels, buf ^= 1) {
-    // Also the barrier after the last walk: the buffer staged next held
-    // batch k - 1, and `mask` is rewritten below.
+  for (int32_t base = r0; base < r1; base += kPixels) {
     if (__syncthreads_count(done) == kPixels) break;
-    if (next_id >= 0) {
-      stage_entry<kPixels>(staged_buffers[buf ^ 1], tid, point_rows, row_stride, next_id);
-    }
-    cp_async_commit();
-    const int32_t after = base + 2 * kPixels + tid;
-    next_id = after < r1 ? sorted_ids[after] : -1;
-    cp_async_wait<1>();
-
-    const float(*staged)[kPixels] = staged_buffers[buf];
-    mask[tid] = base + tid < r1
-                    ? (uint8_t)staged_warp_mask<kPixels>(staged, tid, x0, y0, opacity_min)
-                    : (uint8_t)0;
+    const int32_t e = base + tid;
+    mask[tid] = e < r1 ? (uint8_t)stage_entry<kPixels>(staged, tid, point_rows, row_stride,
+                                                       sorted_ids[e], x0, y0, opacity_min)
+                       : (uint8_t)0;
     __syncthreads();
 
     const int n = min(kPixels, r1 - base);
@@ -146,7 +134,6 @@ __global__ void __launch_bounds__(kPixels) rasterize_forward_kernel(
       }
     }
   }
-  cp_async_wait<0>();
 
   image[((int64_t)tile * 3 + 0) * kPixels + tid] = cr;
   image[((int64_t)tile * 3 + 1) * kPixels + tid] = cg;
@@ -172,13 +159,19 @@ extern "C" int gs_rasterize_forward(
   return (int)cudaGetLastError();
 }
 
-// Launch facts for a report: dynamic shared memory per CTA (none: the
-// staging buffers are static), and resident CTAs per SM at 256 threads.
-extern "C" int gs_kernel_info(int32_t* dynamic_smem_bytes, int32_t* blocks_per_sm) {
-  *dynamic_smem_bytes = 0;
+// Launch facts for a report: registers and static shared memory per thread
+// and CTA (the numbers ptxas reports), dynamic shared memory per CTA
+// (none), and resident CTAs per SM at 256 threads.
+extern "C" int gs_kernel_info(int32_t* registers, int32_t* shared_bytes,
+                              int32_t* dynamic_shared_bytes, int32_t* blocks_per_sm) {
+  cudaFuncAttributes attributes;
+  cudaError_t err = cudaFuncGetAttributes(&attributes, rasterize_forward_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = attributes.numRegs;
+  *shared_bytes = (int32_t)attributes.sharedSizeBytes;
+  *dynamic_shared_bytes = 0;
   int blocks = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, rasterize_forward_kernel, kPixels, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rasterize_forward_kernel, kPixels, 0);
   *blocks_per_sm = blocks;
   return (int)err;
 }

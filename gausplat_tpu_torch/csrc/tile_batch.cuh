@@ -1,6 +1,6 @@
 // What the two rasterize kernels share: staging a batch of a tile's entries
-// into shared memory with cp.async, and each entry's footprint in its tile
-// (the warp strips it can blend in). Included by rasterize_forward.cu and
+// into shared memory, and each entry's footprint in its tile (the warp
+// strips it can blend in). Included by rasterize_forward.cu and
 // rasterize_backward.cu, so both kernels skip exactly the same
 // (entry, warp) pairs. Plain version of the footprint:
 // gausplat_tpu_torch/ops/rasterize.py::footprint_warp_masks.
@@ -27,31 +27,30 @@
 //   (q_max + 6.5e-7) / (1 - 2.4e-7 tr^2 / det); kMarginCond = 1e-6 per
 //   unit of tr^2 / det, and an entry with 1e-6 tr^2 / det >= 0.5 (a conic
 //   so near singular that the bound is loose) gets the full mask.
-// - the computed offset px - pix_x is within u of the exact one: the box
-//   grows by a relative u in each direction, under kMarginQRel = 1e-4 on Q
-//   (5e-5 on the half-extents).
-// - the box is computed in double (C's products are exact there):
-//   kMarginPixels = 1e-3 px on each half-extent covers its rounding.
+// - the computed offset px - pix_x is within u of the exact one, and the
+//   footprint's own f32 arithmetic (det from exact products in double,
+//   rounded once; then a division, logf, a product, a quotient and sqrtf,
+//   each within 2 ulp; px - x0 and the box edges within u of the larger
+//   operand, which is at most the half-extent + 17 where it matters) moves
+//   each half-extent by under 1e-6 relative plus 1e-6 px. kMarginQScale =
+//   1 + 1e-4 on Q (5e-5 on the half-extents) and kMarginPixels = 1e-3 px
+//   on each half-extent cover it.
 // Edge cases: opacity < opacity_min gives no bit (density <= 1 caps alpha
-// at the opacity); a conic that is not positive definite, or any value
-// that is not finite, gives the full mask, and every warp evaluates the
-// entry as the kernels did before the skip. So a skipped pair is one whose
-// f32 test fails: the skip changes no blend decision.
+// at the opacity); a conic that is not positive definite, a det that is
+// not a finite f32, or any value that is not finite gives the full mask,
+// and every warp evaluates the entry as the kernels did before the skip.
+// So a skipped pair is one whose f32 test fails: the skip changes no blend
+// decision.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Build switches for measuring the design's parts (chip_smoke.py builds the
-// variants with -D and times them beside the default build):
-// GS_FOOTPRINT_SKIP=0 gives every entry the full mask (no skip);
-// GS_ASYNC_STAGING=0 stages with plain loads and stores (no overlap).
+// GS_FOOTPRINT_SKIP=0 gives every entry the full mask: a build without
+// the skip, which chip_smoke.py times beside the default build.
 #ifndef GS_FOOTPRINT_SKIP
 #define GS_FOOTPRINT_SKIP 1
-#endif
-#ifndef GS_ASYNC_STAGING
-#define GS_ASYNC_STAGING 1
 #endif
 
 namespace gs {
@@ -62,13 +61,14 @@ constexpr int kWarps = kPixels / 32;
 constexpr int kRows = 9;  // r, g, b, cxx, cxy, cyy, opacity, px, py
 constexpr uint32_t kFullMask = (1u << kWarps) - 1u;
 
-constexpr double kMarginQAbs = 1e-5;
-constexpr double kMarginQRel = 1e-4;
-constexpr double kMarginCond = 1e-6;
-constexpr double kMarginPixels = 1e-3;
+constexpr float kMarginQAbs = 1e-5f;
+constexpr float kMarginQScale = 1.0001f;
+constexpr float kMarginCond = 1e-6f;
+constexpr float kMarginPixels = 1e-3f;
 
 // Bit w set: warp w of the tile whose top-left pixel is (x0, y0) may blend
-// the entry; no bit: no pixel of the tile can.
+// the entry; no bit: no pixel of the tile can. In f32 but for the
+// determinant (ops/rasterize.py::footprint_warp_masks repeats it).
 __device__ __forceinline__ uint32_t entry_warp_mask(
     float cxx, float cxy, float cyy, float opacity, float px, float py,
     int32_t x0, int32_t y0, float opacity_min) {
@@ -77,71 +77,43 @@ __device__ __forceinline__ uint32_t entry_warp_mask(
         && isfinite(px) && isfinite(py))) {
     return kFullMask;
   }
-  const double a = cxx, b = cxy, c = cyy;
-  const double det = a * c - b * b;
-  if (!(a > 0.0 && det > 0.0)) return kFullMask;
-  const double tr = a + c;
-  const double cond = kMarginCond * (tr * tr / det);
-  if (!(cond < 0.5)) return kFullMask;
-  const double q_max = 2.0 * log((double)opacity / (double)opacity_min);
-  const double q = (q_max + kMarginQAbs) * (1.0 + kMarginQRel) / (1.0 - cond);
-  const double half_x = sqrt(q * c / det) + kMarginPixels;
-  const double half_y = sqrt(q * a / det) + kMarginPixels;
-  const double cx = (double)px - (double)x0;
-  const double cy = (double)py - (double)y0;
-  const double col_lo = fmax(ceil(cx - half_x), 0.0);
-  const double col_hi = fmin(floor(cx + half_x), (double)(kTile - 1));
-  const double row_lo = fmax(ceil(cy - half_y), 0.0);
-  const double row_hi = fmin(floor(cy + half_y), (double)(kTile - 1));
+  const float det = (float)((double)cxx * cyy - (double)cxy * cxy);
+  const float tr = cxx + cyy;
+  const float cond = kMarginCond * (tr * tr / det);
+  if (!(cxx > 0.0f && det > 0.0f && isfinite(det) && cond < 0.5f)) return kFullMask;
+  const float q_max = 2.0f * logf(opacity / opacity_min);
+  const float q = (q_max + kMarginQAbs) * kMarginQScale / (1.0f - cond);
+  const float half_x = sqrtf(q * cyy / det) + kMarginPixels;
+  const float half_y = sqrtf(q * cxx / det) + kMarginPixels;
+  const float cx = px - (float)x0;
+  const float cy = py - (float)y0;
+  const float col_lo = fmaxf(ceilf(cx - half_x), 0.0f);
+  const float col_hi = fminf(floorf(cx + half_x), (float)(kTile - 1));
+  const float row_lo = fmaxf(ceilf(cy - half_y), 0.0f);
+  const float row_hi = fminf(floorf(cy + half_y), (float)(kTile - 1));
   if (!(col_lo <= col_hi && row_lo <= row_hi)) return 0u;
   const int w_lo = (int)row_lo / 2;
   const int w_hi = (int)row_hi / 2;
   return ((2u << w_hi) - 1u) & ~((1u << w_lo) - 1u);
 }
 
-// --- staging: 4-byte cp.async copies of an entry's nine gathered floats ------
+// --- staging -----------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async4(float* smem_dst, const float* gmem_src) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most `kPending` of this thread's groups are in flight; the
-// copies of the groups before them are then visible to this thread.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Copy point `pid`'s nine floats (rows [9, row_stride]) into column `slot`
-// of a staged batch [9][kBatch].
+// Thread `slot`'s part of staging a batch: gather point `pid`'s nine floats
+// (rows [9, row_stride]) into column `slot` of `staged` ([9][kBatch]), and
+// return the entry's warp mask in the tile at (x0, y0).
 template <int kBatch>
-__device__ __forceinline__ void stage_entry(float (*staged)[kBatch], int slot,
-                                            const float* __restrict__ point_rows,
-                                            int64_t row_stride, int32_t pid) {
+__device__ __forceinline__ uint32_t stage_entry(float (*staged)[kBatch], int slot,
+                                                const float* __restrict__ point_rows,
+                                                int64_t row_stride, int32_t pid, int32_t x0,
+                                                int32_t y0, float opacity_min) {
+  float v[kRows];
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-#if GS_ASYNC_STAGING
-    cp_async4(&staged[k][slot], point_rows + k * row_stride + pid);
-#else
-    staged[k][slot] = point_rows[k * row_stride + pid];
-#endif
-  }
-}
-
-// The footprint of the entry staged in column `slot`.
-template <int kBatch>
-__device__ __forceinline__ uint32_t staged_warp_mask(const float (*staged)[kBatch], int slot,
-                                                     int32_t x0, int32_t y0,
-                                                     float opacity_min) {
+  for (int k = 0; k < kRows; ++k) v[k] = point_rows[k * row_stride + pid];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) staged[k][slot] = v[k];
   if (!GS_FOOTPRINT_SKIP) return kFullMask;
-  return entry_warp_mask(staged[3][slot], staged[4][slot], staged[5][slot], staged[6][slot],
-                         staged[7][slot], staged[8][slot], x0, y0, opacity_min);
+  return entry_warp_mask(v[3], v[4], v[5], v[6], v[7], v[8], x0, y0, opacity_min);
 }
 
 }  // namespace gs

@@ -104,17 +104,18 @@ WARPS_PER_TILE = PIXELS_PER_TILE // 32
 FULL_WARP_MASK = (1 << WARPS_PER_TILE) - 1
 
 #: Margins of the footprint, derived in ``csrc/tile_batch.cuh``: absolute
-#: and relative on the exponent bound, per unit of the conic's tr^2 / det,
-#: and in pixels on each half-extent.
+#: on the exponent bound and a factor on it, per unit of the conic's
+#: tr^2 / det, and in pixels on each half-extent (f32 values).
 FOOTPRINT_MARGIN_Q_ABS = 1e-5
-FOOTPRINT_MARGIN_Q_REL = 1e-4
+FOOTPRINT_MARGIN_Q_SCALE = 1.0001
 FOOTPRINT_MARGIN_COND = 1e-6
 FOOTPRINT_MARGIN_PIXELS = 1e-3
 
 
 def footprint_warp_masks(rows: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernels' footprint
-    (``csrc/tile_batch.cuh::entry_warp_mask``), in float64 as they compute it.
+    (``csrc/tile_batch.cuh::entry_warp_mask``): the same f32 operations in
+    the same order, the determinant from float64 products.
 
     ``rows`` [9, n] f32 are entries in the canonical row order, ``x0``,
     ``y0`` [n] the top-left pixels of their tiles. Returns [n] uint8: bit w
@@ -124,28 +125,29 @@ def footprint_warp_masks(rows: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor)
     not positive definite or too near singular, or any value that is not
     finite.
     """
-    f = rows.to(torch.float64)
-    cxx, cxy, cyy, opacity, px, py = f[3], f[4], f[5], f[6], f[7], f[8]
-    det = cxx * cyy - cxy * cxy
+    cxx, cxy, cyy, opacity, px, py = rows[3], rows[4], rows[5], rows[6], rows[7], rows[8]
+    wide = rows.to(torch.float64)
+    det = (wide[3] * wide[5] - wide[4] * wide[4]).to(torch.float32)
     tr = cxx + cyy
     cond = FOOTPRINT_MARGIN_COND * (tr * tr / det)
-    full = ~(torch.isfinite(rows[3:9]).all(dim=0) & (cxx > 0) & (det > 0) & (cond < 0.5))
+    full = ~(torch.isfinite(rows[3:9]).all(dim=0) & (cxx > 0) & (det > 0)
+             & torch.isfinite(det) & (cond < 0.5))
     q_max = 2.0 * torch.log(opacity / _OPACITY_MIN)
-    q = (q_max + FOOTPRINT_MARGIN_Q_ABS) * (1.0 + FOOTPRINT_MARGIN_Q_REL) / (1.0 - cond)
+    q = (q_max + FOOTPRINT_MARGIN_Q_ABS) * FOOTPRINT_MARGIN_Q_SCALE / (1.0 - cond)
     half_x = torch.sqrt(q * cyy / det) + FOOTPRINT_MARGIN_PIXELS
     half_y = torch.sqrt(q * cxx / det) + FOOTPRINT_MARGIN_PIXELS
-    cx = px - x0.to(torch.float64)
-    cy = py - y0.to(torch.float64)
+    cx = px - x0.to(torch.float32)
+    cy = py - y0.to(torch.float32)
     col_lo = torch.clamp_min(torch.ceil(cx - half_x), 0.0)
     col_hi = torch.clamp_max(torch.floor(cx + half_x), TILE_SIZE_X - 1.0)
     row_lo = torch.clamp_min(torch.ceil(cy - half_y), 0.0)
     row_hi = torch.clamp_max(torch.floor(cy + half_y), TILE_SIZE_Y - 1.0)
-    w = torch.arange(WARPS_PER_TILE, dtype=torch.float64, device=rows.device)[:, None]
+    w = torch.arange(WARPS_PER_TILE, dtype=torch.float32, device=rows.device)[:, None]
     strips = (w >= torch.floor(row_lo / 2)) & (w <= torch.floor(row_hi / 2)) & (col_lo <= col_hi)
     weights = (1 << torch.arange(WARPS_PER_TILE, device=rows.device))[:, None]
     mask = torch.sum(strips * weights, dim=0)
     mask = torch.where(full, FULL_WARP_MASK, mask)
-    mask = torch.where(rows[6] < _OPACITY_MIN, 0, mask)
+    mask = torch.where(opacity < _OPACITY_MIN, 0, mask)
     return mask.to(torch.uint8)
 
 
@@ -367,10 +369,9 @@ def rasterize_backward(
     CPU tensors go to :func:`rasterize_backward_torch`; CUDA tensors launch
     ``kernel`` (the library built with the default flags unless a caller
     measures another build of it), and anything the kernel does not take
-    raises. The kernel
-    writes the slots of every tile's range and no other, so slots at or
-    past ``min(total, capacity)`` hold whatever the allocator left there:
-    callers read only the slots below it.
+    raises. The kernel writes the slots of every tile's range and no other,
+    so slots at or past ``min(total, capacity)`` hold whatever the
+    allocator left there: callers read only the slots below it.
     """
     if point_rows.device.type == "cpu":
         return rasterize_backward_torch(

@@ -18,7 +18,6 @@ import ctypes
 import hashlib
 import os
 import pathlib
-import re
 import shutil
 import subprocess
 import tempfile
@@ -152,25 +151,21 @@ class CudaKernel:
             )
         self.launches += 1
 
-    def ptxas_usage(self) -> dict:
-        """Registers and static shared memory of the kernel, from ptxas's
-        ``-v`` report of the build (empty if this process did not build it)."""
-        found = re.search(r"Used (\d+) registers(?:, (\d+) bytes smem)?", self.build_log or "")
-        return dict(registers=int(found[1]), shared_bytes=int(found[2] or 0)) if found else {}
-
     def launch_info(self) -> dict:
-        """Dynamic shared memory per CTA and resident CTAs per SM, as the
-        library's ``gs_kernel_info`` reports them on the current device."""
+        """Registers per thread, static and dynamic shared memory per CTA,
+        and resident CTAs per SM, as the library's ``gs_kernel_info``
+        reports them on the current device."""
         self.load()
         info = self._lib.gs_kernel_info
-        info.argtypes = [ctypes.POINTER(ctypes.c_int32)] * 2
+        info.argtypes = [ctypes.POINTER(ctypes.c_int32)] * 4
         info.restype = ctypes.c_int
-        dynamic, blocks = ctypes.c_int32(), ctypes.c_int32()
-        code = info(ctypes.byref(dynamic), ctypes.byref(blocks))
+        values = [ctypes.c_int32() for _ in range(4)]
+        code = info(*(ctypes.byref(v) for v in values))
         if code != 0:
             raise KernelError(f"gs_kernel_info of {self.source.name}: CUDA error {code} "
                               f"({self._error_string(code).decode()})")
-        return dict(dynamic_shared_bytes=dynamic.value, blocks_per_sm=blocks.value)
+        names = ("registers", "shared_bytes", "dynamic_shared_bytes", "blocks_per_sm")
+        return {name: v.value for name, v in zip(names, values)}
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> None:

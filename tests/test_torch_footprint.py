@@ -209,10 +209,10 @@ def test_margins_match_kernel_header():
     side: Python here, ``tile_batch.cuh`` on the card)."""
     header = (CSRC_DIR / "tile_batch.cuh").read_text()
     for name, value in (("kMarginQAbs", R.FOOTPRINT_MARGIN_Q_ABS),
-                        ("kMarginQRel", R.FOOTPRINT_MARGIN_Q_REL),
+                        ("kMarginQScale", R.FOOTPRINT_MARGIN_Q_SCALE),
                         ("kMarginCond", R.FOOTPRINT_MARGIN_COND),
                         ("kMarginPixels", R.FOOTPRINT_MARGIN_PIXELS)):
-        found = re.search(rf"constexpr double {name} = ([0-9.e+-]+);", header)
+        found = re.search(rf"constexpr float {name} = ([0-9.e+-]+)f;", header)
         assert found and float(found[1]) == value, name
     for source in ("rasterize_forward.cu", "rasterize_backward.cu"):
         assert '#include "tile_batch.cuh"' in (CSRC_DIR / source).read_text()
