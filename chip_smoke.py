@@ -4,9 +4,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It imports torch, numpy and ``gausplat_tpu_torch`` only (no JAX; the
-adversarial rows come from ``tests/torch_helpers.py``, which imports JAX
-only inside the helpers it does not call here), builds the three
+It imports torch, numpy and ``gausplat_tpu_torch`` only (no JAX, and
+nothing of ``tests/``), builds the three
 hand-written kernels from ``gausplat_tpu_torch/csrc`` into
 ``build/gausplat_tpu_torch/`` (one nvcc each, all at once), and runs nine
 phases, each printing one JSON line:
@@ -40,7 +39,7 @@ phases, each printing one JSON line:
    (near-singular conics, opacities at the thresholds, huge and sub-pixel
    ellipses, pixels on an ellipse's edge, non-PD conics, NaN and inf):
    A's counts equal to the plain version's, C within 1e-3 scaled wherever
-   the plain rows are finite;
+   the plain rows are finite (the only phase that leaves any slot out);
 8. grad: the whole render backward through the kernels against the plain
    path on the small scene (five parameter gradients and the grad norm);
 9. train: the slice's main path: ``Trainer.fit`` for 10 steps on the
@@ -55,7 +54,8 @@ Then it prints the card's name and power limit, one JSON line of
 per-kernel results, every number of which comes from the training path
 (its launches, and the error, time, plain time and bound at the step's
 shapes; for A and C also the footprint's kept share and their registers,
-shared memory and resident CTAs per SM), and last
+static shared memory and resident CTAs per SM; both launch with no
+dynamic shared memory), and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
 last line; so does a machine without a CUDA device.
 """
@@ -85,10 +85,12 @@ REPS = 5
 #: f32 outside the tensor cores, and device-memory bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-#: f32 operations that every (entry, pixel) pair below a pixel's rendered
-#: count costs at least, in the forward and again in the backward replay:
-#: dx, dy (2), the quadratic form (9), the -0.5 scale and exp (2), the
-#: opacity product and its clamp (2), the two blend tests (2).
+#: f32 operations that every blended (entry, pixel) pair costs at least,
+#: in the forward and again in the backward replay: dx, dy (2), the
+#: quadratic form (9), the -0.5 scale and exp (2), the opacity product and
+#: its clamp (2), the two blend tests (2). Only the blended pairs count
+#: (``blended_pairs``): a pair that cannot blend may be rejected without
+#: evaluating it, as the kernels' footprint skip rejects most of them.
 PAIR_FLOPS_MIN = 17
 #: Gradients of the backward kernel and of the render through the kernels
 #: against their plain versions, scaled by each row's or field's largest
@@ -354,6 +356,33 @@ def warp_keep_share(rows, ids, ranges, tcx) -> float:
     return int(bits.sum()) / (WARPS_PER_TILE * entries) if entries else 0.0
 
 
+def blended_pairs(rows, ids, ranges, counts, tcx, block=256, tile_chunk=512) -> int:
+    """The (entry, pixel) pairs that blend: below the pixel's rendered count
+    ``counts`` [T, 256], with alpha >= 1/255 by the plain blend test
+    (``ops/blend.py::density_terms``). A rasterizer evaluates at least
+    these; the operation part of A's and C's bounds counts them."""
+    from gausplat_tpu_torch.ops.blend import EntryBlock, density_terms
+    from gausplat_tpu_torch.ops.rasterize import pixel_coords
+
+    r0 = ranges[:, 0].long()
+    walk = torch.minimum((ranges[:, 1].long() - r0).clamp_min(0),
+                         counts.max(dim=1).values.long())
+    steps = -(-walk // block)
+    pos = torch.arange(block, device=rows.device)
+    total = torch.zeros((), dtype=torch.int64, device=rows.device)
+    for k in range(int(steps.max()) if steps.numel() else 0):
+        for tiles in torch.split(torch.nonzero(steps > k).flatten(), tile_chunk):
+            at = k * block + pos  # positions in the tiles' segments [B]
+            inside = at < walk[tiles, None]  # [n, B]
+            slots = torch.where(inside, r0[tiles, None] + at, 0)
+            entries = EntryBlock.from_rows(rows[:, ids[slots].long()])
+            pix_x, pix_y = pixel_coords(tiles, tcx)
+            blendable = density_terms(entries, pix_x, pix_y)[4]  # [n, B, 256]
+            below = at[None, :, None] < counts[tiles][:, None, :]
+            total += (blendable & below & inside[..., None]).sum()
+    return int(total)
+
+
 def backward_inputs(rows, ids, ranges, tcx, grad_image):
     """Kernel C's inputs for one view: the forward kernel's image and counts,
     the tiled cotangent and <g, C>."""
@@ -366,11 +395,14 @@ def backward_inputs(rows, ids, ranges, tcx, grad_image):
     return (rows, ids, ranges, grad_tiles, gdotc, count_tiles)
 
 
-def compare_backward(args, tcx, block_size) -> tuple[dict, torch.Tensor]:
+def compare_backward(args, tcx, block_size, nonfinite_plain_allowed=False
+                     ) -> tuple[dict, torch.Tensor]:
     """Kernel C against its plain version over the slots below the valid
-    entry count (per-row error scaled by the row's largest magnitude, over
-    the slots where the plain row is finite), and against a second launch of
-    itself (bit for bit); returns the record and the kernel's rows."""
+    entry count (per-row error scaled by the row's largest magnitude), and
+    against a second launch of itself (bit for bit); returns the record and
+    the kernel's rows. Every such slot is compared, unless
+    ``nonfinite_plain_allowed`` (rows built to be non-finite) leaves out the
+    slots where the plain row is not finite."""
     from gausplat_tpu_torch.ops.rasterize import rasterize_backward, rasterize_backward_torch
 
     got = rasterize_backward(*args, tile_count_x=tcx)
@@ -379,18 +411,22 @@ def compare_backward(args, tcx, block_size) -> tuple[dict, torch.Tensor]:
     torch.cuda.synchronize()
     valid = int(args[2][:, 1].max())
     finite = torch.isfinite(ref[:, :valid])
-    rows = [scaled_err(got[r, :valid][finite[r]], ref[r, :valid][finite[r]]) for r in range(9)]
+    keep = finite if nonfinite_plain_allowed else torch.ones_like(finite)
+    rows = [scaled_err(got[r, :valid][keep[r]], ref[r, :valid][keep[r]]) for r in range(9)]
     return dict(valid_slots=valid, row_scaled_err=rows,
-                max_abs=max_abs(got[:, :valid][finite], ref[:, :valid][finite]),
+                max_abs=max_abs(got[:, :valid][keep], ref[:, :valid][keep]),
                 plain_nonfinite=int((~finite).sum()),
+                nonfinite_plain_allowed=nonfinite_plain_allowed,
                 finite=bool(torch.isfinite(got[:, :valid]).all()),
                 repeat_bit_identical=bool(torch.equal(got[:, :valid], again[:, :valid]))), got
 
 
 def backward_close(rec) -> bool:
     """Kernel C's tolerance: finite rows within ``GRAD_SCALED_ATOL`` of the
-    plain version, and a second launch bit-identical."""
-    return (rec["finite"] and max(rec["row_scaled_err"]) <= GRAD_SCALED_ATOL
+    plain version (a NaN error fails), plain rows finite unless the record
+    allows otherwise, and a second launch bit-identical."""
+    return (rec["finite"] and all(e <= GRAD_SCALED_ATOL for e in rec["row_scaled_err"])
+            and (rec["plain_nonfinite"] == 0 or rec["nonfinite_plain_allowed"])
             and rec["repeat_bit_identical"])
 
 
@@ -548,6 +584,7 @@ def phase_rasterize(ctx):
         )
     ctx["raster_inputs"] = (rows, ids, ranges, tcx)
     ctx["raster_pairs"] = int(got[2].to(torch.int64).sum())
+    ctx["raster_blended"] = blended_pairs(rows, ids, ranges, got[2], tcx)
     return results
 
 
@@ -658,11 +695,12 @@ def phase_main_path(ctx):
     except RuntimeError as e:  # the profiler is a measurement, not the path
         breakdown = dict(device_busy_ms=f"not measured ({e})")
     # Bounds from these shapes: each input read once, each output written
-    # once; kernel A's operations over the pairs below the rendered counts.
+    # once; kernel A's operations over the blended pairs.
     tiles = ranges.shape[0]
     a_bound = bound(nbytes(rows, ids, ranges) + tiles * 256 * (3 + 1 + 1) * 4,
-                    ctx["raster_pairs"] * PAIR_FLOPS_MIN)
-    a_bound["pairs"] = ctx["raster_pairs"]
+                    ctx["raster_blended"] * PAIR_FLOPS_MIN)
+    a_bound["pairs_below_counts"] = ctx["raster_pairs"]
+    a_bound["blended_pairs"] = ctx["raster_blended"]
     a_bound["warp_keep_share"] = warp_keep_share(rows, ids, ranges, tcx)
     b_bound = bound(nbytes(*b_args) + capacity * (8 + 4), 0.0)
     return dict(
@@ -713,14 +751,13 @@ def phase_rasterize_backward(ctx):
 @torch.no_grad()
 def phase_adversarial(ctx):
     """Kernels A and C on rows that stress their footprint skip
-    (``tests/torch_helpers.py::adversarial_entries``: near-singular conics,
+    (``gausplat_tpu_torch.testing.adversarial_entries``: near-singular conics,
     opacities at 1/255 (1 +- 1e-6) and above 252/255, huge and sub-pixel
     ellipses, pixels on the edge of an ellipse and alone in their strip,
     non-PD conics, NaN and inf): A's counts equal to the plain version's,
     image and transmittance within 1e-4; C within GRAD_SCALED_ATOL wherever
     the plain rows are finite."""
-    sys.path.insert(0, str(ROOT / "tests"))
-    from torch_helpers import adversarial_entries
+    from gausplat_tpu_torch.testing import adversarial_entries
 
     dev = ctx["device"]
     rows, ids, ranges, width, height, tcx = adversarial_entries()
@@ -731,7 +768,8 @@ def phase_adversarial(ctx):
           f"forward kernel differs from its plain version on the adversarial rows: {a_rec}")
     grad = torch.randn((height, width, 3), generator=torch.Generator(device=dev).manual_seed(13),
                        device=dev)
-    c_rec, _ = compare_backward(backward_inputs(rows, ids, ranges, tcx, grad), tcx, 64)
+    c_rec, _ = compare_backward(backward_inputs(rows, ids, ranges, tcx, grad), tcx, 64,
+                                nonfinite_plain_allowed=True)
     check(backward_close(c_rec),
           f"backward kernel differs from its plain version on the adversarial rows: {c_rec}")
     return dict(entries=int(ranges[0, 1] - ranges[0, 0]), tiles=int(ranges.shape[0]),
@@ -887,14 +925,15 @@ def phase_train(ctx):
             cuda_ms(lambda: rasterize_backward_torch(*c_args, tile_count_x=tcx))),
     }
     # Bounds from these shapes: each input read once, each output written
-    # once; A's and C's operations over the pairs below the rendered counts.
+    # once; A's and C's operations over the blended pairs.
     pairs = int(a_out[2].to(torch.int64).sum())
+    blended = blended_pairs(rows, ids, ranges, a_out[2], tcx)
     bounds = {
         "rasterize_forward": bound(nbytes(rows, ids, ranges) + nbytes(*a_out),
-                                   pairs * PAIR_FLOPS_MIN),
+                                   blended * PAIR_FLOPS_MIN),
         "expand_point_orders": bound(nbytes(*b_args) + b_rec["out_bytes"], 0.0),
         "rasterize_backward": bound(nbytes(*c_args) + 9 * c_rec["valid_slots"] * 4,
-                                    pairs * PAIR_FLOPS_MIN),
+                                    blended * PAIR_FLOPS_MIN),
     }
     keep = warp_keep_share(rows, ids, ranges, tcx)
     no_skip = time_without_skip(rows, ids, ranges, tcx, c_args, a_out, c_out)
@@ -944,7 +983,8 @@ def phase_train(ctx):
         forward_backward_ms=fwd_bwd_ms, forward_backward_ms_all=fwd_bwd_all,
         step_ms=step_ms, step_ms_all=step_all,
         kernels_at_step=dict(
-            capacity=capacity, points=trainer.scene.point_count, pairs=pairs,
+            capacity=capacity, points=trainer.scene.point_count,
+            pairs_below_counts=pairs, blended_pairs=blended,
             compare=dict(rasterize_forward=a_rec, expand_point_orders=b_rec,
                          rasterize_backward=c_rec),
             ms_all={name: t[0][1] for name, t in times.items()},

@@ -159,21 +159,10 @@ extern "C" int gs_rasterize_forward(
   return (int)cudaGetLastError();
 }
 
-// Launch facts for a report: registers and static shared memory per thread
-// and CTA (the numbers ptxas reports), dynamic shared memory per CTA
-// (none), and resident CTAs per SM at 256 threads.
+// Launch facts for a report (tile_batch.cuh::kernel_info).
 extern "C" int gs_kernel_info(int32_t* registers, int32_t* shared_bytes,
-                              int32_t* dynamic_shared_bytes, int32_t* blocks_per_sm) {
-  cudaFuncAttributes attributes;
-  cudaError_t err = cudaFuncGetAttributes(&attributes, rasterize_forward_kernel);
-  if (err != cudaSuccess) return (int)err;
-  *registers = attributes.numRegs;
-  *shared_bytes = (int32_t)attributes.sharedSizeBytes;
-  *dynamic_shared_bytes = 0;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rasterize_forward_kernel, kPixels, 0);
-  *blocks_per_sm = blocks;
-  return (int)err;
+                              int32_t* blocks_per_sm) {
+  return gs::kernel_info(rasterize_forward_kernel, registers, shared_bytes, blocks_per_sm);
 }
 
 extern "C" const char* gs_error_string(int code) {

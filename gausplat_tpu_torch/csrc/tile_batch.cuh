@@ -116,4 +116,24 @@ __device__ __forceinline__ uint32_t stage_entry(float (*staged)[kBatch], int slo
   return entry_warp_mask(v[3], v[4], v[5], v[6], v[7], v[8], x0, y0, opacity_min);
 }
 
+// --- launch facts --------------------------------------------------------------
+
+// Registers per thread and static shared memory per CTA of `kernel` (the
+// numbers ptxas reports), and its resident CTAs per SM at 256 threads with
+// no dynamic shared memory (what both rasterize launches pass). Backs each
+// library's gs_kernel_info.
+template <typename Kernel>
+inline int kernel_info(Kernel* kernel, int32_t* registers, int32_t* shared_bytes,
+                       int32_t* blocks_per_sm) {
+  cudaFuncAttributes attributes;
+  cudaError_t err = cudaFuncGetAttributes(&attributes, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = attributes.numRegs;
+  *shared_bytes = (int32_t)attributes.sharedSizeBytes;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kPixels, 0);
+  *blocks_per_sm = blocks;
+  return (int)err;
+}
+
 }  // namespace gs

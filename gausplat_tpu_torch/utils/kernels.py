@@ -152,19 +152,19 @@ class CudaKernel:
         self.launches += 1
 
     def launch_info(self) -> dict:
-        """Registers per thread, static and dynamic shared memory per CTA,
-        and resident CTAs per SM, as the library's ``gs_kernel_info``
-        reports them on the current device."""
+        """Registers per thread, static shared memory per CTA, and resident
+        CTAs per SM, as the library's ``gs_kernel_info`` reports them on the
+        current device."""
         self.load()
+        names = ("registers", "shared_bytes", "blocks_per_sm")
         info = self._lib.gs_kernel_info
-        info.argtypes = [ctypes.POINTER(ctypes.c_int32)] * 4
+        info.argtypes = [ctypes.POINTER(ctypes.c_int32)] * len(names)
         info.restype = ctypes.c_int
-        values = [ctypes.c_int32() for _ in range(4)]
+        values = [ctypes.c_int32() for _ in names]
         code = info(*(ctypes.byref(v) for v in values))
         if code != 0:
             raise KernelError(f"gs_kernel_info of {self.source.name}: CUDA error {code} "
                               f"({self._error_string(code).decode()})")
-        names = ("registers", "shared_bytes", "dynamic_shared_bytes", "blocks_per_sm")
         return {name: v.value for name, v in zip(names, values)}
 
 

@@ -46,12 +46,15 @@ def _port_inputs(case):
 
 #: Stored gradients against JAX's, each field scaled by its largest
 #: magnitude. XLA CPU builds and hosts differ in the order of their fused
-#: sums: by about 1.6e-6 scaled in ``grad_colors_sh`` and up to 7.8e-6 in
-#: ``grad_rotations`` from the stored file (JAX 0.9.0), so a staleness
-#: check at 1e-6 depends on the host. 1e-5 is still 10x tighter than the
-#: port's 1e-4 against ``jax.grad`` and 100x tighter than the card's 1e-3.
-#: Images and transmittances keep 1e-6, integers stay exact.
-GRAD_STALE_ATOL = 1e-5
+#: sums, so a staleness check at 1e-6 depends on the host. Largest scaled
+#: differences over the three cases on one x86 host with JAX 0.9.0:
+#: colors_sh 1.6e-6, positions 1.3e-6, norm 1.1e-6, opacities 1.0e-6,
+#: scalings 4.9e-6, rotations 7.8e-6. Each limit leaves at least 6x room
+#: above its reading and stays tighter than the port's 1e-4 against
+#: ``jax.grad`` (and the card's 1e-3). Images and transmittances keep
+#: 1e-6, integers stay exact.
+GRAD_STALE_ATOL = {"grad_scalings": 5e-5, "grad_rotations": 5e-5}
+GRAD_STALE_ATOL_DEFAULT = 1e-5
 
 
 @pytest.mark.parametrize("case", sorted(torch_fixture.CASES))
@@ -65,13 +68,14 @@ def test_fixture_is_current(case):
         if name.startswith("grad_"):
             scale = np.abs(value).max()
             err = float(np.abs(g[name] / scale - value / scale).max())
-            if err > GRAD_STALE_ATOL:
-                stale[name] = err
+            limit = GRAD_STALE_ATOL.get(name, GRAD_STALE_ATOL_DEFAULT)
+            if err > limit:
+                stale[name] = (err, limit)
         elif value.dtype.kind == "f":
             np.testing.assert_allclose(g[name], value, atol=1e-6, rtol=0, err_msg=name)
         else:
             np.testing.assert_array_equal(g[name], value, err_msg=name)
-    assert not stale, f"stored gradients are stale (scaled error above {GRAD_STALE_ATOL}): {stale}"
+    assert not stale, f"stored gradients are stale (scaled error, limit): {stale}"
 
 
 @pytest.mark.parametrize("case", sorted(torch_fixture.CASES))

@@ -27,10 +27,10 @@ from gausplat_tpu_torch.ops import blend
 from gausplat_tpu_torch.ops import rasterize as R
 from gausplat_tpu_torch.ops.binning import bin_gaussians
 from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
+from gausplat_tpu_torch.testing import adversarial_entries, grazing_position
 from gausplat_tpu_torch.utils.kernels import CSRC_DIR
 
 import oracle
-import torch_helpers as H
 from tests import torch_fixture
 
 OMIN = np.float32(1.0 / 255.0)
@@ -129,7 +129,7 @@ def entry_row(draw, x0, y0):
             pixel = (x0 + free, y0 + 2 * draw(st.integers(0, 7)) + (sign < 0))
         else:
             pixel = (x0 + (15 if sign < 0 else 0), y0 + free)
-        px, py = H.grazing_position(*conic, opacity, pixel, axis, sign,
+        px, py = grazing_position(*conic, opacity, pixel, axis, sign,
                                     draw(st.floats(1e-4, 1e-2)))
     row = [*np.random.default_rng(draw(st.integers(0, 99))).random(3), *conic, opacity, px, py]
     if kind == "not_finite":
@@ -157,7 +157,7 @@ def test_blended_pairs_lie_in_the_mask(case):
 
 
 def test_adversarial_rows_blend_inside_their_masks():
-    rows, _, _, width, height, tcx = H.adversarial_entries()
+    rows, _, _, width, height, tcx = adversarial_entries()
     rows = rows[:, :-1]
     for tile in range(tcx * (height // 16)):
         x0, y0 = (tile % tcx) * 16, (tile // tcx) * 16
@@ -174,7 +174,7 @@ def test_adversarial_rows_sequential_order_matches_plain():
     """The sequential per-pixel order that kernel A follows (tests/oracle.py)
     gives the plain version's counts on the adversarial rows, so the card's
     exact-count check on them tests the kernel's skip."""
-    rows, ids, ranges, width, height, tcx = H.adversarial_entries()
+    rows, ids, ranges, width, height, tcx = adversarial_entries()
     args = [torch.as_tensor(a) for a in (rows, ids, ranges)]
     _, trans, counts = R.rasterize_forward_torch(*args, tile_count_x=tcx, block_size=64)
     with np.errstate(all="ignore"):
@@ -190,7 +190,7 @@ def test_adversarial_rows_sequential_order_matches_plain():
 def test_entry_warp_masks_layout():
     """Masks land at the sorted positions of each tile's range, computed
     against that tile, and are 0 outside every range."""
-    rows, ids, ranges, width, height, tcx = H.adversarial_entries()
+    rows, ids, ranges, width, height, tcx = adversarial_entries()
     ranges = ranges.copy()
     ranges[5] = ranges[5, 0]  # an empty tile; its slots are outside every range
     got = R.entry_warp_masks(*(torch.as_tensor(a) for a in (rows, ids, ranges)),

@@ -74,90 +74,6 @@ EXPAND_WORKLOADS = {
 }
 
 
-def grazing_position(cxx, cxy, cyy, opacity, pixel, axis, sign, slack):
-    """An entry position that puts ``pixel`` at the x (``axis`` 0) or y
-    (``axis`` 1) extreme of the entry's alpha = 1/255 ellipse, pulled
-    ``slack`` (relative) inside it: the pixel blends, and lies on the edge
-    of any box around the ellipse."""
-    q_max = 2.0 * np.log(opacity / np.float64(np.float32(1.0 / 255.0)))
-    det = cxx * cyy - cxy * cxy
-    if axis == 0:
-        d = np.sqrt(q_max / (cyy * det)) * np.array([cyy, -cxy])
-    else:
-        d = np.sqrt(q_max / (cxx * det)) * np.array([-cxy, cxx])
-    return tuple(np.asarray(pixel, np.float64) - sign * (1.0 - slack) * d)
-
-
-def adversarial_entries(seed=0):
-    """Entry rows that stress the rasterizers' footprint skip, and every one
-    of them binned into every tile of a 64x48 image, in order.
-
-    Near-singular conics, opacities at 1/255 (1 +- 1e-6) and above 252/255,
-    huge and sub-pixel ellipses, positions on tile and strip edges, conics
-    that are not positive definite, and NaN / inf values. Opaque entries
-    are sub-pixel and apart, so no pixel's transmittance comes near its
-    floor and the sequential and log-step products take the same
-    decisions. Returns ``(rows [9, P + 1] f32, ids [capacity] int32,
-    ranges [T, 2] int32, width, height, tile_count_x)`` as numpy arrays
-    (capacity a multiple of 256).
-    """
-    rng = np.random.default_rng(seed)
-    width, height = 64, 48
-    tcx, tcy = width // 16, height // 16
-    f32 = np.float32
-    omin = f32(1.0 / 255.0)
-    entries = []  # (cxx, cxy, cyy, opacity, px, py)
-
-    def anywhere():
-        return rng.uniform(-4.0, width + 4.0), rng.uniform(-4.0, height + 4.0)
-
-    for delta in (1e-2, 1e-4, 1e-6, 1e-8):  # near-singular conics, both tilts
-        for sign in (1.0, -1.0):
-            s, r = rng.uniform(0.05, 0.5), rng.uniform(1.0, 2.0)
-            entries.append((s, sign * s * np.sqrt(r) * (1 - delta), s * r, 0.3, *anywhere()))
-    for op in (omin * (1 - 1e-6), omin, omin * (1 + 1e-6), np.nextafter(omin, f32(1))):
-        for _ in range(2):  # centred on a pixel (density 1 there) and anywhere
-            c = rng.uniform(0.1, 2.0)
-            px, py = rng.integers(0, width), rng.integers(0, height)
-            entries.append((c, 0.0, c, op, float(px), float(py)))
-            entries.append((c, 0.1 * c, c, op, *anywhere()))
-    for i, op in enumerate((0.99, 1.0, 0.995, 252 / 255)):  # opaque, sub-pixel, apart
-        entries.append((4.0, 0.0, 4.0, op, 8.0 + 16 * i, 8.0 + 12 * (i % 3)))
-    for c in (1e-6, 1e-4):  # huge
-        entries.append((c, 0.2 * c, 1.5 * c, 0.05, *anywhere()))
-    for c in (1e3, 1e6):  # sub-pixel, on a pixel and between pixels
-        entries.append((c, 0.0, c, 0.9, 20.0, 30.0))
-        entries.append((c, 0.3 * c, c, 0.9, 40.5, 10.25))
-    for px, py in ((15.5, 1.5), (16.0, 2.0), (31.999, 15.99), (47.5, 17.0)):  # edges
-        entries.append((1.0, 0.2, 0.8, 0.5, px, py))
-    for conic in ((1.0, 2.0, 1.0), (-1.0, 0.0, 1.0), (0.0, 0.0, 0.0), (1.0, 0.0, -1.0)):
-        entries.append((*conic, 0.5, *anywhere()))  # not positive definite
-    nan, inf = float("nan"), float("inf")
-    for row in ((1.0, 0.0, 1.0, 0.5, nan, 20.0), (nan, 0.0, 1.0, 0.5, 30.0, 20.0),
-                (1.0, 0.0, inf, 0.5, 10.0, 10.0), (1.0, 0.0, 1.0, nan, 12.0, 30.0)):
-        entries.append(row)
-
-    # A pixel 1e-3 inside the ellipse's edge, alone in its warp strip (the
-    # top row 2w + 1, the bottom row 2w) or its tile (column 15 or 0).
-    for conic, pixel, axis, sign in (((0.3, 0.1, 0.2), (9, 5), 1, -1),
-                                     ((0.3, 0.1, 0.2), (25, 22), 1, 1),
-                                     ((0.05, -0.04, 0.04), (47, 30), 0, -1),
-                                     ((2.0, 0.5, 0.5), (16, 40), 0, 1)):
-        entries.append((*conic, 0.4, *grazing_position(*conic, 0.4, pixel, axis, sign, 1e-3)))
-
-    p = len(entries)
-    order = rng.permutation(p)
-    rows = np.zeros((9, p + 1), f32)
-    rows[0:3, :p] = rng.random((3, p))
-    rows[3:9, :p] = np.asarray(entries, np.float64)[order].T.astype(f32)
-    tiles = tcx * tcy
-    capacity = -(-tiles * p // 256) * 256
-    ids = np.full(capacity, p, np.int32)
-    ids[: tiles * p] = np.tile(np.arange(p, dtype=np.int32), tiles)
-    ranges = np.stack([np.arange(tiles) * p, np.arange(1, tiles + 1) * p], -1).astype(np.int32)
-    return rows, ids, ranges, width, height, tcx
-
-
 def views(width, height, position=(0.0, 0.0, -4.0), rotation=None):
     """The same camera as a (JAX View, port View) pair. ``rotation`` is the
     world-to-view rotation (default identity), looking along its +z."""
