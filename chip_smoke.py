@@ -5,10 +5,11 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It imports torch, numpy and ``gausplat_tpu_torch`` only (no JAX, and
-nothing of ``tests/``), builds the three
-hand-written kernels from ``gausplat_tpu_torch/csrc`` into
-``build/gausplat_tpu_torch/`` (one nvcc each, all at once), and runs nine
-phases, each printing one JSON line:
+nothing of ``tests/``), builds the three hand-written kernel libraries from
+``gausplat_tpu_torch/csrc`` into ``build/gausplat_tpu_torch/`` (one nvcc
+each, all at once; the rasterize libraries hold an entry point for f32
+rows and one for packed bf16-pair rows), and runs ten phases, each
+printing one JSON line:
 
 1. env: versions, the card, the kernel builds and their ptxas reports;
 2. expand: the expansion kernel against its plain version, bit for bit,
@@ -20,9 +21,9 @@ phases, each printing one JSON line:
    equal), a second launch bit for bit, plus the count flips of an
    FMA-contracting build of the same source;
 4. fixture: the CUDA render and its gradients against outputs stored by
-   the JAX package (``tests/data/torch_xcheck.npz``): images atol 1e-4,
-   integers exact, gradients within 1e-3 scaled by each field's largest
-   magnitude;
+   the JAX package (``tests/data/torch_xcheck.npz``), f32 and bf16 entry
+   rows: images atol 1e-4, integers exact, gradients within 1e-3 scaled
+   by each field's largest magnitude;
 5. main_path: serving, under ``torch.no_grad``: a 1M-point scene at
    1920x1080 rendered for 5 views through ``render`` and once through
    ``render_views``, with the launch counts of both forward kernels, then
@@ -48,14 +49,35 @@ phases, each printing one JSON line:
    each kernel against its plain version (tolerances as in phases 2, 3
    and 6) and timed beside it, A and C also built without their footprint
    skip (bit-identical outputs required) and timed; timings of a step and
-   of forward + backward, the peak memory, and a profile of a step.
+   of forward + backward, the peak memory, and a profile of a step;
+10. colmap_bf16: the bf16 training path from a COLMAP capture. A synthetic
+   sparse model of the bench scene (1,000,000 SfM points, the 5 views as
+   PINHOLE 1920x1080 images, no image files) is written to a temporary
+   directory, loaded with ``load_sparse_model`` (views and points must
+   round-trip), initialised with ``GaussianScene.from_points`` on the card
+   and fitted with ``Trainer.fit`` for 10 steps with phase 9's
+   ``TrainConfig`` and ``entry_dtype="bf16"`` against phase 9's f32
+   targets (losses finite and falling, every entry total within its
+   capacity, the packed kernels launched and the f32 rasterizers not);
+   then, at the step's shapes, the packed A against its plain version
+   (image and transmittance within 1e-3, >= 99.99% of counts equal, a
+   second launch and the build without the skip bit-identical) and the
+   packed C (decoded: position rows within 1e-3 scaled, bf16 rows within
+   1e-3 scaled plus one bf16 ulp of each element, the flips counted; a
+   second launch and the build without the skip bit-identical), both timed
+   beside their plain versions and beside the f32 entry points on the same
+   projection, with bounds from the packed bytes; and render + loss +
+   gradients on the fitted scene timed with bf16 and with f32 rows, in
+   turns.
 
 Then it prints the card's name and power limit, one JSON line of
-per-kernel results, every number of which comes from the training path
-(its launches, and the error, time, plain time and bound at the step's
-shapes; for A and C also the footprint's kept share and their registers,
-static shared memory and resident CTAs per SM; both launch with no
-dynamic shared memory), and last
+per-kernel results, every number of which comes from a training path
+(phase 9 for the f32 entry points of A, B and C, phase 10 for the packed
+``rasterize_forward_bf16`` and ``rasterize_backward_bf16``: their
+launches, and the error, time, plain time and bound at the step's shapes;
+for A and C also the footprint's kept share and their registers, static
+shared memory and resident CTAs per SM; all launch with no dynamic shared
+memory), and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without the
 last line; so does a machine without a CUDA device.
 """
@@ -131,6 +153,16 @@ def cuda_ms(fn, reps: int = REPS) -> tuple[float, list[float]]:
     return statistics.median(times), times
 
 
+def in_turns(first, second, reps: int = REPS) -> dict:
+    """Two functions timed in turns (first, second, second, first), each turn
+    a :func:`cuda_ms`: per function, the median over both of its turns and
+    every time (ms)."""
+    times = {"first": [], "second": []}
+    for name in ("first", "second", "second", "first"):
+        times[name] += cuda_ms(first if name == "first" else second, reps)[1]
+    return {name: (statistics.median(t), t) for name, t in times.items()}
+
+
 def profile_device_time(fn, reps: int = 3, top: int = 12) -> dict:
     """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler,
     CUPTI), the device-busy time per call against the host clock, and the
@@ -191,6 +223,16 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def entry_bytes(rows, ids, ranges) -> int:
+    """The bytes of a rasterizer's entry inputs that this run's data needs
+    read: the tile ranges whole, the sorted ids below the valid entry count
+    (each tile stages only its ``[r0, r1)``), and the rows of the points
+    those ids name (the rows of culled points are never gathered)."""
+    valid = int(ranges[:, 1].max()) if ranges.numel() else 0
+    points = int(torch.unique(ids[:valid]).numel())
+    return nbytes(ranges) + ids.element_size() * valid + rows.shape[0] * rows.element_size() * points
+
+
 # --- inputs (numpy recipes from a seed) ----------------------------------------
 
 
@@ -248,6 +290,17 @@ def bench_scene_arrays(point_count=1_000_000):
                 rotations=rotations, scalings=scalings)
 
 
+def train_start_arrays(arrays):
+    """The train phase's start point: the target's arrays with seeded noise."""
+    p = arrays["positions"].shape[0]
+    rng = np.random.default_rng(1)
+    start = {k: v.copy() for k, v in arrays.items()}
+    start["colors_sh"][:, :3] += rng.normal(0.0, 0.3, (p, 3)).astype(np.float32)
+    start["opacities"] -= 1.0
+    start["positions"] += rng.normal(0.0, 0.01, (p, 3)).astype(np.float32)
+    return start
+
+
 def orbit_view(T, yaw, pitch, width=1920, height=1080, distance=8.0):
     """The bench camera (fov 1.2 x 0.8, 8 units behind the origin, looking
     at it), turned by ``yaw`` / ``pitch`` radians about the origin."""
@@ -265,11 +318,20 @@ def orbit_view(T, yaw, pitch, width=1920, height=1080, distance=8.0):
     )
 
 
-def raster_inputs(scene, view, capacity, tight, device, sh_degree=3):
-    """Entry rows, sorted ids, tile ranges, the tile count across and the
-    projection of one view, as the render builds them."""
+def bench_views(T):
+    """The five 1920x1080 views of the bench scene: straight on, then turned
+    by 0.1 rad left, right, up and down."""
+    return [orbit_view(T, 0.0, 0.0), orbit_view(T, 0.1, 0.0), orbit_view(T, -0.1, 0.0),
+            orbit_view(T, 0.0, 0.1), orbit_view(T, 0.0, -0.1)]
+
+
+def raster_inputs(scene, view, capacity, tight, device, sh_degree=3, packed=False):
+    """Entry rows (f32, or packed bf16 pairs), sorted ids, tile ranges, the
+    tile count across and the projection of one view, as the render builds
+    them."""
     from gausplat_tpu_torch.ops.binning import bin_gaussians
     from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
+    from gausplat_tpu_torch.ops.blend import pack_rows
     from gausplat_tpu_torch.ops.rasterize import pack_point_data
 
     tcx, tcy = -(-view.image_width // 16), -(-view.image_height // 16)
@@ -285,6 +347,7 @@ def raster_inputs(scene, view, capacity, tight, device, sh_degree=3):
             proj.tile_counts, tile_count_x=tcx, tile_count_y=tcy, capacity=capacity,
         )
         rows = pack_point_data(proj, torch.sigmoid(scene.opacities[:, 0]))
+        rows = pack_rows(rows) if packed else rows
     return rows, binning.point_indices, binning.tile_ranges, tcx, proj
 
 
@@ -361,9 +424,10 @@ def blended_pairs(rows, ids, ranges, counts, tcx, block=256, tile_chunk=512) -> 
     ``counts`` [T, 256], with alpha >= 1/255 by the plain blend test
     (``ops/blend.py::density_terms``). A rasterizer evaluates at least
     these; the operation part of A's and C's bounds counts them."""
-    from gausplat_tpu_torch.ops.blend import EntryBlock, density_terms
+    from gausplat_tpu_torch.ops.blend import EntryBlock, decode_rows, density_terms
     from gausplat_tpu_torch.ops.rasterize import pixel_coords
 
+    rows = decode_rows(rows)
     r0 = ranges[:, 0].long()
     walk = torch.minimum((ranges[:, 1].long() - r0).clamp_min(0),
                          counts.max(dim=1).values.long())
@@ -398,50 +462,65 @@ def backward_inputs(rows, ids, ranges, tcx, grad_image):
 def compare_backward(args, tcx, block_size, nonfinite_plain_allowed=False
                      ) -> tuple[dict, torch.Tensor]:
     """Kernel C against its plain version over the slots below the valid
-    entry count (per-row error scaled by the row's largest magnitude), and
-    against a second launch of itself (bit for bit); returns the record and
-    the kernel's rows. Every such slot is compared, unless
-    ``nonfinite_plain_allowed`` (rows built to be non-finite) leaves out the
-    slots where the plain row is not finite."""
+    entry count, and against a second launch of itself (bit for bit);
+    returns the record and the kernel's rows. f32 rows: per-row error
+    scaled by the row's largest magnitude. Packed rows are compared decoded
+    (``gausplat_tpu_torch.testing.compare_packed_grads``: position rows
+    scaled, bf16 rows scaled beyond one bf16 ulp of each element, and the
+    bf16 elements that flip). Every such slot is compared, unless
+    ``nonfinite_plain_allowed`` (f32 rows built to be non-finite) leaves
+    out the slots where the plain row is not finite."""
+    from gausplat_tpu_torch.ops.blend import decode_rows, is_packed
     from gausplat_tpu_torch.ops.rasterize import rasterize_backward, rasterize_backward_torch
+    from gausplat_tpu_torch.testing import compare_packed_grads
 
     got = rasterize_backward(*args, tile_count_x=tcx)
     again = rasterize_backward(*args, tile_count_x=tcx)
     ref = rasterize_backward_torch(*args, tile_count_x=tcx, block_size=block_size)
     torch.cuda.synchronize()
     valid = int(args[2][:, 1].max())
-    finite = torch.isfinite(ref[:, :valid])
+    got_f32, ref_f32 = decode_rows(got[:, :valid]), decode_rows(ref[:, :valid])
+    finite = torch.isfinite(ref_f32)
     keep = finite if nonfinite_plain_allowed else torch.ones_like(finite)
-    rows = [scaled_err(got[r, :valid][keep[r]], ref[r, :valid][keep[r]]) for r in range(9)]
-    return dict(valid_slots=valid, row_scaled_err=rows,
-                max_abs=max_abs(got[:, :valid][keep], ref[:, :valid][keep]),
+    if is_packed(got):
+        rec = compare_packed_grads(got[:, :valid], ref[:, :valid])
+    else:
+        rec = dict(row_scaled_err=[scaled_err(got_f32[r][keep[r]], ref_f32[r][keep[r]])
+                                   for r in range(9)])
+    return dict(valid_slots=valid, **rec, max_abs=max_abs(got_f32[keep], ref_f32[keep]),
                 plain_nonfinite=int((~finite).sum()),
                 nonfinite_plain_allowed=nonfinite_plain_allowed,
-                finite=bool(torch.isfinite(got[:, :valid]).all()),
+                finite=bool(torch.isfinite(got_f32).all()),
                 repeat_bit_identical=bool(torch.equal(got[:, :valid], again[:, :valid]))), got
 
 
 def backward_close(rec) -> bool:
     """Kernel C's tolerance: finite rows within ``GRAD_SCALED_ATOL`` of the
-    plain version (a NaN error fails), plain rows finite unless the record
-    allows otherwise, and a second launch bit-identical."""
+    plain version (packed: plus one bf16 ulp of each bf16 element; a NaN
+    error fails), plain rows finite unless the record allows otherwise, and
+    a second launch bit-identical."""
     return (rec["finite"] and all(e <= GRAD_SCALED_ATOL for e in rec["row_scaled_err"])
             and (rec["plain_nonfinite"] == 0 or rec["nonfinite_plain_allowed"])
             and rec["repeat_bit_identical"])
 
 
 def time_without_skip(rows, ids, ranges, tcx, c_args, a_out, c_out) -> dict:
-    """Kernels A and C built without their footprint skip
-    (``-DGS_FOOTPRINT_SKIP=0``, csrc/tile_batch.cuh): each build's time,
-    launch facts, and whether its outputs equal the default build's bit for
-    bit (they must: a skipped pair cannot blend)."""
+    """Kernels A and C (their entry points for the rows' layout) built
+    without their footprint skip (``-DGS_FOOTPRINT_SKIP=0``,
+    csrc/tile_batch.cuh): each build's time, launch facts, and whether its
+    outputs equal the default build's bit for bit (they must: a skipped
+    pair cannot blend)."""
+    from gausplat_tpu_torch.ops.blend import is_packed
     from gausplat_tpu_torch.ops.rasterize import (
-        RASTERIZE_BACKWARD, RASTERIZE_FORWARD, rasterize_backward, rasterize_forward,
+        RASTERIZE_BACKWARD, RASTERIZE_BACKWARD_PACKED, RASTERIZE_FORWARD,
+        RASTERIZE_FORWARD_PACKED, rasterize_backward, rasterize_forward,
     )
     from gausplat_tpu_torch.utils.kernels import NVCC_FLAGS, build_all
 
     flags = NVCC_FLAGS + ("-DGS_FOOTPRINT_SKIP=0",)
-    a_kernel, c_kernel = RASTERIZE_FORWARD.with_flags(flags), RASTERIZE_BACKWARD.with_flags(flags)
+    a_kernel, c_kernel = ((RASTERIZE_FORWARD_PACKED, RASTERIZE_BACKWARD_PACKED) if is_packed(rows)
+                          else (RASTERIZE_FORWARD, RASTERIZE_BACKWARD))
+    a_kernel, c_kernel = a_kernel.with_flags(flags), c_kernel.with_flags(flags)
     build_all([a_kernel, c_kernel])
     valid = int(ranges[:, 1].max())
 
@@ -465,12 +544,61 @@ def time_without_skip(rows, ids, ranges, tcx, c_args, a_out, c_out) -> dict:
     return out
 
 
+def all_kernels():
+    """Every kernel entry point of the port, in the order of the kernels line."""
+    from gausplat_tpu_torch.ops.expand import EXPAND
+    from gausplat_tpu_torch.ops.rasterize import (
+        RASTERIZE_BACKWARD, RASTERIZE_BACKWARD_PACKED, RASTERIZE_FORWARD,
+        RASTERIZE_FORWARD_PACKED,
+    )
+
+    return (RASTERIZE_FORWARD, EXPAND, RASTERIZE_BACKWARD, RASTERIZE_FORWARD_PACKED,
+            RASTERIZE_BACKWARD_PACKED)
+
+
+def fit_ten_steps(trainer, views, targets) -> tuple[list, list, dict, float]:
+    """The training path: ``Trainer.fit`` for 10 steps, in three calls (4, 4
+    and 2 steps) so that every step's entry total is checked against the
+    capacity it ran with. Every kernel's count is set to 0 just before and
+    read just after. Returns the history, the segments, the launches and
+    the seconds."""
+    kernels = all_kernels()
+    torch.cuda.synchronize()
+    for kernel in kernels:
+        kernel.launches = 0
+    start_time = time.perf_counter()
+    history, segments = [], []
+    for steps in (4, 4, 2):
+        capacity, points = trainer._entry_capacity, trainer.scene.point_count
+        part = trainer.fit(views, targets, steps)
+        segments.append(dict(steps=steps, capacity=capacity, points_before=points,
+                             points_after=trainer.scene.point_count,
+                             max_total=max(int(h["tile_point_total"]) for h in part)))
+        history += part
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start_time
+    return history, segments, {kernel.entry: kernel.launches for kernel in kernels}, seconds
+
+
+def train_config(options, views):
+    """The training phases' ``TrainConfig``: every SH degree, a densify after
+    steps 4 and 8, an opacity reset after step 8, an overflow check every 4
+    steps, the scene extent of the views."""
+    from gausplat_tpu_torch import train as TT
+
+    extent = TT.camera_extent(views)
+    return TT.TrainConfig(
+        sh_warmup_interval=1, densify_from=4, densify_interval=4, densify_until=9,
+        opacity_reset_interval=8, overflow_check_interval=4, render=options,
+        optimizer=TT.OptimizerConfig(scene_extent=extent),
+        densify=TT.DensifyConfig(scene_extent=extent),
+    )
+
+
 # --- phases ---------------------------------------------------------------------
 
 
 def phase_env(ctx):
-    from gausplat_tpu_torch.ops.expand import EXPAND
-    from gausplat_tpu_torch.ops.rasterize import RASTERIZE_BACKWARD, RASTERIZE_FORWARD
     from gausplat_tpu_torch.utils.kernels import build_all, find_nvcc
 
     nvcc = find_nvcc()
@@ -482,10 +610,10 @@ def phase_env(ctx):
         triton_version = triton.__version__
     except ImportError:
         triton_version = None
-    kernels = (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)
+    kernels = all_kernels()
     start = time.perf_counter()
-    build_all(kernels)
-    builds = {k.source.name: round(k.build_seconds, 3) for k in kernels}
+    build_all(kernels)  # one nvcc per library; the packed entry points share it
+    builds = {k.entry: round(k.build_seconds, 3) for k in kernels}
     ptxas = {
         k.source.name: [line.split(":", 1)[1].strip() for line in (k.build_log or "").splitlines()
                         if "Used" in line and "registers" in line]
@@ -608,10 +736,11 @@ def phase_fixture(ctx):
             image_height=int(height), image_width=int(width),
             view_position=g["view_position"], view_transform=g["view_transform"],
         )
-        sh_degree, tight, capacity, block = (int(x) for x in g["options"])
+        sh_degree, tight, capacity, block, bf16 = (int(x) for x in g["options"])
         options = T.RenderOptions(
             backend="cuda", colors_sh_degree_max=sh_degree, tight_culling=bool(tight),
             tile_entry_capacity=capacity, block_size=block,
+            entry_dtype="bf16" if bf16 else "f32",
         )
         ref = torch.zeros(scene.point_count, device=dev, requires_grad=True)
         got = T.render(scene, view, options, ref)
@@ -621,6 +750,7 @@ def phase_fixture(ctx):
         grad_err = {name: scaled_err(value.cpu(), torch.as_tensor(g[f"grad_{name}"]))
                     for name, value in grads.items()}
         rec = dict(
+            entry_dtype=options.entry_dtype,
             image_max_abs=max_abs(got.colors_rgb_2d.cpu(), torch.as_tensor(g["image"])),
             transmittance_max_abs=max_abs(got.transmittances.cpu(),
                                           torch.as_tensor(g["transmittance"])),
@@ -697,7 +827,7 @@ def phase_main_path(ctx):
     # Bounds from these shapes: each input read once, each output written
     # once; kernel A's operations over the blended pairs.
     tiles = ranges.shape[0]
-    a_bound = bound(nbytes(rows, ids, ranges) + tiles * 256 * (3 + 1 + 1) * 4,
+    a_bound = bound(entry_bytes(rows, ids, ranges) + tiles * 256 * (3 + 1 + 1) * 4,
                     ctx["raster_blended"] * PAIR_FLOPS_MIN)
     a_bound["pairs_below_counts"] = ctx["raster_pairs"]
     a_bound["blended_pairs"] = ctx["raster_blended"]
@@ -813,47 +943,21 @@ def phase_train(ctx):
     )
 
     dev, views = ctx["device"], ctx["views"]
-    arrays = ctx["arrays"]
-    p = arrays["positions"].shape[0]
-    # The start point: the target's arrays with seeded noise.
-    rng = np.random.default_rng(1)
-    start = {k: v.copy() for k, v in arrays.items()}
-    start["colors_sh"][:, :3] += rng.normal(0.0, 0.3, (p, 3)).astype(np.float32)
-    start["opacities"] -= 1.0
-    start["positions"] += rng.normal(0.0, 0.01, (p, 3)).astype(np.float32)
     with torch.no_grad():
         targets = [T.render(ctx["scene"], v, ctx["options"]).colors_rgb_2d for v in views]
-    scene = T.GaussianScene.from_numpy(**start, device=dev)
+    ctx["targets"] = targets
+    scene = T.GaussianScene.from_numpy(**train_start_arrays(ctx["arrays"]), device=dev)
     options = T.calibrate_options(scene, views)
-    extent = TT.camera_extent(views)
-    config = TT.TrainConfig(
-        sh_warmup_interval=1, densify_from=4, densify_interval=4, densify_until=9,
-        opacity_reset_interval=8, overflow_check_interval=4, render=options,
-        optimizer=TT.OptimizerConfig(scene_extent=extent),
-        densify=TT.DensifyConfig(scene_extent=extent),
-    )
+    config = train_config(options, views)
+    extent = config.densify.scene_extent
     width, height = views[0].image_width, views[0].image_height
     trainer = TT.Trainer(scene, width, height, config)
-    kernels = (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for kernel in kernels:
-        kernel.launches = 0
-    start_time = time.perf_counter()
-    history, segments = [], []
-    # Three calls of fit (10 steps): each segment runs at one capacity, so
-    # every step's entry total is checked against the capacity it ran with.
-    for steps in (4, 4, 2):
-        capacity, points = trainer._entry_capacity, trainer.scene.point_count
-        part = trainer.fit(views, targets, steps)
-        segments.append(dict(steps=steps, capacity=capacity, points_before=points,
-                             points_after=trainer.scene.point_count,
-                             max_total=max(int(h["tile_point_total"]) for h in part)))
-        history += part
-    torch.cuda.synchronize()
-    fit_seconds = time.perf_counter() - start_time
-    launches = {kernel.source.name: kernel.launches for kernel in kernels}
+    history, segments, all_launches, fit_seconds = fit_ten_steps(trainer, views, targets)
+    launches = {kernel.source.name: all_launches[kernel.entry]
+                for kernel in (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     losses = [h["loss"] for h in history]
@@ -867,6 +971,9 @@ def phase_train(ctx):
     check(all(n >= 10 for n in launches.values()), f"a kernel ran under 10 times: {launches}")
     check(all(seg["max_total"] <= seg["capacity"] for seg in segments),
           f"entry overflow: {segments}")
+    packed_launches = {k: all_launches[k] for k in ("gs_rasterize_forward_packed",
+                                                    "gs_rasterize_backward_packed")}
+    check(not any(packed_launches.values()), f"f32 training ran a packed kernel: {packed_launches}")
     densify = [{k: h[k] for k in ("cloned", "split", "pruned", "point_count")}
                for h in history if "point_count" in h]
     check(len(densify) >= 1, f"no densify event: {densify}")
@@ -929,11 +1036,11 @@ def phase_train(ctx):
     pairs = int(a_out[2].to(torch.int64).sum())
     blended = blended_pairs(rows, ids, ranges, a_out[2], tcx)
     bounds = {
-        "rasterize_forward": bound(nbytes(rows, ids, ranges) + nbytes(*a_out),
+        "rasterize_forward": bound(entry_bytes(rows, ids, ranges) + nbytes(*a_out),
                                    blended * PAIR_FLOPS_MIN),
         "expand_point_orders": bound(nbytes(*b_args) + b_rec["out_bytes"], 0.0),
-        "rasterize_backward": bound(nbytes(*c_args) + 9 * c_rec["valid_slots"] * 4,
-                                    blended * PAIR_FLOPS_MIN),
+        "rasterize_backward": bound(entry_bytes(rows, ids, ranges) + nbytes(*c_args[3:])
+                                    + 9 * c_rec["valid_slots"] * 4, blended * PAIR_FLOPS_MIN),
     }
     keep = warp_keep_share(rows, ids, ranges, tcx)
     no_skip = time_without_skip(rows, ids, ranges, tcx, c_args, a_out, c_out)
@@ -996,6 +1103,232 @@ def phase_train(ctx):
     )
 
 
+def rotation_to_quat_wxyz(r: np.ndarray) -> np.ndarray:
+    """A rotation matrix -> its unit quaternion (w, x, y, z), COLMAP's order
+    (Shepperd's method: the largest of the four squares first)."""
+    t = np.trace(r)
+    i = int(np.argmax([t, r[0, 0], r[1, 1], r[2, 2]]))
+    if i == 0:
+        w = math.sqrt(1.0 + t) / 2.0
+        q = [w, (r[2, 1] - r[1, 2]) / (4 * w), (r[0, 2] - r[2, 0]) / (4 * w),
+             (r[1, 0] - r[0, 1]) / (4 * w)]
+    else:
+        a, b, c = (i - 1, i % 3, (i + 1) % 3)
+        v = math.sqrt(1.0 + r[a, a] - r[b, b] - r[c, c]) / 2.0
+        q = [0.0] * 4
+        q[0] = (r[c, b] - r[b, c]) / (4 * v)
+        q[1 + a], q[1 + b], q[1 + c] = v, (r[b, a] + r[a, b]) / (4 * v), (r[c, a] + r[a, c]) / (4 * v)
+    q = np.asarray(q)
+    return q / np.linalg.norm(q)
+
+
+def write_sparse_model(directory: pathlib.Path, positions, colors_u8, views) -> None:
+    """A COLMAP sparse model (cameras.bin, images.bin, points3D.bin, the
+    binary layout that ``scene/colmap.py`` reads) of a point cloud seen by
+    ``views``: one PINHOLE camera per view, no 2-D observations, empty
+    tracks. Written with numpy and ``struct``; no images."""
+    import struct
+
+    with open(directory / "cameras.bin", "wb") as fh:
+        fh.write(struct.pack("<Q", len(views)))
+        for i, v in enumerate(views):
+            fx = v.image_width / (2.0 * math.tan(v.field_of_view_x / 2.0))
+            fy = v.image_height / (2.0 * math.tan(v.field_of_view_y / 2.0))
+            fh.write(struct.pack("<iiQQ", i + 1, 1, v.image_width, v.image_height))
+            fh.write(struct.pack("<4d", fx, fy, v.image_width / 2.0, v.image_height / 2.0))
+    with open(directory / "images.bin", "wb") as fh:
+        fh.write(struct.pack("<Q", len(views)))
+        for i, v in enumerate(views):
+            rotation = v.view_rotation()  # world -> view, p_view = R p + t
+            fh.write(struct.pack("<I", i + 1))
+            fh.write(struct.pack("<7d", *rotation_to_quat_wxyz(rotation), *v.view_translation()))
+            fh.write(struct.pack("<I", i + 1))
+            fh.write(f"view_{i:02d}.png".encode() + b"\x00")
+            fh.write(struct.pack("<Q", 0))
+    record = np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("error", "<f8"),
+                       ("track", "<u8")])
+    points = np.zeros(len(positions), record)
+    points["id"] = np.arange(1, len(positions) + 1)
+    points["xyz"] = positions
+    points["rgb"] = colors_u8
+    points["error"] = 0.5
+    with open(directory / "points3D.bin", "wb") as fh:
+        fh.write(struct.pack("<Q", len(positions)))
+        points.tofile(fh)
+
+
+def phase_colmap_bf16(ctx):
+    """The bf16 training path from a COLMAP capture: a synthetic sparse
+    model of the bench scene through ``load_sparse_model``,
+    ``GaussianScene.from_points`` and ``Trainer.fit`` with packed bf16
+    entry rows; then the packed kernels A and C at the step's shapes."""
+    import dataclasses
+    import tempfile
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch import train as TT
+    from gausplat_tpu_torch.constants import SH_C0
+    from gausplat_tpu_torch.ops.rasterize import (
+        RASTERIZE_BACKWARD_PACKED, RASTERIZE_FORWARD_PACKED, rasterize_backward,
+        rasterize_backward_torch, rasterize_forward, rasterize_forward_torch, untile_image,
+    )
+    from gausplat_tpu_torch.scene.colmap import load_sparse_model
+
+    dev, views, arrays = ctx["device"], ctx["views"], ctx["arrays"]
+    p = arrays["positions"].shape[0]
+    colors_u8 = np.clip((arrays["colors_sh"][:, :3] * SH_C0 + 0.5) * 255.0 + 0.5, 0,
+                        255).astype(np.uint8)
+    positions = arrays["positions"].astype(np.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        start = time.perf_counter()
+        write_sparse_model(pathlib.Path(tmp), positions, colors_u8, views)
+        write_seconds = time.perf_counter() - start
+        names = {}
+        start = time.perf_counter()
+        points, loaded = load_sparse_model(tmp, names)
+        load_seconds = time.perf_counter() - start
+    check(len(points) == p and np.array_equal(points.positions, positions)
+          and np.array_equal(points.colors_rgb, colors_u8.astype(np.float32) / 255.0),
+          "the SfM points did not round-trip")
+    loaded = [loaded[k] for k in sorted(loaded)]
+    view_err = dict(
+        fov=max(abs(a.field_of_view_x - b.field_of_view_x) + abs(a.field_of_view_y
+                - b.field_of_view_y) for a, b in zip(loaded, views)),
+        position=max(float(np.abs(a.view_position - b.view_position).max())
+                     for a, b in zip(loaded, views)),
+        transform=max(float(np.abs(a.view_transform - b.view_transform).max())
+                      for a, b in zip(loaded, views)),
+    )
+    check(len(loaded) == len(views) and all(
+        (a.image_width, a.image_height) == (b.image_width, b.image_height)
+        for a, b in zip(loaded, views)) and max(view_err.values()) <= 1e-9,
+        f"the views did not round-trip: {view_err}")
+
+    start = time.perf_counter()
+    scene = T.GaussianScene.from_points(points, device=dev)
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - start
+    options = T.calibrate_options(scene, loaded, T.RenderOptions(entry_dtype="bf16"))
+    config = train_config(options, loaded)
+    width, height = loaded[0].image_width, loaded[0].image_height
+    trainer = TT.Trainer(scene, width, height, config)
+    targets = ctx["targets"]
+    history, segments, launches, fit_seconds = fit_ten_steps(trainer, loaded, targets)
+
+    losses = [h["loss"] for h in history]
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    # Steps 5 and 6 see views 0 and 1 again, before the opacity reset.
+    check(losses[5] < losses[0] and losses[6] < losses[1], f"the loss did not fall: {losses}")
+    check(all(seg["max_total"] <= seg["capacity"] for seg in segments),
+          f"entry overflow: {segments}")
+    path = ("gs_expand_point_orders", "gs_rasterize_forward_packed",
+            "gs_rasterize_backward_packed")
+    check(all(launches[k] >= 10 for k in path), f"a kernel of the bf16 path ran under 10 "
+          f"times: {launches}")
+    check(launches["gs_rasterize_forward"] == launches["gs_rasterize_backward"] == 0,
+          f"the bf16 path ran an f32 rasterize kernel: {launches}")
+
+    # The packed kernels at the step's shapes (view 0 after the fit, the
+    # step's capacity), each against its plain version, and beside the f32
+    # entry points on the same projection; C takes the loss's own cotangent.
+    opts = trainer._options()
+    view, target = loaded[0], targets[0]
+    capacity = opts.tile_entry_capacity
+    rows, ids, ranges, tcx, _ = raster_inputs(
+        trainer.scene, view, capacity, opts.tight_culling, dev,
+        sh_degree=opts.colors_sh_degree_max, packed=True)
+    f32_rows = raster_inputs(trainer.scene, view, capacity, opts.tight_culling, dev,
+                             sh_degree=opts.colors_sh_degree_max)[0]
+    a_rec, a_out = compare_forward(rows, ids, ranges, tcx)
+    check(forward_close_at_full_size(a_rec),
+          f"packed forward kernel differs from its plain version at the step's shapes: {a_rec}")
+    image = untile_image(a_out[0], tcx, ranges.shape[0] // tcx, width, height)
+    image = image.detach().requires_grad_()
+    (cotangent,) = torch.autograd.grad(TT.photometric_loss(image, target), image)
+    c_args = backward_inputs(rows, ids, ranges, tcx, cotangent)
+    c_rec, c_out = compare_backward(c_args, tcx, 256)
+    check(backward_close(c_rec),
+          f"packed backward kernel differs from its plain version at the step's shapes: {c_rec}")
+    no_skip = time_without_skip(rows, ids, ranges, tcx, c_args, a_out, c_out)
+    check(all(rec["bit_identical_to_default"] for rec in no_skip.values()),
+          f"the skip changed an output of packed A or C: {no_skip}")
+    f32_c_args = backward_inputs(f32_rows, ids, ranges, tcx, cotangent)
+
+    def forward_backward(entry_dtype):
+        step_options = dataclasses.replace(opts, entry_dtype=entry_dtype)
+
+        def run():
+            ref = torch.zeros(trainer.scene.point_count, device=dev, requires_grad=True)
+            out = T.render(trainer.scene, view, step_options, ref)
+            loss = TT.photometric_loss(out.colors_rgb_2d, target)
+            return torch.autograd.grad(loss, list(trainer.scene.parameters()) + [ref])
+
+        return run
+
+    # Render + loss + gradients on the same scene with each layout, in turns.
+    fwd_bwd = in_turns(forward_backward("bf16"), forward_backward("f32"))
+
+    # Each packed entry point in turns with the f32 one on the same
+    # projection (packed, f32, f32, packed), and its plain version.
+    a_turns = in_turns(lambda: rasterize_forward(rows, ids, ranges, tile_count_x=tcx),
+                       lambda: rasterize_forward(f32_rows, ids, ranges, tile_count_x=tcx))
+    c_turns = in_turns(lambda: rasterize_backward(*c_args, tile_count_x=tcx),
+                       lambda: rasterize_backward(*f32_c_args, tile_count_x=tcx))
+    times = {
+        "rasterize_forward_bf16": (a_turns["first"], cuda_ms(
+            lambda: rasterize_forward_torch(rows, ids, ranges, tile_count_x=tcx))),
+        "rasterize_forward_f32_same_scene": (a_turns["second"],),
+        "rasterize_backward_bf16": (c_turns["first"], cuda_ms(
+            lambda: rasterize_backward_torch(*c_args, tile_count_x=tcx))),
+        "rasterize_backward_f32_same_scene": (c_turns["second"],),
+    }
+    # Bounds from the packed bytes: each input read once, each output
+    # written once; the operations over the blended pairs of the decoded rows.
+    pairs = int(a_out[2].to(torch.int64).sum())
+    blended = blended_pairs(rows, ids, ranges, a_out[2], tcx)
+    bounds = {
+        "rasterize_forward_bf16": bound(entry_bytes(rows, ids, ranges) + nbytes(*a_out),
+                                        blended * PAIR_FLOPS_MIN),
+        "rasterize_backward_bf16": bound(entry_bytes(rows, ids, ranges) + nbytes(*c_args[3:])
+                                         + 6 * c_rec["valid_slots"] * 4,
+                                         blended * PAIR_FLOPS_MIN),
+    }
+    keep = warp_keep_share(rows, ids, ranges, tcx)
+    errors = {"rasterize_forward_bf16": max(a_rec["image_max_abs"],
+                                            a_rec["transmittance_max_abs"]),
+              "rasterize_backward_bf16": c_rec["max_abs"]}
+    for name, kernel, replaces in (
+        ("rasterize_forward_bf16", RASTERIZE_FORWARD_PACKED, "gausplat_tpu/ops/rasterize.py:409"),
+        ("rasterize_backward_bf16", RASTERIZE_BACKWARD_PACKED,
+         "gausplat_tpu/ops/rasterize.py:604"),
+    ):
+        ctx["kernels"].append(dict(
+            name=name, route="cuda", source=f"gausplat_tpu_torch/csrc/{kernel.source.name}",
+            replaces=replaces, launches=launches[kernel.entry], max_abs_err=errors[name],
+            ms=times[name][0][0],
+            plain_ms=times[name][1][0], bound_ms=bounds[name]["bound_ms"],
+            bound_by=bounds[name]["bound_by"], library_ms=None, warp_keep_share=keep,
+            **kernel.launch_info()))
+
+    return dict(
+        card=ctx["card"], points=len(points), views=len(loaded), write_seconds=write_seconds,
+        load_seconds=load_seconds, from_points_seconds=init_seconds, view_round_trip=view_err,
+        steps=len(history), launches=launches, losses=losses,
+        psnr=[h["psnr"] for h in history],
+        tile_point_total=[int(h["tile_point_total"]) for h in history], segments=segments,
+        start_capacity=options.tile_entry_capacity, fit_10_steps_seconds=fit_seconds,
+        forward_backward_ms=dict(bf16=fwd_bwd["first"], f32=fwd_bwd["second"]),
+        kernels_at_step=dict(
+            capacity=capacity, points=trainer.scene.point_count, pairs_below_counts=pairs,
+            blended_pairs=blended,
+            compare=dict(rasterize_forward_bf16=a_rec, rasterize_backward_bf16=c_rec),
+            ms_all={name: [t[1] for t in pair] for name, pair in times.items()},
+            ms={name: [t[0] for t in pair] for name, pair in times.items()},
+            bounds=bounds, warp_keep_share=keep, no_skip=no_skip,
+        ),
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1011,16 +1344,14 @@ def main() -> int:
               ("fixture", phase_fixture), ("main_path", phase_main_path),
               ("rasterize_backward", phase_rasterize_backward),
               ("adversarial", phase_adversarial), ("grad", phase_grad),
-              ("train", phase_train)]
+              ("train", phase_train), ("colmap_bf16", phase_colmap_bf16)]
     for name, phase in phases:
         start = time.perf_counter()
         if name == "expand":
             arrays = bench_scene_arrays()
             ctx["arrays"] = arrays
             ctx["scene"] = T.GaussianScene.from_numpy(**arrays, device=device)
-            ctx["views"] = [orbit_view(T, 0.0, 0.0), orbit_view(T, 0.1, 0.0),
-                            orbit_view(T, -0.1, 0.0), orbit_view(T, 0.0, 0.1),
-                            orbit_view(T, 0.0, -0.1)]
+            ctx["views"] = bench_views(T)
             ctx["options"] = T.calibrate_options(ctx["scene"], ctx["views"])
             ctx["capacity"] = ctx["options"].tile_entry_capacity
         try:

@@ -7,8 +7,9 @@ held against; this package imports ``torch`` and numpy, and never JAX.
 The module layout mirrors the JAX package's, so each module's counterpart
 is found under the same name. Ported so far: projection, binning, the
 rasterizer forward and backward, the differentiable render with its
-densification signal, and training (losses, Adam, densify, trainer,
-checkpoints).
+densification signal in both entry layouts (f32 and packed bf16 pairs),
+training (losses, Adam, densify, trainer, checkpoints), the point cloud
+with ``GaussianScene.from_points``, and the COLMAP loader.
 """
 
 from . import constants, errors, ops, scene, train, utils
@@ -23,12 +24,14 @@ from .render.pipeline import (
 )
 from .render.view import View, Views
 from .scene.gaussian_3d import GaussianScene
+from .scene.point import Points
 from .scene.ply import decode_polygon, encode_polygon
 
 __version__ = "0.1.0"
 
 __all__ = [
     "GaussianScene",
+    "Points",
     "RenderOptions",
     "RenderOutput",
     "SH_COUNT_MAX",

@@ -20,9 +20,15 @@
 //   colour  sum w g;   opacity (outer) sum t0;
 //   conic   (0.5 sum t1 dx, sum t1 dy, 0.5 sum t2 dy)  (full xy cotangent);
 //   pos2d   C_conic (sum t1, sum t2).
-// Output: f32 rows [9, capacity] at the sorted positions. Every slot of a
-// tile's range is written (zeros past the tile's largest count); no other
-// slot is.
+// Output: rows at the sorted positions in the layout of the input rows
+// (tile_batch.cuh): f32 [9, capacity] (gs_rasterize_backward), or packed
+// words [6, capacity] (gs_rasterize_backward_packed, the layout of
+// gausplat_tpu/ops/blend.py::grads_to_rows(..., packed=True)): pack_pair(s0,
+// s1), pack_pair(s2, s6), pack_pair(0.5 s3, s4), pack_pair(0.5 s5, 0) and the
+// position gradients' f32 bits, the f32 sums rounded half up on the bit
+// pattern. The packed kernel stages decoded values (exactly), so the sums
+// are those of the f32 kernel on the decoded rows. Every slot of a tile's
+// range is written (zeros past the tile's largest count); no other slot is.
 //
 // What bounds it on this card: operations. At the 1080p / 1M-point bench
 // shape about 1.76M entries x 256 pixels = 450M (entry, pixel) pairs lie in
@@ -112,8 +118,9 @@ __device__ __forceinline__ float warp_sum_rows(const float (&v)[kRows], int lane
   return x;
 }
 
+template <typename Row>
 __global__ void __launch_bounds__(kPixels, kMinBlocks) rasterize_backward_kernel(
-    const float* __restrict__ point_rows,  // [9, row_stride]
+    const Row* __restrict__ point_rows,  // [9 or 6, row_stride]
     int64_t row_stride,
     const int32_t* __restrict__ sorted_ids,  // [capacity]
     const int32_t* __restrict__ tile_ranges,  // [num_tiles, 2]
@@ -124,7 +131,7 @@ __global__ void __launch_bounds__(kPixels, kMinBlocks) rasterize_backward_kernel
     float opacity_max,
     float opacity_min,
     int64_t capacity,
-    float* __restrict__ out) {  // [9, capacity]
+    Row* __restrict__ out) {  // [9 or 6, capacity]
   __shared__ float staged[kRows][kBatch];
   __shared__ float partial[kWarps][kRows][kBatch];
   __shared__ uint32_t contrib[kBatch];  // bit w: warp w blended the entry
@@ -243,49 +250,73 @@ __global__ void __launch_bounds__(kPixels, kMinBlocks) rasterize_backward_kernel
         }
         s[k] = acc;
       }
-      const int64_t e = base + tid;
-      out[0 * capacity + e] = s[0];
-      out[1 * capacity + e] = s[1];
-      out[2 * capacity + e] = s[2];
-      out[3 * capacity + e] = 0.5f * s[3];
-      out[4 * capacity + e] = s[4];
-      out[5 * capacity + e] = 0.5f * s[5];
-      out[6 * capacity + e] = s[6];
-      // No contribution: zeros, whatever the conic (it may not be finite).
-      out[7 * capacity + e] = m ? staged[3][tid] * s[7] + staged[4][tid] * s[8] : 0.0f;
-      out[8 * capacity + e] = m ? staged[4][tid] * s[7] + staged[5][tid] * s[8] : 0.0f;
+      // No contribution: zero position gradients, whatever the conic (it
+      // may not be finite).
+      const float g[kRows] = {
+          s[0], s[1], s[2], 0.5f * s[3], s[4], 0.5f * s[5], s[6],
+          m ? staged[3][tid] * s[7] + staged[4][tid] * s[8] : 0.0f,
+          m ? staged[4][tid] * s[7] + staged[5][tid] * s[8] : 0.0f};
+      store_entry(out, capacity, (int64_t)base + tid, g);
     }
   }
 
   // Entries past every pixel's count were blended by no pixel.
-  for (int64_t e = (int64_t)base + tid; e < r1; e += kPixels) {
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) out[k * capacity + e] = 0.0f;
+  const float zeros[kRows] = {};
+  for (int64_t e = (int64_t)base + tid; e < r1; e += kPixels) store_entry(out, capacity, e, zeros);
+}
+
+template <typename Row>
+int launch(const void* point_rows, int64_t row_stride, const void* sorted_ids,
+           const void* tile_ranges, int32_t num_tiles, int32_t tile_count_x,
+           const void* grad_tiles, const void* gdotc_tiles, const void* count_tiles,
+           float opacity_max, float opacity_min, int64_t capacity, void* out, void* stream) {
+  if (num_tiles > 0) {
+    rasterize_backward_kernel<Row><<<num_tiles, kPixels, 0, (cudaStream_t)stream>>>(
+        (const Row*)point_rows, row_stride, (const int32_t*)sorted_ids,
+        (const int32_t*)tile_ranges, tile_count_x, (const float*)grad_tiles,
+        (const float*)gdotc_tiles, (const int32_t*)count_tiles, opacity_max,
+        opacity_min, capacity, (Row*)out);
   }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// f32 rows [9, row_stride] in, f32 rows [9, capacity] out.
 extern "C" int gs_rasterize_backward(
     const void* point_rows, int64_t row_stride, const void* sorted_ids,
     const void* tile_ranges, int32_t num_tiles, int32_t tile_count_x,
     const void* grad_tiles, const void* gdotc_tiles, const void* count_tiles,
     float opacity_max, float opacity_min, int64_t capacity, void* out,
     void* stream) {
-  if (num_tiles > 0) {
-    rasterize_backward_kernel<<<num_tiles, kPixels, 0, (cudaStream_t)stream>>>(
-        (const float*)point_rows, row_stride, (const int32_t*)sorted_ids,
-        (const int32_t*)tile_ranges, tile_count_x, (const float*)grad_tiles,
-        (const float*)gdotc_tiles, (const int32_t*)count_tiles, opacity_max,
-        opacity_min, capacity, (float*)out);
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(point_rows, row_stride, sorted_ids, tile_ranges, num_tiles,
+                       tile_count_x, grad_tiles, gdotc_tiles, count_tiles, opacity_max,
+                       opacity_min, capacity, out, stream);
 }
 
-// Launch facts for a report (tile_batch.cuh::kernel_info).
+// Packed rows [6, row_stride] in, packed rows [6, capacity] out (int32 words).
+extern "C" int gs_rasterize_backward_packed(
+    const void* point_rows, int64_t row_stride, const void* sorted_ids,
+    const void* tile_ranges, int32_t num_tiles, int32_t tile_count_x,
+    const void* grad_tiles, const void* gdotc_tiles, const void* count_tiles,
+    float opacity_max, float opacity_min, int64_t capacity, void* out,
+    void* stream) {
+  return launch<uint32_t>(point_rows, row_stride, sorted_ids, tile_ranges, num_tiles,
+                          tile_count_x, grad_tiles, gdotc_tiles, count_tiles, opacity_max,
+                          opacity_min, capacity, out, stream);
+}
+
+// Launch facts for a report (tile_batch.cuh::kernel_info), per layout.
 extern "C" int gs_kernel_info(int32_t* registers, int32_t* shared_bytes,
                               int32_t* blocks_per_sm) {
-  return gs::kernel_info(rasterize_backward_kernel, registers, shared_bytes, blocks_per_sm);
+  return gs::kernel_info(rasterize_backward_kernel<float>, registers, shared_bytes,
+                         blocks_per_sm);
+}
+
+extern "C" int gs_kernel_info_packed(int32_t* registers, int32_t* shared_bytes,
+                                     int32_t* blocks_per_sm) {
+  return gs::kernel_info(rasterize_backward_kernel<uint32_t>, registers, shared_bytes,
+                         blocks_per_sm);
 }
 
 extern "C" const char* gs_error_string(int code) {

@@ -6,6 +6,13 @@
 // gausplat_tpu/ops/blend.py::density_terms and forward_batch). It also
 // absorbs the per-entry gather of build_entry_stream: each entry's nine
 // floats are read through its sorted point id from the per-point rows.
+// Both entry layouts of the TPU kernel (stream.packed) are entry points of
+// this library, one instantiation each of the kernel's template over the
+// row type (tile_batch.cuh): gs_rasterize_forward takes f32 rows [9, P + 1],
+// gs_rasterize_forward_packed the packed bf16-pair rows [6, P + 1], whose
+// words staging decodes into the same nine floats (exactly, as
+// gausplat_tpu/ops/blend.py::entries_from_rows does); the footprint and
+// the walk read only the decoded values, so the skip stays exact.
 //
 // What it computes, per 16x16 tile over the tile's [r0, r1) range of the
 // (tile, depth16)-sorted entries, per pixel:
@@ -20,8 +27,8 @@
 // flops around it, not bytes. At the 1080p / 1M-point shape there are
 // about 1.76M entries x 256 pixels = 450M pairs in the tile ranges; the
 // entry data is 9 floats per entry (63 MB with the ids), read once per
-// tile. Most of those pairs cannot blend: the design spends the exp on the
-// pairs that can.
+// tile; 6 words in the packed layout (a third less). Most of those pairs
+// cannot blend: the design spends the exp on the pairs that can.
 //
 // Design: one 256-thread CTA per tile, thread = ly * 16 + lx (the lane
 // order of rasterize.py::_pixel_coords), walking its range in batches of
@@ -44,7 +51,10 @@
 //   Findings): the CTAs resident beside a staging CTA hide its gather. The
 //   footprint is f32 (but for the determinant) to keep the registers, and
 //   so the resident CTAs, where they were: in double it took 54 registers
-//   and four CTAs per SM.
+//   and four CTAs per SM. __launch_bounds__(256, 8) holds both layouts to
+//   32 registers and eight CTAs per SM: without the eight, each entry
+//   point of the template takes 39 (six CTAs), the packed one for the
+//   decode in staging.
 //
 // Rounding: built without fast math (expf, not __expf) and with
 // -fmad=false, and the quadratic form keeps the JAX evaluation order
@@ -61,9 +71,11 @@ namespace {
 using namespace gs;
 
 constexpr uint32_t kAllLanes = 0xffffffffu;
+constexpr int kMinBlocks = 8;  // resident CTAs per SM: at most 32 registers
 
-__global__ void __launch_bounds__(kPixels) rasterize_forward_kernel(
-    const float* __restrict__ point_rows,  // [9, row_stride]
+template <typename Row>
+__global__ void __launch_bounds__(kPixels, kMinBlocks) rasterize_forward_kernel(
+    const Row* __restrict__ point_rows,  // [9 or 6, row_stride]
     int64_t row_stride,
     const int32_t* __restrict__ sorted_ids,  // [capacity]
     const int32_t* __restrict__ tile_ranges,  // [num_tiles, 2]
@@ -142,16 +154,14 @@ __global__ void __launch_bounds__(kPixels) rasterize_forward_kernel(
   counts[(int64_t)tile * kPixels + tid] = rendered;
 }
 
-}  // namespace
-
-extern "C" int gs_rasterize_forward(
-    const void* point_rows, int64_t row_stride, const void* sorted_ids,
-    const void* tile_ranges, int32_t num_tiles, int32_t tile_count_x,
-    float opacity_max, float opacity_min, float transmittance_min,
-    void* image, void* transmittance, void* counts, void* stream) {
+template <typename Row>
+int launch(const void* point_rows, int64_t row_stride, const void* sorted_ids,
+           const void* tile_ranges, int32_t num_tiles, int32_t tile_count_x,
+           float opacity_max, float opacity_min, float transmittance_min,
+           void* image, void* transmittance, void* counts, void* stream) {
   if (num_tiles > 0) {
-    rasterize_forward_kernel<<<num_tiles, kPixels, 0, (cudaStream_t)stream>>>(
-        (const float*)point_rows, row_stride, (const int32_t*)sorted_ids,
+    rasterize_forward_kernel<Row><<<num_tiles, kPixels, 0, (cudaStream_t)stream>>>(
+        (const Row*)point_rows, row_stride, (const int32_t*)sorted_ids,
         (const int32_t*)tile_ranges, tile_count_x, opacity_max, opacity_min,
         transmittance_min, (float*)image, (float*)transmittance,
         (int32_t*)counts);
@@ -159,10 +169,41 @@ extern "C" int gs_rasterize_forward(
   return (int)cudaGetLastError();
 }
 
-// Launch facts for a report (tile_batch.cuh::kernel_info).
+}  // namespace
+
+// f32 rows [9, row_stride].
+extern "C" int gs_rasterize_forward(
+    const void* point_rows, int64_t row_stride, const void* sorted_ids,
+    const void* tile_ranges, int32_t num_tiles, int32_t tile_count_x,
+    float opacity_max, float opacity_min, float transmittance_min,
+    void* image, void* transmittance, void* counts, void* stream) {
+  return launch<float>(point_rows, row_stride, sorted_ids, tile_ranges, num_tiles,
+                       tile_count_x, opacity_max, opacity_min, transmittance_min, image,
+                       transmittance, counts, stream);
+}
+
+// Packed rows [6, row_stride] (int32 words).
+extern "C" int gs_rasterize_forward_packed(
+    const void* point_rows, int64_t row_stride, const void* sorted_ids,
+    const void* tile_ranges, int32_t num_tiles, int32_t tile_count_x,
+    float opacity_max, float opacity_min, float transmittance_min,
+    void* image, void* transmittance, void* counts, void* stream) {
+  return launch<uint32_t>(point_rows, row_stride, sorted_ids, tile_ranges, num_tiles,
+                          tile_count_x, opacity_max, opacity_min, transmittance_min, image,
+                          transmittance, counts, stream);
+}
+
+// Launch facts for a report (tile_batch.cuh::kernel_info), per layout.
 extern "C" int gs_kernel_info(int32_t* registers, int32_t* shared_bytes,
                               int32_t* blocks_per_sm) {
-  return gs::kernel_info(rasterize_forward_kernel, registers, shared_bytes, blocks_per_sm);
+  return gs::kernel_info(rasterize_forward_kernel<float>, registers, shared_bytes,
+                         blocks_per_sm);
+}
+
+extern "C" int gs_kernel_info_packed(int32_t* registers, int32_t* shared_bytes,
+                                     int32_t* blocks_per_sm) {
+  return gs::kernel_info(rasterize_forward_kernel<uint32_t>, registers, shared_bytes,
+                         blocks_per_sm);
 }
 
 extern "C" const char* gs_error_string(int code) {

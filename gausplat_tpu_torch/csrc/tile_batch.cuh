@@ -97,19 +97,87 @@ __device__ __forceinline__ uint32_t entry_warp_mask(
   return ((2u << w_hi) - 1u) & ~((1u << w_lo) - 1u);
 }
 
+// --- row layouts ---------------------------------------------------------------
+//
+// The per-point rows (and kernel C's per-entry gradient rows) come in two
+// layouts, told apart by their element type:
+// - float: [9, stride] in the canonical order r, g, b, cxx, cxy, cyy,
+//   opacity, px, py;
+// - uint32_t: [6, stride] words [r|g, b|opacity, cxx|cxy, cyy|0, bits(px),
+//   bits(py)], two bf16 values to a word, the first in the high half
+//   (ops/blend.py::pack_rows, gausplat_tpu/ops/blend.py:105-147).
+// Decoding is exact: a bf16 in a high half is the f32 with those bits.
+// Encoding rounds half up on the bit pattern, in uint32_t so that the
+// wrap JAX's int32 add makes (a NaN with payload >= 0x7FFF8000 becomes
+// -0.0, +-FLT_MAX becomes +-inf) is defined here too.
+
+constexpr int kPackedRows = 6;
+
+__device__ __forceinline__ float unpack_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+__device__ __forceinline__ float unpack_lo(uint32_t w) { return __uint_as_float(w << 16); }
+
+__device__ __forceinline__ uint32_t round_bf16_bits(float x) {
+  return (__float_as_uint(x) + 0x8000u) & 0xFFFF0000u;
+}
+
+__device__ __forceinline__ uint32_t pack_pair(float hi, float lo) {
+  return round_bf16_bits(hi) | (round_bf16_bits(lo) >> 16);
+}
+
+// Point `pid`'s nine floats from rows of either layout.
+__device__ __forceinline__ void load_entry(const float* __restrict__ rows, int64_t stride,
+                                           int32_t pid, float (&v)[kRows]) {
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) v[k] = rows[k * stride + pid];
+}
+
+__device__ __forceinline__ void load_entry(const uint32_t* __restrict__ rows, int64_t stride,
+                                           int32_t pid, float (&v)[kRows]) {
+  uint32_t w[kPackedRows];
+#pragma unroll
+  for (int k = 0; k < kPackedRows; ++k) w[k] = rows[k * stride + pid];
+  v[0] = unpack_hi(w[0]);
+  v[1] = unpack_lo(w[0]);
+  v[2] = unpack_hi(w[1]);
+  v[6] = unpack_lo(w[1]);
+  v[3] = unpack_hi(w[2]);
+  v[4] = unpack_lo(w[2]);
+  v[5] = unpack_hi(w[3]);
+  v[7] = __uint_as_float(w[4]);
+  v[8] = __uint_as_float(w[5]);
+}
+
+// Entry `e`'s nine gradient values (canonical order) into rows of either
+// layout ([9 or 6, capacity]).
+__device__ __forceinline__ void store_entry(float* __restrict__ rows, int64_t capacity,
+                                            int64_t e, const float (&v)[kRows]) {
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) rows[k * capacity + e] = v[k];
+}
+
+__device__ __forceinline__ void store_entry(uint32_t* __restrict__ rows, int64_t capacity,
+                                            int64_t e, const float (&v)[kRows]) {
+  rows[0 * capacity + e] = pack_pair(v[0], v[1]);
+  rows[1 * capacity + e] = pack_pair(v[2], v[6]);
+  rows[2 * capacity + e] = pack_pair(v[3], v[4]);
+  rows[3 * capacity + e] = pack_pair(v[5], 0.0f);
+  rows[4 * capacity + e] = __float_as_uint(v[7]);
+  rows[5 * capacity + e] = __float_as_uint(v[8]);
+}
+
 // --- staging -----------------------------------------------------------------
 
 // Thread `slot`'s part of staging a batch: gather point `pid`'s nine floats
-// (rows [9, row_stride]) into column `slot` of `staged` ([9][kBatch]), and
-// return the entry's warp mask in the tile at (x0, y0).
-template <int kBatch>
+// from rows of either layout (decoded, for packed rows) into column `slot`
+// of `staged` ([9][kBatch]), and return the entry's warp mask in the tile
+// at (x0, y0), from the staged values: those are what the blend test sees.
+template <int kBatch, typename Row>
 __device__ __forceinline__ uint32_t stage_entry(float (*staged)[kBatch], int slot,
-                                                const float* __restrict__ point_rows,
+                                                const Row* __restrict__ point_rows,
                                                 int64_t row_stride, int32_t pid, int32_t x0,
                                                 int32_t y0, float opacity_min) {
   float v[kRows];
-#pragma unroll
-  for (int k = 0; k < kRows; ++k) v[k] = point_rows[k * row_stride + pid];
+  load_entry(point_rows, row_stride, pid, v);
 #pragma unroll
   for (int k = 0; k < kRows; ++k) staged[k][slot] = v[k];
   if (!GS_FOOTPRINT_SKIP) return kFullMask;
@@ -121,7 +189,7 @@ __device__ __forceinline__ uint32_t stage_entry(float (*staged)[kBatch], int slo
 // Registers per thread and static shared memory per CTA of `kernel` (the
 // numbers ptxas reports), and its resident CTAs per SM at 256 threads with
 // no dynamic shared memory (what both rasterize launches pass). Backs each
-// library's gs_kernel_info.
+// library's gs_kernel_info (f32 rows) and gs_kernel_info_packed.
 template <typename Kernel>
 inline int kernel_info(Kernel* kernel, int32_t* registers, int32_t* shared_bytes,
                        int32_t* blocks_per_sm) {

@@ -1,9 +1,10 @@
 """Batched alpha-blend math: the plain version of both rasterizer kernels.
 
-Counterpart of ``gausplat_tpu/ops/blend.py`` on its default path
-(``density_terms``, ``ForwardState``, ``forward_batch``, ``BackwardState``,
-``EntryGrads``, ``grads_to_rows``, ``grad_rows_to_components`` for f32
-rows, ``backward_batch``). Reference loops:
+Counterpart of ``gausplat_tpu/ops/blend.py`` (``density_terms``,
+``ForwardState``, ``forward_batch``, ``BackwardState``, ``EntryGrads``,
+``backward_batch``, the bf16-pair codec and the row codecs
+``entries_from_rows``, ``grads_to_rows``, ``grad_rows_to_components`` for
+both row layouts). Reference loops:
 .../jit/kernel/rasterize/kernel.wgsl:107-200 (forward) and
 .../jit/kernel/rasterize_backward/kernel.wgsl:124-273 (backward).
 
@@ -27,6 +28,15 @@ reference's stored half-gradient (rasterize_backward/kernel.wgsl:249-251).
 
 Layout: entry data ``[n, B, 1]`` columns, pixel data ``[n, 1, N]`` rows,
 blend terms ``[n, B, N]``.
+
+Row layouts (``RenderOptions.entry_dtype``): f32 rows ``[9, ...]`` in the
+canonical order (r, g, b, cxx, cxy, cyy, opacity, px, py), or packed int32
+rows ``[6, ...]``: ``[r|g, b|opacity, cxx|cxy, cyy|0, bits(px),
+bits(py)]``, two bf16 values to a word (the high half of an f32 is its
+bf16 truncation; packing rounds half up on the bit pattern) and the
+positions as f32 bit patterns. The per-entry gradient rows use the same
+layout, so one codec serves both. Packing is integer work and agrees with
+the JAX package bit for bit, NaN and overflow included.
 """
 
 from __future__ import annotations
@@ -42,6 +52,88 @@ from ..constants import OPACITY_2D_MAX, OPACITY_2D_MIN, TRANSMITTANCE_MIN
 _OPACITY_MAX = float(np.float32(OPACITY_2D_MAX))
 _OPACITY_MIN = float(np.float32(OPACITY_2D_MIN))
 _TRANSMITTANCE_MIN = float(np.float32(TRANSMITTANCE_MIN))
+
+#: Rows of the two entry layouts.
+ENTRY_ROWS_F32 = 9
+ENTRY_ROWS_PACKED = 6
+
+
+# --- bf16-pair packing ----------------------------------------------------------
+#
+# JAX adds 0x8000 to the int32 bit pattern and wraps; the arithmetic here
+# runs in int64 and keeps the low 32 bits, which is the same wrap without
+# relying on signed overflow: a NaN whose payload reaches 0x7FFF8000 becomes
+# 0x80000000 (-0.0), and +-FLT_MAX rounds to +-inf, as in JAX.
+
+_LOW32 = 0xFFFFFFFF
+_HI16 = 0xFFFF0000
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 with the same low 32 bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> its int32 bit pattern."""
+    return x.to(torch.float32).contiguous().view(torch.int32)
+
+
+def _f32(bits: torch.Tensor) -> torch.Tensor:
+    """int32 bit pattern -> f32."""
+    return bits.to(torch.int32).contiguous().view(torch.float32)
+
+
+def _round_bf16_bits(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest-bf16 bit pattern in the high 16 bits (ties up), as
+    int64 in [0, 2^32)."""
+    return (_bits(x).to(torch.int64) + 0x8000) & _HI16
+
+
+def pack_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two f32 tensors -> one int32 word tensor (a in the high half, b in the
+    low half)."""
+    return _to_i32(_round_bf16_bits(a) | (_round_bf16_bits(b) >> 16))
+
+
+def unpack_hi(word: torch.Tensor) -> torch.Tensor:
+    return _f32(_to_i32(word.to(torch.int64) & _HI16))
+
+
+def unpack_lo(word: torch.Tensor) -> torch.Tensor:
+    return _f32(_to_i32((word.to(torch.int64) << 16) & _LOW32))
+
+
+def pack_rows(rows: torch.Tensor) -> torch.Tensor:
+    """f32 rows ``[9, ...]`` in the canonical order -> packed int32 rows
+    ``[6, ...]`` (the entry layout and the gradient layout alike)."""
+    return torch.stack([
+        pack_pair(rows[0], rows[1]),
+        pack_pair(rows[2], rows[6]),
+        pack_pair(rows[3], rows[4]),
+        pack_pair(rows[5], torch.zeros_like(rows[5])),
+        _bits(rows[7]),
+        _bits(rows[8]),
+    ])
+
+
+def unpack_rows(words: torch.Tensor) -> torch.Tensor:
+    """Packed int32 rows ``[6, ...]`` -> f32 rows ``[9, ...]``."""
+    return torch.stack([
+        unpack_hi(words[0]), unpack_lo(words[0]), unpack_hi(words[1]),
+        unpack_hi(words[2]), unpack_lo(words[2]), unpack_hi(words[3]),
+        unpack_lo(words[1]), _f32(words[4]), _f32(words[5]),
+    ])
+
+
+def is_packed(rows: torch.Tensor) -> bool:
+    """Whether ``rows`` are in the packed layout (int32) or f32."""
+    return rows.dtype == torch.int32
+
+
+def decode_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Rows of either layout -> f32 rows ``[9, ...]``."""
+    return unpack_rows(rows) if is_packed(rows) else rows
 
 
 class EntryBlock(NamedTuple):
@@ -69,6 +161,14 @@ class EntryBlock(NamedTuple):
             pos_x=col[7],
             pos_y=col[8],
         )
+
+
+def entries_from_rows(rows: torch.Tensor) -> EntryBlock:
+    """An entry block from rows ``[R, n, B]`` of either layout (f32 ``[9, ...]``
+    or packed int32 ``[6, ...]``, told apart by the dtype). The rasterizers
+    decode whole rows with :func:`decode_rows`; this is the JAX package's
+    per-block decoder, kept so the codec can be held against it."""
+    return EntryBlock.from_rows(decode_rows(rows))
 
 
 def _shift_down(x: torch.Tensor, s: int, fill: float) -> torch.Tensor:
@@ -220,16 +320,20 @@ class EntryGrads(NamedTuple):
     pos_2d: torch.Tensor  # [n, B, 2]
 
 
-def grads_to_rows(grads: EntryGrads) -> torch.Tensor:
-    """Per-entry gradients as f32 rows ``[9, n, B]`` in the canonical order
-    (r, g, b, cxx, cxy, cyy, opacity, px, py)."""
+def grads_to_rows(grads: EntryGrads, packed: bool = False) -> torch.Tensor:
+    """Per-entry gradients as rows ``[R, n, B]``: f32 ``[9, ...]`` in the
+    canonical order (r, g, b, cxx, cxy, cyy, opacity, px, py) or, with
+    ``packed``, int32 ``[6, ...]`` in the packed layout."""
     cols = torch.cat([grads.color, grads.conic, grads.opacity, grads.pos_2d], dim=-1)
-    return cols.permute(2, 0, 1)
+    rows = cols.permute(2, 0, 1)
+    return pack_rows(rows) if packed else rows
 
 
 def grad_rows_to_components(rows: torch.Tensor) -> tuple:
-    """Gradient rows ``[9, ...]`` -> the 9 components in the canonical order."""
-    return tuple(rows[c] for c in range(rows.shape[0]))
+    """Gradient rows of either layout (told apart by the dtype) -> the 9 f32
+    components in the canonical order."""
+    rows = decode_rows(rows)
+    return tuple(rows[c] for c in range(ENTRY_ROWS_F32))
 
 
 def backward_batch(

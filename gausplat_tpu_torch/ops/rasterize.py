@@ -24,10 +24,18 @@ early exit) and .../jit/kernel/rasterize_backward/kernel.wgsl:71-274.
   (``csrc/tile_batch.cuh``); :func:`footprint_warp_masks` and
   :func:`entry_warp_masks` are its plain version, for the tests and
   reports. The plain rasterizers evaluate every pair.
+- Both take the per-point rows in either layout of
+  :mod:`gausplat_tpu_torch.ops.blend`: f32 ``[9, P + 1]``, or packed int32
+  ``[6, P + 1]`` (``RenderOptions(entry_dtype="bf16")``). Each kernel
+  library has an entry point per layout (a template over it); the packed
+  one decodes each staged entry into the same nine floats, and the
+  backward encodes its gradient rows in the packed layout. The plain
+  versions decode, blend in f32, and encode.
 
 Outputs keep the JAX tiled layout: image ``[T, 3, 256]``, transmittance
 ``[T, 256]``, rendered count ``[T, 256]``; the backward gives per-entry
-gradient rows ``[9, capacity]`` at the sorted positions.
+gradient rows ``[9, capacity]`` (f32) or ``[6, capacity]`` (packed) at the
+sorted positions.
 """
 
 from __future__ import annotations
@@ -44,12 +52,17 @@ from ..constants import (
 from ..utils.kernels import F32, I32, I64, PTR, CudaKernel, require_cuda, stream_of
 from .blend import (
     _OPACITY_MIN,
+    ENTRY_ROWS_F32,
+    ENTRY_ROWS_PACKED,
     BackwardState,
     EntryBlock,
     ForwardState,
     backward_batch,
+    decode_rows,
     forward_batch,
     grads_to_rows,
+    is_packed,
+    pack_rows,
 )
 
 PIXELS_PER_TILE = TILE_SIZE_X * TILE_SIZE_Y  # 256
@@ -58,25 +71,27 @@ PIXELS_PER_TILE = TILE_SIZE_X * TILE_SIZE_Y  # 256
 #: stages 256, one per thread).
 DEFAULT_BLOCK_SIZE = 256
 
-#: Rows of the per-point data: r, g, b, cxx, cxy, cyy, opacity, px, py.
-ENTRY_ROWS = 9
+_FORWARD_ARGS = [PTR, I64, PTR, PTR, I32, I32, F32, F32, F32, PTR, PTR, PTR, PTR]
+_BACKWARD_ARGS = [PTR, I64, PTR, PTR, I32, I32, PTR, PTR, PTR, F32, F32, I64, PTR, PTR]
 
-#: The kernel library and its launch count.
+#: The kernels and their launch counts: one entry point per row layout in
+#: each library (f32 rows, packed rows).
 RASTERIZE_FORWARD = CudaKernel(
-    "rasterize_forward.cu",
-    "gs_rasterize_forward",
-    [PTR, I64, PTR, PTR, I32, I32, F32, F32, F32, PTR, PTR, PTR, PTR],
-)
+    "rasterize_forward.cu", "gs_rasterize_forward", _FORWARD_ARGS)
+RASTERIZE_FORWARD_PACKED = CudaKernel(
+    "rasterize_forward.cu", "gs_rasterize_forward_packed", _FORWARD_ARGS,
+    info_entry="gs_kernel_info_packed")
 RASTERIZE_BACKWARD = CudaKernel(
-    "rasterize_backward.cu",
-    "gs_rasterize_backward",
-    [PTR, I64, PTR, PTR, I32, I32, PTR, PTR, PTR, F32, F32, I64, PTR, PTR],
-)
+    "rasterize_backward.cu", "gs_rasterize_backward", _BACKWARD_ARGS)
+RASTERIZE_BACKWARD_PACKED = CudaKernel(
+    "rasterize_backward.cu", "gs_rasterize_backward_packed", _BACKWARD_ARGS,
+    info_entry="gs_kernel_info_packed")
 
 
 def pack_point_data(proj, opacities_outer: torch.Tensor) -> torch.Tensor:
     """Per-point rasterization inputs as f32 rows ``[9, P + 1]``; the last
-    column is the zero padding point (id P)."""
+    column is the zero padding point (id P). ``blend.pack_rows`` of them
+    gives the packed layout ``[6, P + 1]``."""
     rows = torch.stack(
         [
             proj.color_r, proj.color_g, proj.color_b,
@@ -160,7 +175,8 @@ def entry_warp_masks(
 ) -> torch.Tensor:
     """The kernels' warp mask of every entry in its tile: ``[capacity]``
     uint8 at the sorted positions, 0 outside every tile's range. Used to
-    test and report the skip; the kernels compute it themselves."""
+    test and report the skip; the kernels compute it themselves, from the
+    decoded values where the rows are packed."""
     r0 = tile_ranges[:, 0].to(torch.int64)
     lengths = (tile_ranges[:, 1].to(torch.int64) - r0).clamp_min(0)
     device = point_rows.device
@@ -168,7 +184,7 @@ def entry_warp_masks(
     starts = torch.cumsum(lengths, 0) - lengths
     slots = r0[tiles] + torch.arange(tiles.shape[0], device=device) - starts[tiles]
     masks = footprint_warp_masks(
-        point_rows[:, sorted_ids[slots].long()],
+        decode_rows(point_rows[:, sorted_ids[slots].long()]),
         (tiles % tile_count_x) * TILE_SIZE_X,
         (tiles // tile_count_x) * TILE_SIZE_Y,
     )
@@ -205,12 +221,14 @@ def rasterize_forward_torch(
     Window ``k`` of a tile is block ``r0 // block_size + k`` of the sorted
     entries, masked to ``[r0, r1)``; all tiles that have a window ``k``
     are blended together, ``tile_chunk`` tiles at a time to bound memory.
+    Packed rows are decoded first; the blend is f32 either way.
     Returns ``(image [T, 3, 256], transmittance [T, 256], counts [T, 256])``.
     """
     b = block_size
     capacity = sorted_ids.shape[0]
     if capacity % b:
         raise ValueError(f"capacity {capacity} is not a multiple of block_size {b}")
+    point_rows = decode_rows(point_rows)
     device = point_rows.device
     num_tiles = tile_ranges.shape[0]
     r0, r1, first_blk, steps = _windows(tile_ranges, b)
@@ -240,12 +258,16 @@ def rasterize_forward_torch(
 
 
 def _check_entry_inputs(point_rows, sorted_ids, tile_ranges, **per_tile) -> int:
-    """Check the kernels' shared arguments, and any ``[T, ...]`` per-tile
-    tensors given as ``name=(tensor, dtype, shape)``; returns T."""
+    """Check the kernels' shared arguments (the rows f32 ``[9, P + 1]`` or
+    packed int32 ``[6, P + 1]``), and any ``[T, ...]`` per-tile tensors
+    given as ``name=(tensor, dtype, shape)``; returns T."""
     num_tiles = tile_ranges.shape[0]
-    require_cuda("point_rows", point_rows, torch.float32)
-    if point_rows.dim() != 2 or point_rows.shape[0] != ENTRY_ROWS:
-        raise ValueError(f"point_rows: expected [9, P + 1], got {tuple(point_rows.shape)}")
+    packed = is_packed(point_rows)
+    rows = ENTRY_ROWS_PACKED if packed else ENTRY_ROWS_F32
+    require_cuda("point_rows", point_rows, torch.int32 if packed else torch.float32)
+    if point_rows.dim() != 2 or point_rows.shape[0] != rows:
+        raise ValueError(f"point_rows: expected [{rows}, P + 1] for {point_rows.dtype}, "
+                         f"got {tuple(point_rows.shape)}")
     require_cuda("sorted_ids", sorted_ids, torch.int32, (sorted_ids.shape[0],))
     require_cuda("tile_ranges", tile_ranges, torch.int32, (num_tiles, 2))
     others = {"sorted_ids": sorted_ids, "tile_ranges": tile_ranges}
@@ -258,6 +280,18 @@ def _check_entry_inputs(point_rows, sorted_ids, tile_ranges, **per_tile) -> int:
     return num_tiles
 
 
+def _kernel_for(point_rows, kernel, f32_kernel, packed_kernel) -> CudaKernel:
+    """The entry point for the rows' layout: ``kernel`` if given (another
+    build of it), which must be the one for that layout."""
+    want = packed_kernel if is_packed(point_rows) else f32_kernel
+    if kernel is None:
+        return want
+    if kernel.entry != want.entry:
+        raise ValueError(f"{kernel.entry} does not take {point_rows.dtype} rows "
+                         f"({want.entry} does)")
+    return kernel
+
+
 def rasterize_forward(
     point_rows: torch.Tensor,
     sorted_ids: torch.Tensor,
@@ -265,14 +299,15 @@ def rasterize_forward(
     *,
     tile_count_x: int,
     block_size: int = DEFAULT_BLOCK_SIZE,
-    kernel: CudaKernel = RASTERIZE_FORWARD,
+    kernel: CudaKernel | None = None,
 ):
-    """Forward rasterization of every tile.
+    """Forward rasterization of every tile, from rows of either layout.
 
     CPU tensors go to :func:`rasterize_forward_torch` (``block_size`` sets
-    its windows); CUDA tensors launch ``kernel`` (the library built with
-    the default flags unless a caller measures another build of it), and
-    anything the kernel does not take raises.
+    its windows); CUDA tensors launch the entry point for the rows' layout
+    (:data:`RASTERIZE_FORWARD` or :data:`RASTERIZE_FORWARD_PACKED`, or
+    ``kernel``, another build of it that a caller measures), and anything
+    the kernel does not take raises.
     """
     if point_rows.device.type == "cpu":
         return rasterize_forward_torch(
@@ -280,6 +315,7 @@ def rasterize_forward(
             tile_count_x=tile_count_x, block_size=block_size,
         )
     num_tiles = _check_entry_inputs(point_rows, sorted_ids, tile_ranges)
+    kernel = _kernel_for(point_rows, kernel, RASTERIZE_FORWARD, RASTERIZE_FORWARD_PACKED)
     device = point_rows.device
     image = torch.empty((num_tiles, 3, PIXELS_PER_TILE), dtype=torch.float32, device=device)
     trans = torch.empty((num_tiles, PIXELS_PER_TILE), dtype=torch.float32, device=device)
@@ -311,18 +347,22 @@ def rasterize_backward_torch(
 
     ``grad_tiles`` [T, 3, 256] is dL/d(image), ``gdotc_tiles`` [T, 256]
     ``<g, C_final>``, ``count_tiles`` [T, 256] the forward's counts.
-    Returns per-entry gradient rows ``[9, capacity]`` at the sorted
-    positions; slots outside every tile's range stay zero.
+    Returns per-entry gradient rows at the sorted positions in the layout
+    of ``point_rows``: f32 ``[9, capacity]``, or packed int32 ``[6,
+    capacity]`` (the f32 gradients encoded with ``grads_to_rows(...,
+    packed=True)``); slots outside every tile's range stay zero.
     """
     b = block_size
     capacity = sorted_ids.shape[0]
     if capacity % b:
         raise ValueError(f"capacity {capacity} is not a multiple of block_size {b}")
+    packed = is_packed(point_rows)
+    point_rows = decode_rows(point_rows)
     device = point_rows.device
     num_tiles = tile_ranges.shape[0]
     r0, r1, first_blk, steps = _windows(tile_ranges, b)
 
-    out = torch.zeros((ENTRY_ROWS, capacity), dtype=torch.float32, device=device)
+    out = torch.zeros((ENTRY_ROWS_F32, capacity), dtype=torch.float32, device=device)
     state = BackwardState.initial(num_tiles, PIXELS_PER_TILE, device)
     lane = torch.arange(b, device=device)
     n_steps = int(steps.max()) if num_tiles else 0
@@ -348,7 +388,7 @@ def rasterize_backward_torch(
             for field, value in zip(state, new):
                 field[tiles] = value
             out[:, slots[mask]] = grads_to_rows(grads)[:, mask]
-    return out
+    return pack_rows(out) if packed else out
 
 
 def rasterize_backward(
@@ -361,17 +401,19 @@ def rasterize_backward(
     *,
     tile_count_x: int,
     block_size: int = DEFAULT_BLOCK_SIZE,
-    kernel: CudaKernel = RASTERIZE_BACKWARD,
+    kernel: CudaKernel | None = None,
 ) -> torch.Tensor:
-    """Backward rasterization of every tile: per-entry gradient rows
-    ``[9, capacity]`` at the sorted positions.
+    """Backward rasterization of every tile: per-entry gradient rows at the
+    sorted positions, in the layout of ``point_rows`` (f32 ``[9,
+    capacity]`` or packed int32 ``[6, capacity]``).
 
     CPU tensors go to :func:`rasterize_backward_torch`; CUDA tensors launch
-    ``kernel`` (the library built with the default flags unless a caller
-    measures another build of it), and anything the kernel does not take
-    raises. The kernel writes the slots of every tile's range and no other,
-    so slots at or past ``min(total, capacity)`` hold whatever the
-    allocator left there: callers read only the slots below it.
+    the entry point for the rows' layout (:data:`RASTERIZE_BACKWARD` or
+    :data:`RASTERIZE_BACKWARD_PACKED`, or ``kernel``, another build of it
+    that a caller measures), and anything the kernel does not take raises.
+    The kernel writes the slots of every tile's range and no other, so
+    slots at or past ``min(total, capacity)`` hold whatever the allocator
+    left there: callers read only the slots below it.
     """
     if point_rows.device.type == "cpu":
         return rasterize_backward_torch(
@@ -385,8 +427,10 @@ def rasterize_backward(
         gdotc_tiles=(gdotc_tiles, torch.float32, (t, PIXELS_PER_TILE)),
         count_tiles=(count_tiles, torch.int32, (t, PIXELS_PER_TILE)),
     )
+    kernel = _kernel_for(point_rows, kernel, RASTERIZE_BACKWARD, RASTERIZE_BACKWARD_PACKED)
     capacity = sorted_ids.shape[0]
-    out = torch.empty((ENTRY_ROWS, capacity), dtype=torch.float32, device=point_rows.device)
+    out = torch.empty((point_rows.shape[0], capacity), dtype=point_rows.dtype,
+                      device=point_rows.device)
     kernel.launch(
         point_rows.data_ptr(), point_rows.shape[1], sorted_ids.data_ptr(),
         tile_ranges.data_ptr(), t, tile_count_x, grad_tiles.data_ptr(),

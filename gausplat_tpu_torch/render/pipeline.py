@@ -19,6 +19,12 @@ per-entry gradients per point (:func:`reduce_entry_grads`) and gives the
 reference's densification signal as the gradient of the ref. Autograd
 carries the rest: the sigmoid of the opacities and the projection, whose
 VJP the JAX package takes with ``jax.vjp``.
+
+``RenderOptions(entry_dtype="bf16")`` packs the rows into the bf16-pair
+layout (``ops/blend.py``) inside the forward, which rasterizes and saves
+the packed rows; the backward's per-entry rows come packed too and are
+decoded in the reduce. The gradient of the f32 rows is the per-point sum
+straight through the rounding, as the JAX package's custom VJP gives it.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from ..errors import (
     UnsupportedSphericalHarmonicsDegreeError,
 )
 from ..ops.binning import bin_gaussians, make_point_orders
-from ..ops.blend import grad_rows_to_components
+from ..ops.blend import decode_rows, grad_rows_to_components, pack_rows
 from ..ops.expand import fused_point_orders
 from ..ops.projection import Camera, project_gaussians
 from ..ops.rasterize import (
@@ -78,7 +84,8 @@ class RenderOptions:
     #: plain versions on any device) or 'auto' (the kernels for CUDA
     #: tensors, the plain versions for CPU tensors).
     backend: str = "auto"
-    #: Per-entry data precision. Only 'f32' is ported.
+    #: Per-entry data precision: 'f32', or 'bf16' (packed bf16-pair rows:
+    #: colour, conic and opacity in bf16, positions in f32).
     entry_dtype: str = "f32"
     #: Shrink each point's touched-tile AABB to its blendable ellipse
     #: (see ops.projection.project_gaussians). Off = the reference's AABB.
@@ -121,12 +128,7 @@ def _validate(scene: GaussianScene, width: int, height: int,
     pixel_count = width * height
     if options.colors_sh_degree_max > SH_DEGREE_MAX:
         raise UnsupportedSphericalHarmonicsDegreeError(options.colors_sh_degree_max)
-    if options.entry_dtype == "bf16":
-        raise NotImplementedError(
-            "entry_dtype='bf16' is not ported yet (ROADMAP.md, queue 1, "
-            "item 3: bf16 entry rows)"
-        )
-    if options.entry_dtype != "f32":
+    if options.entry_dtype not in ("f32", "bf16"):
         raise ValueError(
             f"entry_dtype must be 'f32' or 'bf16', got {options.entry_dtype!r}"
         )
@@ -171,7 +173,9 @@ def reduce_entry_grads(
 ) -> torch.Tensor:
     """Per-point sums of the per-entry gradient rows, without atomics.
 
-    ``entry_grads`` [9, capacity] holds rows at the sorted positions,
+    ``entry_grads`` holds rows at the sorted positions, f32 ``[9,
+    capacity]`` or packed int32 ``[6, capacity]`` (decoded to nine f32
+    rows after the gather in point order),
     ``sorted_pids`` [capacity] their point ids (P for pads),
     ``point_offsets`` [P] the inclusive cumsum of the touched-tile counts.
     Returns [9, P]: each point's sum over its entries below ``valid_count =
@@ -189,7 +193,7 @@ def reduce_entry_grads(
     order = torch.sort(sorted_pids, stable=True).indices
     position = torch.arange(order.shape[0], device=order.device)
     order = torch.where(position < valid, order, torch.zeros_like(order))
-    prefix = _prefix_sum_f64(entry_grads[:, order])
+    prefix = _prefix_sum_f64(decode_rows(entry_grads[:, order]))
     hi_raw = torch.minimum(point_offsets.to(torch.int64), valid) - 1
     hi = prefix[:, hi_raw.clamp_min(0)]
     hi = torch.where(hi_raw >= 0, hi, torch.zeros_like(hi))
@@ -207,6 +211,7 @@ class _Frame(NamedTuple):
     capacity: int
     block_size: int
     use_kernels: bool
+    packed: bool
 
 
 class RasterizeFunction(torch.autograd.Function):
@@ -218,13 +223,17 @@ class RasterizeFunction(torch.autograd.Function):
     gradient. The gradient of ``point_rows`` has a zero pad column; that of
     the ref is the per-point densification signal
     ``|| dL/d pos2d * (W / 2, H / 2) ||`` (transform_backward/kernel.wgsl:
-    364-370).
+    364-370). With ``frame.packed`` the rows are packed here and the packed
+    rows are rasterized and saved; the f32 rows' gradient passes straight
+    through the rounding.
     """
 
     @staticmethod
     def forward(ctx, point_rows, grad_norm_ref, binning, image_size_half, frame):
         # Both rasterizers write the initial state (0, 1, 0) for empty
         # tiles, so the JAX pipeline's mask_empty_tiles step has no work here.
+        if frame.packed:
+            point_rows = pack_rows(point_rows)
         raster = rasterize_forward if frame.use_kernels else rasterize_forward_torch
         image_tiles, trans_tiles, count_tiles = raster(
             point_rows, binning.point_indices, binning.tile_ranges,
@@ -320,7 +329,7 @@ def render(
             (point_count,), dtype=torch.float32, device=device
         )
     frame = _Frame(tile_count_x, tile_count_y, view.image_width, view.image_height,
-                   capacity, options.block_size, use_kernels)
+                   capacity, options.block_size, use_kernels, options.entry_dtype == "bf16")
     image, trans, counts = RasterizeFunction.apply(
         point_rows, positions_2d_grad_norm_ref, binning, camera.image_size_half, frame
     )

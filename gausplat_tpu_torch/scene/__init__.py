@@ -1,1 +1,1 @@
-"""The 3DGS scene and its PLY codec."""
+"""The 3DGS scene, the point cloud, the PLY codec and the COLMAP loader."""

@@ -1,8 +1,9 @@
 """3DGS scene representation as a ``torch.nn.Module``.
 
 Counterpart of ``gausplat_tpu/scene/gaussian_3d.py``. Reference:
-src/scene/gaussian_3d/mod.rs:54-275 (scene params) and property.rs:61-170
-(inner/outer property transforms).
+src/scene/gaussian_3d/mod.rs:54-275 (scene params), property.rs:61-170
+(inner/outer property transforms) and import.rs:92-258 (point-cloud
+initialisation).
 
 The scene holds the five *inner* (optimisable) parameters:
 
@@ -19,8 +20,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..constants import SH_COUNT_MAX
+from ..constants import SEED, SH_C0, SH_COUNT_MAX
 from ..errors import MismatchedTensorShapeError
+from .point import Points
+
+_F32_EPS = float(np.finfo(np.float32).eps)
 
 #: Trailing (per-point) dimension of each parameter tensor, in order.
 PARAM_DIMS = {
@@ -87,6 +91,70 @@ class GaussianScene(nn.Module):
             device=device,
         )
 
+    @classmethod
+    def from_points(
+        cls,
+        points: Points,
+        *,
+        device="cuda",
+        seed: int = SEED,
+        seed_compat: str = "reference",
+    ) -> "GaussianScene":
+        """Initialise a scene from an SfM point cloud, on ``device``.
+
+        The numpy arithmetic of the JAX package's ``from_points``, so the
+        arrays are bit-identical: SH DC from RGB, opacity 0.1, identity
+        rotations, seeded LogNormal(0, e) scales normalized by the max, then
+        square-rooted and repeated over the 3 axes (import.rs:92-258).
+        ``seed_compat="reference"`` draws the scale samples from the
+        reference's RNG stream (:mod:`gausplat_tpu_torch.utils.rand_compat`),
+        ``"numpy"`` from numpy's PCG64 (same distribution, another stream).
+        """
+        point_count = len(points)
+
+        colors_sh = np.zeros((point_count, SH_COUNT_MAX * 3), np.float32)
+        colors_sh[:, 0:3] = (points.colors_rgb - 0.5) / np.float32(SH_C0)
+
+        opacities = np.full((point_count, 1), 25.5 / 255.0, np.float32)
+        opacities = np.log(opacities / (1.0 - opacities))
+
+        positions = points.positions.astype(np.float32)
+
+        rotations = np.tile(np.array([0.0, 0.0, 0.0, 1.0], np.float32), (point_count, 1))
+
+        if seed_compat == "reference":
+            from ..utils.rand_compat import reference_lognormal_e_f32
+
+            samples = reference_lognormal_e_f32(point_count, seed)[:, None]
+        else:
+            rng = np.random.default_rng(seed)
+            samples = rng.lognormal(
+                mean=0.0, sigma=float(np.e), size=(point_count, 1)
+            ).astype(np.float32)
+        samples = np.maximum(samples, _F32_EPS)
+        sample_max = max(float(samples.max()) if point_count else 0.0, _F32_EPS)
+        scalings = np.sqrt(samples / np.float32(sample_max))
+        scalings = np.maximum(scalings, _F32_EPS)
+        scalings = np.log(np.repeat(scalings, 3, axis=1))
+
+        return cls.from_numpy(
+            colors_sh=colors_sh, opacities=opacities, positions=positions,
+            rotations=rotations, scalings=scalings, device=device,
+        )
+
+    @classmethod
+    def default(cls, *, device="cuda") -> "GaussianScene":
+        """16 default points, as the reference's ``Default`` impl."""
+        return cls.from_points(Points.default(16), device=device)
+
+    def to_points(self) -> Points:
+        """Export as a point cloud (export.rs:75-106)."""
+        colors_rgb = self.get_colors_sh()[:, 0:3].detach().cpu().numpy() * np.float32(
+            SH_C0
+        ) + np.float32(0.5)
+        positions = self.get_positions().detach().cpu().numpy().astype(np.float64)
+        return Points(colors_rgb, positions)
+
     # -- attributes ------------------------------------------------------------
 
     @property
@@ -130,3 +198,36 @@ class GaussianScene(nn.Module):
 
     def get_scalings(self) -> torch.Tensor:
         return torch.exp(self.scalings)
+
+    # -- outer property setters (property.rs:96-137) ---------------------------
+    #
+    # Each returns a new scene that owns copies of its parameters, as the
+    # JAX package's functional setters leave the old scene as it was. The
+    # value goes to float32 on the scene's device before the inverse
+    # transform, as ``jnp.asarray`` keeps a float32 array.
+
+    def _with(self, **inner) -> "GaussianScene":
+        params = {name: getattr(self, name).detach().clone() for name in PARAM_DIMS}
+        params.update(inner)
+        return GaussianScene(**params)
+
+    def _outer(self, value) -> torch.Tensor:
+        if not isinstance(value, torch.Tensor):
+            value = torch.as_tensor(np.asarray(value, np.float32))
+        return value.detach().to(device=self.device, dtype=torch.float32).clone()
+
+    def set_colors_sh(self, value) -> "GaussianScene":
+        return self._with(colors_sh=self._outer(value))
+
+    def set_opacities(self, value) -> "GaussianScene":
+        v = self._outer(value)
+        return self._with(opacities=torch.log(v / (1.0 - v)))
+
+    def set_positions(self, value) -> "GaussianScene":
+        return self._with(positions=self._outer(value))
+
+    def set_rotations(self, value) -> "GaussianScene":
+        return self._with(rotations=self._outer(value))
+
+    def set_scalings(self, value) -> "GaussianScene":
+        return self._with(scalings=torch.log(self._outer(value)))

@@ -1,7 +1,8 @@
-"""Inputs that stress the rasterize kernels, for tests and ``chip_smoke.py``.
+"""Inputs that stress the rasterize kernels, and the comparison of packed
+gradient rows, for tests and ``chip_smoke.py``.
 
-numpy only: the card tests and the smoke run use it where neither JAX nor
-pytest is installed.
+numpy and torch only: the card tests and the smoke run use it where neither
+JAX nor pytest is installed.
 """
 
 import numpy as np
@@ -89,3 +90,45 @@ def adversarial_entries(seed=0):
     ids[: tiles * p] = np.tile(np.arange(p, dtype=np.int32), tiles)
     ranges = np.stack([np.arange(tiles) * p, np.arange(1, tiles + 1) * p], -1).astype(np.int32)
     return rows, ids, ranges, width, height, tcx
+
+
+def compare_packed_grads(got, want) -> dict:
+    """Packed gradient rows ``got`` against ``want`` (int32 ``[6, n]``, the
+    layout of ``ops/blend.py::pack_rows``), decoded to nine f32 rows.
+
+    An f32 difference of one ulp can flip a bf16 rounding, so each bf16
+    element (rows 0-6) may differ by one bf16 ulp of the larger magnitude
+    of the pair on top of the f32 tolerance. Returns ``row_scaled_err``:
+    per row, the largest difference beyond that allowance (none for the
+    position rows 7 and 8, which are f32) over the row's largest magnitude
+    in ``want``; ``bf16_flips``, the bf16 elements that differ at all; and
+    ``bf16_elements``, how many were compared.
+    """
+    import torch
+
+    from .ops.blend import unpack_rows
+
+    g = unpack_rows(got).double()
+    w = unpack_rows(want).double()
+    diff = (g - w).abs()
+    larger = torch.maximum(g.abs(), w.abs()).float()
+    # One bf16 ulp: 2^(exponent - 7), from the f32 exponent bits.
+    ulp = (larger.view(torch.int32) & 0x7F800000).view(torch.float32).double() * 2.0 ** -7
+    ulp[7:] = 0.0
+    excess = (diff - ulp).clamp_min(0.0)
+    errors = []
+    for r in range(9):
+        scale = float(w[r].abs().max()) if w.shape[1] else 0.0
+        worst = float(excess[r].max()) if w.shape[1] else 0.0
+        errors.append(worst / scale if scale > 0 else worst)
+    return dict(row_scaled_err=errors, bf16_flips=int((g[:7] != w[:7]).sum()),
+                bf16_elements=int(w[:7].numel()))
+
+
+def assert_packed_grads_close(got, want, atol: float) -> dict:
+    """:func:`compare_packed_grads` within ``atol`` on every row (a NaN
+    error fails); returns the comparison."""
+    rec = compare_packed_grads(got, want)
+    if not all(e <= atol for e in rec["row_scaled_err"]):
+        raise AssertionError(f"packed gradient rows differ beyond {atol}: {rec}")
+    return rec

@@ -21,6 +21,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Sequence
 
@@ -71,7 +72,10 @@ class CudaKernel:
 
     ``launches`` goes up by one for each successful call of the entry
     point, and nowhere else, so a caller can zero it, run a path, and see
-    whether the path went through this kernel.
+    whether the path went through this kernel. Entry points of one library
+    built with the same flags share one build and one loaded library.
+    ``info_entry`` names the library's launch-facts function for this entry
+    point (see :meth:`launch_info`).
     """
 
     def __init__(
@@ -80,11 +84,13 @@ class CudaKernel:
         entry: str,
         argtypes: Sequence,
         flags: Sequence[str] = NVCC_FLAGS,
+        info_entry: str = "gs_kernel_info",
     ):
         self.source = CSRC_DIR / source
         self.entry = entry
         self.argtypes = list(argtypes)
         self.flags = tuple(flags)
+        self.info_entry = info_entry
         self.launches = 0
         self.build_seconds = None
         self.build_log = None
@@ -94,16 +100,23 @@ class CudaKernel:
 
     def with_flags(self, flags: Sequence[str]) -> "CudaKernel":
         """The same entry point built with other nvcc flags (its own count)."""
-        return CudaKernel(self.source.name, self.entry, self.argtypes, flags)
+        return CudaKernel(self.source.name, self.entry, self.argtypes, flags, self.info_entry)
+
+    def with_source_dir(self, directory) -> "CudaKernel":
+        """The same entry point built from the copy of its source (and
+        headers) in ``directory``, another tree's ``csrc`` (its own count)."""
+        kernel = self.with_flags(self.flags)
+        kernel.source = pathlib.Path(directory).resolve() / self.source.name
+        return kernel
 
     def library_path(self) -> pathlib.Path:
-        headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+        headers = b"".join(h.read_bytes() for h in sorted(self.source.parent.glob("*.cuh")))
         digest = hashlib.sha256(
             self.source.read_bytes() + headers + "\0".join(self.flags).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 
-    def _build(self, out: pathlib.Path) -> None:
+    def _build(self, out: pathlib.Path) -> str:
         out.parent.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
@@ -116,22 +129,30 @@ class CudaKernel:
                     f"{' '.join(cmd)}\n{done.stdout}{done.stderr}"
                 )
             os.replace(tmp, out)
-            self.build_log = done.stdout + done.stderr
+            return done.stdout + done.stderr
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
 
+    def _library(self, out: pathlib.Path):
+        """The loaded library at ``out`` and its build log, built once per
+        process however many entry points share it."""
+        with _LIBRARIES_GUARD:
+            lock = _LIBRARY_LOCKS.setdefault(out, threading.Lock())
+        with lock:
+            if out not in _LIBRARIES:
+                log = None if out.exists() else self._build(out)
+                try:
+                    _LIBRARIES[out] = (ctypes.CDLL(str(out)), log)
+                except OSError as e:
+                    raise KernelError(f"cannot load {out}: {e}") from e
+            return _LIBRARIES[out]
+
     def load(self):
         """Build the library if its hashed file is missing, then bind it."""
         if self._fn is None:
-            out = self.library_path()
             start = time.perf_counter()
-            if not out.exists():
-                self._build(out)
-            try:
-                lib = ctypes.CDLL(str(out))
-            except OSError as e:
-                raise KernelError(f"cannot load {out}: {e}") from e
+            lib, self.build_log = self._library(self.library_path())
             fn = getattr(lib, self.entry)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -153,23 +174,30 @@ class CudaKernel:
 
     def launch_info(self) -> dict:
         """Registers per thread, static shared memory per CTA, and resident
-        CTAs per SM, as the library's ``gs_kernel_info`` reports them on the
-        current device."""
+        CTAs per SM, as the library's ``info_entry`` reports them for this
+        entry point's kernel on the current device."""
         self.load()
         names = ("registers", "shared_bytes", "blocks_per_sm")
-        info = self._lib.gs_kernel_info
+        info = getattr(self._lib, self.info_entry)
         info.argtypes = [ctypes.POINTER(ctypes.c_int32)] * len(names)
         info.restype = ctypes.c_int
         values = [ctypes.c_int32() for _ in names]
         code = info(*(ctypes.byref(v) for v in values))
         if code != 0:
-            raise KernelError(f"gs_kernel_info of {self.source.name}: CUDA error {code} "
+            raise KernelError(f"{self.info_entry} of {self.source.name}: CUDA error {code} "
                               f"({self._error_string(code).decode()})")
         return {name: v.value for name, v in zip(names, values)}
 
 
+#: Loaded libraries by path, with their build logs, and a lock per path so
+#: that entry points of one library built at once run one nvcc.
+_LIBRARIES: dict = {}
+_LIBRARY_LOCKS: dict = {}
+_LIBRARIES_GUARD = threading.Lock()
+
+
 def build_all(kernels: Sequence[CudaKernel]) -> None:
-    """Build and load ``kernels`` at once, one ``nvcc`` process each."""
+    """Build and load ``kernels`` at once, one ``nvcc`` process per library."""
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(max(len(kernels), 1)) as pool:

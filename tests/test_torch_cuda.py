@@ -14,7 +14,13 @@ magnitude (sequential sums against log-step sums). Both rasterizers give
 bit-identical outputs from launch to launch, and hold on the adversarial
 rows of ``gausplat_tpu_torch.testing.adversarial_entries`` that stress
 their footprint skip (the backward's rows compared where the plain rows
-are finite)."""
+are finite).
+
+The packed (bf16-pair) entry points take the same inputs packed: the
+forward within the same tolerances; the backward's packed rows decoded,
+the position rows (f32 bits) within 1e-3 scaled and the bf16 rows within
+1e-3 scaled plus one bf16 ulp of each element (an f32 difference of one
+ulp can flip a bf16 rounding)."""
 
 import numpy as np
 import pytest
@@ -25,10 +31,13 @@ from gausplat_tpu_torch.errors import KernelError
 from gausplat_tpu_torch.ops.binning import bin_gaussians, make_point_orders
 from gausplat_tpu_torch.ops.expand import EXPAND, fused_point_orders
 from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
+from gausplat_tpu_torch.ops.blend import pack_rows, unpack_rows
 from gausplat_tpu_torch.ops.rasterize import (
-    RASTERIZE_BACKWARD, RASTERIZE_FORWARD, pack_point_data, rasterize_backward,
-    rasterize_backward_torch, rasterize_forward, rasterize_forward_torch, tile_image,
+    RASTERIZE_BACKWARD, RASTERIZE_BACKWARD_PACKED, RASTERIZE_FORWARD,
+    RASTERIZE_FORWARD_PACKED, pack_point_data, rasterize_backward, rasterize_backward_torch,
+    rasterize_forward, rasterize_forward_torch, tile_image,
 )
+from gausplat_tpu_torch.testing import assert_packed_grads_close
 from gausplat_tpu_torch.testing import adversarial_entries
 
 # By module name (pytest puts tests/ on the path), as test_rasterize.py
@@ -159,8 +168,64 @@ def test_backward_kernel_on_adversarial_rows(cuda_device):
         assert_scaled_close(got[r, :valid][finite], want[r, :valid][finite], f"row {r}")
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_packed_forward_kernel_matches_plain(case, cuda_device):
+    c, (rows, ids, ranges), tcx = _entry_data(case, cuda_device)
+    packed = pack_rows(rows)
+    before = (RASTERIZE_FORWARD.launches, RASTERIZE_FORWARD_PACKED.launches)
+    got = rasterize_forward(packed, ids, ranges, tile_count_x=tcx)
+    again = rasterize_forward(packed, ids, ranges, tile_count_x=tcx)
+    want = rasterize_forward_torch(packed, ids, ranges, tile_count_x=tcx, block_size=c["block"])
+    torch.cuda.synchronize()
+    assert (RASTERIZE_FORWARD.launches, RASTERIZE_FORWARD_PACKED.launches) == (
+        before[0], before[1] + 2)
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+    assert torch.equal(got[2], want[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # The same blend as the f32 kernel on the decoded rows.
+    decoded = rasterize_forward(unpack_rows(packed), ids, ranges, tile_count_x=tcx)
+    assert all(torch.equal(a, b) for a, b in zip(got, decoded))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_packed_backward_kernel_matches_plain(case, cuda_device):
+    c, (rows, ids, ranges), tcx = _entry_data(case, cuda_device)
+    args = _backward_args(pack_rows(rows), ids, ranges, tcx, c["width"], c["height"])
+    before = RASTERIZE_BACKWARD_PACKED.launches
+    got = rasterize_backward(*args, tile_count_x=tcx)
+    again = rasterize_backward(*args, tile_count_x=tcx)
+    want = rasterize_backward_torch(*args, tile_count_x=tcx, block_size=c["block"])
+    torch.cuda.synchronize()
+    assert RASTERIZE_BACKWARD_PACKED.launches == before + 2
+    assert got.dtype == torch.int32 and got.shape == (6, ids.shape[0])
+    valid = int(ranges[:, 1].max())
+    assert torch.equal(got[:, :valid], again[:, :valid])
+    assert_packed_grads_close(got[:, :valid], want[:, :valid], SCALED_ATOL)
+    # The f32 kernel on the decoded rows gives the same sums, then packed.
+    f32 = rasterize_backward(unpack_rows(args[0]), *args[1:], tile_count_x=tcx)
+    assert torch.equal(got[:, :valid], pack_rows(f32[:, :valid]))
+
+
+def test_packed_kernels_on_adversarial_rows(cuda_device):
+    (rows, ids, ranges), width, height, tcx = _adversarial(cuda_device)
+    packed = pack_rows(rows)
+    got = rasterize_forward(packed, ids, ranges, tile_count_x=tcx)
+    want = rasterize_forward_torch(packed, ids, ranges, tile_count_x=tcx, block_size=64)
+    assert torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    args = _backward_args(packed, ids, ranges, tcx, width, height)
+    valid = int(ranges[:, 1].max())
+    got = unpack_rows(rasterize_backward(*args, tile_count_x=tcx)[:, :valid])
+    want = unpack_rows(rasterize_backward_torch(*args, tile_count_x=tcx, block_size=64)[:, :valid])
+    assert bool(torch.isfinite(got).all())
+    finite = torch.isfinite(want).all(dim=0)
+    assert_packed_grads_close(pack_rows(got[:, finite]), pack_rows(want[:, finite]), SCALED_ATOL)
+
+
 def test_rasterize_kernels_launch_info(cuda_device):
-    for kernel in (RASTERIZE_FORWARD, RASTERIZE_BACKWARD):
+    for kernel in (RASTERIZE_FORWARD, RASTERIZE_BACKWARD, RASTERIZE_FORWARD_PACKED,
+                   RASTERIZE_BACKWARD_PACKED):
         info = kernel.launch_info()
         assert 0 < info["registers"] <= 64 and 0 < info["shared_bytes"] < 48 * 1024, info
         assert info["blocks_per_sm"] >= 4, info
@@ -182,6 +247,31 @@ def test_render_grads_through_kernels_match_plain_path(cuda_device):
     for name, want in grads["torch"].items():
         assert bool(torch.isfinite(grads["cuda"][name]).all()), name
         assert_scaled_close(grads["cuda"][name], want, name)
+
+
+def test_bf16_render_and_grads_through_kernels_match_plain_path(cuda_device):
+    c = MEDIUM
+    view = port_view(c["width"], c["height"], position=(0.3, -0.2, -4.0))
+    weight = torch.randn((c["height"], c["width"], 3),
+                         generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    outs, grads = {}, {}
+    before = (RASTERIZE_FORWARD_PACKED.launches, RASTERIZE_BACKWARD_PACKED.launches)
+    for backend in ("cuda", "torch"):
+        scene = T.GaussianScene.from_numpy(**scene_arrays(c["p"]), device=cuda_device)
+        ref = torch.zeros(c["p"], device=cuda_device, requires_grad=True)
+        outs[backend] = T.render(scene, view, T.RenderOptions(backend=backend,
+                                                              entry_dtype="bf16"), ref)
+        torch.sum(outs[backend].colors_rgb_2d * weight).backward()
+        grads[backend] = {name: p.grad for name, p in scene.named_parameters()}
+        grads[backend]["norm"] = ref.grad
+    assert (RASTERIZE_FORWARD_PACKED.launches, RASTERIZE_BACKWARD_PACKED.launches) == (
+        before[0] + 1, before[1] + 1)
+    got, want = outs["cuda"], outs["torch"]
+    torch.testing.assert_close(got.colors_rgb_2d, want.colors_rgb_2d, atol=1e-4, rtol=0)
+    assert torch.equal(got.point_rendered_counts, want.point_rendered_counts)
+    for name, value in grads["torch"].items():
+        assert bool(torch.isfinite(grads["cuda"][name]).all()), name
+        assert_scaled_close(grads["cuda"][name], value, name)
 
 
 def test_render_through_kernels_matches_plain_path(cuda_device):
@@ -206,6 +296,11 @@ def test_kernel_wrappers_reject_bad_arguments(cuda_device):
         rasterize_forward(rows, ids.cpu(), ranges, tile_count_x=tcx)
     with pytest.raises(ValueError):
         rasterize_forward(rows[:8], ids, ranges, tile_count_x=tcx)
+    with pytest.raises(ValueError):
+        rasterize_forward(pack_rows(rows)[:5], ids, ranges, tile_count_x=tcx)
+    with pytest.raises(ValueError):  # an f32 build for packed rows
+        rasterize_forward(pack_rows(rows), ids, ranges, tile_count_x=tcx,
+                          kernel=RASTERIZE_FORWARD)
     depths = torch.ones(4, device=cuda_device)
     ints = torch.zeros(4, dtype=torch.int64, device=cuda_device)
     with pytest.raises(TypeError):

@@ -2,15 +2,18 @@
 chip_smoke.py holds the CUDA path against on the card.
 
 - It is current: JAX renders its inputs again to the stored outputs, and
-  no (entry, pixel) pair sits within ``MARGIN`` of a blend threshold.
+  no (entry, pixel) pair sits within ``MARGIN`` of a blend threshold; in
+  the bf16 cases no packed value sits within ``BF16_MARGIN`` of its
+  rounding tie.
 - The port's plain path renders it within atol=1e-4, integers exactly,
   and its gradients (five parameters and the densification signal) match
   the stored ``jax.grad`` within 1e-4 scaled by each field's largest
   magnitude.
 - The sequential per-pixel order of the CUDA kernel, run here through the
-  oracle of tests/oracle.py on the port's entry data, gives the stored
-  rendered counts exactly; so the card's exact-count check tests the
-  kernel, not a rounding coincidence of the fixture."""
+  oracle of tests/oracle.py on the port's entry data (decoded, in the
+  bf16 cases), gives the stored rendered counts exactly; so the card's
+  exact-count check tests the kernel, not a rounding coincidence of the
+  fixture."""
 
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ import torch
 
 import gausplat_tpu_torch as T
 from gausplat_tpu_torch.ops.binning import bin_gaussians
+from gausplat_tpu_torch.ops.blend import pack_rows, unpack_rows
 from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
 from gausplat_tpu_torch.ops.rasterize import pack_point_data
 
@@ -38,9 +42,10 @@ def _port_inputs(case):
     view = T.View(field_of_view_x=float(fov_x), field_of_view_y=float(fov_y),
                   image_height=int(height), image_width=int(width),
                   view_position=g["view_position"], view_transform=g["view_transform"])
-    sh_degree, tight, capacity, block = (int(x) for x in g["options"])
+    sh_degree, tight, capacity, block, bf16 = (int(x) for x in g["options"])
     options = T.RenderOptions(colors_sh_degree_max=sh_degree, tight_culling=bool(tight),
-                              tile_entry_capacity=capacity, block_size=block)
+                              tile_entry_capacity=capacity, block_size=block,
+                              entry_dtype="bf16" if bf16 else "f32")
     return g, scene, view, options
 
 
@@ -81,6 +86,7 @@ def test_fixture_is_current(case):
 @pytest.mark.parametrize("case", sorted(torch_fixture.CASES))
 def test_fixture_keeps_threshold_margin(case):
     assert torch_fixture.threshold_margin(case) >= torch_fixture.MARGIN
+    assert torch_fixture.bf16_margin(case) >= torch_fixture.BF16_MARGIN
 
 
 @pytest.mark.parametrize("case", sorted(torch_fixture.CASES))
@@ -126,6 +132,8 @@ def test_sequential_order_matches_fixture(case):
             capacity=options.tile_entry_capacity,
         )
         rows = pack_point_data(proj, torch.sigmoid(scene.opacities[:, 0]))
+        if options.entry_dtype == "bf16":
+            rows = unpack_rows(pack_rows(rows))
     image, trans, counts = oracle.rasterize_forward(
         rows.numpy().T[:-1], binning.point_indices.numpy(), binning.tile_ranges.numpy(),
         view.image_width, view.image_height, tcx,

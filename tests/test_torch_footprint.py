@@ -226,7 +226,7 @@ def _fixture_entries(case):
     view = T.View(field_of_view_x=float(fov_x), field_of_view_y=float(fov_y),
                   image_height=int(height), image_width=int(width),
                   view_position=g["view_position"], view_transform=g["view_transform"])
-    sh_degree, tight, capacity, _ = (int(x) for x in g["options"])
+    sh_degree, tight, capacity, _, bf16 = (int(x) for x in g["options"])
     tcx, tcy = -(-view.image_width // 16), -(-view.image_height // 16)
     with torch.no_grad():
         proj = project_gaussians(
@@ -239,7 +239,10 @@ def _fixture_entries(case):
             proj.depths, proj.tile_x_max, proj.tile_x_min, proj.tile_y_min,
             proj.tile_counts, tile_count_x=tcx, tile_count_y=tcy, capacity=capacity,
         )
+        # The decoded rows of a bf16 case: what the kernels' footprint sees.
         rows = R.pack_point_data(proj, torch.sigmoid(scene.opacities[:, 0]))
+        if bf16:
+            rows = blend.unpack_rows(blend.pack_rows(rows))
     counts = torch.as_tensor(g["counts"])[..., None].expand(-1, -1, 3)
     count_tiles = R.tile_image(counts, tcx, tcy)[:, 0]  # [T, 256]
     return rows, binning.point_indices, binning.tile_ranges, tcx, count_tiles

@@ -98,8 +98,10 @@ def test_validation_errors():
     _, tview = views(32, 32)
     with pytest.raises(errors.UnsupportedSphericalHarmonicsDegreeError):
         T.render(tscene, tview, T.RenderOptions(colors_sh_degree_max=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.render(tscene, tview, T.RenderOptions(entry_dtype="bf16"))
+    bf16 = T.render(tscene, tview, T.RenderOptions(entry_dtype="bf16"))
+    f32 = T.render(tscene, tview)
+    assert bf16.colors_rgb_2d.shape == (32, 32, 3) and bool(torch.isfinite(bf16.colors_rgb_2d).all())
+    assert torch.equal(bf16.radii, f32.radii) and int(bf16.tile_point_total) > 0
     with pytest.raises(ValueError, match="entry_dtype"):
         T.render(tscene, tview, T.RenderOptions(entry_dtype="f16"))
     with pytest.raises(errors.InvalidPixelCountError):

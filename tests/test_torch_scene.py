@@ -1,5 +1,11 @@
-"""Scene, PLY codec and view parity of gausplat_tpu_torch against the JAX
-package, and the port's independence from JAX."""
+"""Scene, point cloud, PLY codec and view parity of gausplat_tpu_torch
+against the JAX package, and the port's independence from JAX.
+
+``GaussianScene.from_points`` is bit for bit JAX's for both
+``seed_compat`` values, as is the port's copy of the reference RNG stream
+(``utils/rand_compat.py``, also against the goldens of
+tests/test_scene.py); ``default``, ``to_points`` and the outer setters
+agree with JAX's (setters rtol 1e-6: ``log`` of two libraries)."""
 
 import io
 import os
@@ -107,9 +113,93 @@ def test_constants_match_jax():
                 assert got == want, name
 
 
+def _points(n, seed):
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, 256, (n, 3)).astype(np.uint8)
+    return cols, rng.standard_normal((n, 3)) * 3.0
+
+
+@pytest.mark.parametrize("seed_compat", ["reference", "numpy"])
+def test_from_points_is_bit_identical_to_jax(seed_compat):
+    cols, pos = _points(3000, 4)
+    jscene = G.GaussianScene.from_points(G.Points.from_colmap(cols, pos), seed=77,
+                                         seed_compat=seed_compat)
+    tscene = T.GaussianScene.from_points(T.Points.from_colmap(cols, pos), device="cpu",
+                                         seed=77, seed_compat=seed_compat)
+    for name in ("colors_sh", "opacities", "positions", "rotations", "scalings"):
+        want = np.asarray(getattr(jscene, name))
+        got = getattr(tscene, name).detach().numpy()
+        assert got.dtype == want.dtype == np.float32, name
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32), err_msg=name)
+
+
+def test_rand_compat_stream_matches_jax_and_goldens():
+    from gausplat_tpu.utils import rand_compat as jrc
+    from gausplat_tpu_torch.utils import rand_compat as trc
+
+    # ChaCha12 with an all-zero key: the published test vector.
+    assert [int(x) for x in trc.ChaCha12U64Stream(bytes(32)).take(2)] == [
+        0x53F955076A9AF49B, 0xD583265F12CE1F81]
+    assert trc.seed_from_u64(0x3D65) == jrc.seed_from_u64(0x3D65)
+    np.testing.assert_array_equal(trc.ZIG_NORM_X, jrc.ZIG_NORM_X)
+    np.testing.assert_array_equal(trc.ZIG_NORM_F, jrc.ZIG_NORM_F)
+    golden = np.array([1.03561187, 2.83414578, 1.71022177, 4.31253433, 41.1576691,
+                       0.889902353, 0.431984365, 48.3707466], np.float32)
+    np.testing.assert_array_equal(trc.reference_lognormal_e_f32(8), golden)
+    # Long enough to take the ziggurat's rejections, its tail and a refill.
+    for seed in (0x3D65, 5):
+        np.testing.assert_array_equal(trc.reference_lognormal_e_f32(60_000, seed),
+                                      jrc.reference_lognormal_e_f32(60_000, seed))
+
+
+def test_default_and_to_points_match_jax():
+    want, got = G.GaussianScene.default(), T.GaussianScene.default(device="cpu")
+    assert got.point_count == want.point_count == 16
+    for name in ("colors_sh", "opacities", "positions", "rotations", "scalings"):
+        np.testing.assert_array_equal(getattr(got, name).detach().numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
+    cols, pos = _points(50, 6)
+    jpoints = G.GaussianScene.from_points(G.Points.from_colmap(cols, pos)).to_points()
+    tpoints = T.GaussianScene.from_points(T.Points.from_colmap(cols, pos),
+                                          device="cpu").to_points()
+    np.testing.assert_array_equal(tpoints.colors_rgb, jpoints.colors_rgb)
+    np.testing.assert_array_equal(tpoints.positions, jpoints.positions)
+    assert tpoints.to_colmap()[0].tolist() == jpoints.to_colmap()[0].tolist()
+    assert T.Points.default(3) == T.Points(np.zeros((3, 3)), np.zeros((3, 3)))
+    with pytest.raises(ValueError):
+        T.Points(np.zeros((3, 2)), np.zeros((3, 3)))
+
+
+def test_setters_match_jax_and_copy():
+    jscene, tscene = scenes(scene_arrays(20, seed=8))
+    rng = np.random.default_rng(3)
+    values = dict(colors_sh=rng.standard_normal((20, 48)), opacities=rng.uniform(0.05, 0.95,
+                  (20, 1)), positions=rng.standard_normal((20, 3)),
+                  rotations=rng.standard_normal((20, 4)), scalings=rng.uniform(0.01, 0.5,
+                  (20, 3)))
+    for name, value in values.items():
+        value = value.astype(np.float32)
+        want = getattr(jscene, f"set_{name}")(jnp.asarray(value))
+        got = getattr(tscene, f"set_{name}")(value)
+        for field in values:
+            np.testing.assert_allclose(getattr(got, field).detach().numpy(),
+                                       np.asarray(getattr(want, field)), rtol=1e-6, atol=1e-7,
+                                       err_msg=f"set_{name}: {field}")
+        # A new scene with its own parameters; the old one is unchanged.
+        assert got is not tscene
+        with torch.no_grad():
+            getattr(got, name).add_(1.0)
+        np.testing.assert_array_equal(getattr(tscene, name).detach().numpy(),
+                                      np.asarray(getattr(jscene, name)))
+    torch_value = tscene.set_scalings(torch.full((20, 3), 0.5, dtype=torch.float64))
+    assert torch_value.scalings.dtype == torch.float32
+    np.testing.assert_allclose(torch_value.get_scalings().detach().numpy(), 0.5, rtol=1e-6)
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, gausplat_tpu_torch\n"
+        "import gausplat_tpu_torch.scene.colmap, gausplat_tpu_torch.examples.train_from_colmap\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'gausplat_tpu' or m.startswith('gausplat_tpu.')]\n"
         "assert not bad, bad\n"
