@@ -12,9 +12,12 @@ rows and one for packed bf16-pair rows), and runs ten phases, each
 printing one JSON line:
 
 1. env: versions, the card, the kernel builds and their ptxas reports;
-2. expand: the expansion kernel against its plain version, bit for bit,
-   on small workloads and on the full-size projection output (and the
-   CUDA projection's integer outputs against the CPU's);
+2. expand: the expansion kernel against its plain version, bit for bit
+   (its four outputs, keys as sort-ready int32), on the small workloads of
+   ``gausplat_tpu_torch.testing.EXPAND_WORKLOADS`` (chunk edges, cuts
+   inside and at a chunk, no points, a run longer than a CTA, tile indices
+   past 32768) and on the full-size projection output (and the CUDA
+   projection's integer outputs against the CPU's);
 3. rasterize: the forward kernel against its plain version on a small
    scene (image / transmittance atol 1e-4, counts exact) and at full size
    (image / transmittance within 1e-3, >= 99.99% of rendered counts
@@ -28,9 +31,11 @@ printing one JSON line:
    1920x1080 rendered for 5 views through ``render`` and once through
    ``render_views``, with the launch counts of both forward kernels, then
    CUDA-event timings of the render and of both forward kernels beside
-   their plain versions at the serving shapes (and the share of (entry,
-   warp) pairs that the rasterizers' footprint keeps), and a
-   torch.profiler breakdown of the render;
+   their plain versions at the serving shapes, with each kernel's own
+   device time (profiler, by kernel name), the share of (entry, warp)
+   pairs that the rasterizers' footprint keeps, ``torch.sort`` on B's
+   int32 keys in turns with the same keys as int64, ``bin_gaussians`` as a
+   whole, and a torch.profiler breakdown of the render;
 6. rasterize_backward: the backward kernel against its plain version on
    the small scene (tight culling on and off) and at full size on the
    bench view with a seeded cotangent, per gradient row within 1e-3
@@ -47,9 +52,12 @@ printing one JSON line:
    full-size scene (every SH degree, a densify, an opacity reset), with
    the launch counts of all three kernels; then, at the step's shapes,
    each kernel against its plain version (tolerances as in phases 2, 3
-   and 6) and timed beside it, A and C also built without their footprint
-   skip (bit-identical outputs required) and timed; timings of a step and
-   of forward + backward, the peak memory, and a profile of a step;
+   and 6) and timed beside it (CUDA events around the wrapper, and the
+   device time of its own kernels; B's call must launch nothing else), A
+   and C also built without their footprint skip (bit-identical outputs
+   required) and timed; the sorts and the binning as at serving; timings
+   of a step and of forward + backward, the peak memory, and a profile of
+   a step;
 10. colmap_bf16: the bf16 training path from a COLMAP capture. A synthetic
    sparse model of the bench scene (1,000,000 SfM points, the 5 views as
    PINHOLE 1920x1080 images, no image files) is written to a temporary
@@ -59,7 +67,8 @@ printing one JSON line:
    ``TrainConfig`` and ``entry_dtype="bf16"`` against phase 9's f32
    targets (losses finite and falling, every entry total within its
    capacity, the packed kernels launched and the f32 rasterizers not);
-   then, at the step's shapes, the packed A against its plain version
+   then, at the step's shapes, B bit for bit, the packed A against its
+   plain version
    (image and transmittance within 1e-3, >= 99.99% of counts equal, a
    second launch and the build without the skip bit-identical) and the
    packed C (decoded: position rows within 1e-3 scaled, bf16 rows within
@@ -74,7 +83,9 @@ Then it prints the card's name and power limit, one JSON line of
 per-kernel results, every number of which comes from a training path
 (phase 9 for the f32 entry points of A, B and C, phase 10 for the packed
 ``rasterize_forward_bf16`` and ``rasterize_backward_bf16``: their
-launches, and the error, time, plain time and bound at the step's shapes;
+launches, and the error, time (``ms``, CUDA events around the wrapper;
+``device_ms``, its kernels' device time), plain time and bound at the
+step's shapes;
 for A and C also the footprint's kept share and their registers, static
 shared memory and resident CTAs per SM; all launch with no dynamic shared
 memory), and last
@@ -197,6 +208,53 @@ def profile_device_time(fn, reps: int = 3, top: int = 12) -> dict:
     )
 
 
+#: The device kernels of each kernel library, by the names the profiler
+#: reports them under (a memset that a library issues shows as "Memset").
+DEVICE_KERNELS = {
+    "expand.cu": ("expand_chunk_sums", "expand_slots", "Memset"),
+    "rasterize_forward.cu": ("rasterize_forward_kernel",),
+    "rasterize_backward.cu": ("rasterize_backward_kernel",),
+}
+
+
+def device_ms(fn, names, reps: int = 20) -> dict:
+    """Device time per call of ``fn`` (torch.profiler, CUPTI) over ``reps``
+    calls after a warm-up: ``device_ms`` of the kernels whose names contain
+    one of ``names`` (``kernels``: by name), ``device_all_ms`` of every
+    kernel, and the names of the others that ran. "not measured" where the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    every = 0.0
+    mine, others = {}, []
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(event, "device_time_total", None)
+        us = event.cuda_time_total if us is None else us
+        every += us
+        found = [name for name in names if name in event.key]
+        if found:
+            mine[found[0]] = mine.get(found[0], 0.0) + us / 1e3 / reps
+        else:
+            others.append(event.key[:90])
+    if every == 0.0:
+        return dict(device_ms="not measured (the profiler saw no device time)")
+    return dict(device_ms=sum(mine.values()), device_all_ms=every / 1e3 / reps,
+                kernels=mine, other_kernels=others)
+
+
+def kernel_device_ms(fn, kernel) -> dict:
+    """:func:`device_ms` of the kernels of ``kernel``'s library."""
+    return device_ms(fn, DEVICE_KERNELS[kernel.source.name])
+
+
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.detach().double() - b.detach().double()).abs().max()) if a.numel() else 0.0
 
@@ -234,36 +292,6 @@ def entry_bytes(rows, ids, ranges) -> int:
 
 
 # --- inputs (numpy recipes from a seed) ----------------------------------------
-
-
-def expand_workload(p, seed, vis_frac=0.8, max_wh=6):
-    """The workloads of tests/test_expand.py::_workload."""
-    rng = np.random.default_rng(seed)
-    counts_w = rng.integers(1, max_wh, p).astype(np.int32)
-    counts_h = rng.integers(1, max_wh, p).astype(np.int32)
-    vis = rng.random(p) < vis_frac
-    tx_min = rng.integers(0, 100, p).astype(np.int32)
-    ty_min = rng.integers(0, 50, p).astype(np.int32)
-    counts = np.where(vis, counts_w * counts_h, 0).astype(np.int32)
-    depths = (0.3 + rng.random(p) * 1000).astype(np.float32)
-    return depths, tx_min + counts_w, tx_min, ty_min, counts
-
-
-def expand_workloads():
-    yield "p1000_vis0.8", expand_workload(1000, 0, 0.8), 1 << 13
-    yield "p1000_vis0.05", expand_workload(1000, 1, 0.05), 1 << 13
-    yield "p257_vis1", expand_workload(257, 2, 1.0), 1 << 12
-    yield "p64_vis0.5", expand_workload(64, 3, 0.5), 1 << 12
-    over = expand_workload(2000, 7, 1.0, max_wh=8)
-    yield "overflow", over, (int(over[4].sum()) // 2) // 128 * 128
-    rng = np.random.default_rng(9)
-    zeros = np.zeros(300, np.int32)
-    yield "all_invisible", ((rng.random(300) + 0.5).astype(np.float32),) + (zeros,) * 4, 1 << 12
-    counts = np.zeros(10, np.int32)
-    counts[4] = 1000
-    giant = (np.full(10, 2.0, np.float32), np.full(10, 25, np.int32),
-             np.full(10, 5, np.int32), np.full(10, 3, np.int32), counts)
-    yield "one_giant_span", giant, 1 << 11
 
 
 def small_scene_arrays(p=80, seed=3):
@@ -379,6 +407,43 @@ def compare_expand(args, capacity, tile_count_x) -> dict:
     return dict(bit_identical=[bool(torch.equal(a, b)) for a, b in zip(got, ref)],
                 max_abs=max(max_abs(a, b) for a, b in zip(got, ref)),
                 out_bytes=nbytes(*got))
+
+
+def sort_and_binning(proj, tcx, tcy, capacity) -> dict:
+    """Kernel B's consumer at these shapes: ``torch.sort(stable=True)`` on
+    B's int32 keys and on the same keys widened to int64 (the layout before
+    the int32 keys), in turns (int64, int32, int32, int64), each also by its
+    device time; both must give the same order. Then ``bin_gaussians`` as a
+    whole through the kernel: CUDA-event and device time."""
+    from gausplat_tpu_torch.ops.binning import bin_gaussians, keys_to_u32
+    from gausplat_tpu_torch.ops.expand import fused_point_orders
+
+    b_args = expand_args(proj)
+    keys = fused_point_orders(*b_args, tile_count_x=tcx, capacity=capacity)[0]
+    wide = keys_to_u32(keys)
+    check(torch.equal(torch.sort(keys, stable=True)[1], torch.sort(wide, stable=True)[1]),
+          "the int32 and int64 keys sort into different orders")
+
+    def sort32():
+        return torch.sort(keys, stable=True)
+
+    def sort64():
+        return torch.sort(wide, stable=True)
+
+    def binning():
+        return bin_gaussians(*b_args, tile_count_x=tcx, tile_count_y=tcy, capacity=capacity,
+                             expand=fused_point_orders)
+
+    turns = in_turns(sort64, sort32)
+    bin_ms, bin_all = cuda_ms(binning)
+    return dict(
+        capacity=capacity, order="int64, int32, int32, int64",
+        sort_int64_ms=turns["first"][0], sort_int32_ms=turns["second"][0],
+        sort_int64_ms_all=turns["first"][1], sort_int32_ms_all=turns["second"][1],
+        sort_int64_device=device_ms(sort64, ()), sort_int32_device=device_ms(sort32, ()),
+        bin_gaussians_ms=bin_ms, bin_gaussians_ms_all=bin_all,
+        bin_gaussians_device=device_ms(binning, ()),
+    )
 
 
 def compare_forward(rows, ids, ranges, tcx, block_size=None) -> tuple[dict, tuple]:
@@ -632,13 +697,15 @@ def phase_env(ctx):
 def phase_expand(ctx):
     import gausplat_tpu_torch as T
     from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
+    from gausplat_tpu_torch.testing import EXPAND_WORKLOADS
 
     dev = ctx["device"]
     out = {}
 
-    for name, arrays, capacity in expand_workloads():
+    for name, workload in EXPAND_WORKLOADS.items():
+        arrays, capacity, tcx = workload()
         args = [torch.as_tensor(a, device=dev) for a in arrays]
-        same = compare_expand(args, capacity, 120)["bit_identical"]
+        same = compare_expand(args, capacity, tcx)["bit_identical"]
         out[name] = same
         check(all(same), f"expansion kernel differs from its plain version on {name}: {same}")
 
@@ -815,11 +882,15 @@ def phase_main_path(ctx):
     kw = dict(tile_count_x=ctx["tcx"], capacity=capacity)
     b_ms, b_all = cuda_ms(lambda: fused_point_orders(*b_args, **kw))
     b_plain_ms, b_plain_all = cuda_ms(lambda: make_point_orders(*b_args, **kw))
+    b_device = kernel_device_ms(lambda: fused_point_orders(*b_args, **kw), EXPAND)
     rows, ids, ranges, tcx = ctx["raster_inputs"]
     a_ms, a_all = cuda_ms(lambda: rasterize_forward(rows, ids, ranges, tile_count_x=tcx))
     a_plain_ms, a_plain_all = cuda_ms(
         lambda: rasterize_forward_torch(rows, ids, ranges, tile_count_x=tcx)
     )
+    a_device = kernel_device_ms(lambda: rasterize_forward(rows, ids, ranges, tile_count_x=tcx),
+                                RASTERIZE_FORWARD)
+    sorting = sort_and_binning(ctx["proj"], ctx["tcx"], ctx["tcy"], capacity)
     try:
         breakdown = profile_device_time(lambda: T.render(scene, view, options))
     except RuntimeError as e:  # the profiler is a measurement, not the path
@@ -832,7 +903,7 @@ def phase_main_path(ctx):
     a_bound["pairs_below_counts"] = ctx["raster_pairs"]
     a_bound["blended_pairs"] = ctx["raster_blended"]
     a_bound["warp_keep_share"] = warp_keep_share(rows, ids, ranges, tcx)
-    b_bound = bound(nbytes(*b_args) + capacity * (8 + 4), 0.0)
+    b_bound = bound(nbytes(*b_args) + nbytes(*fused_point_orders(*b_args, **kw)), 0.0)
     return dict(
         card=ctx["card"], views=len(views), capacity=capacity, launches=launches,
         tile_point_total=totals,
@@ -844,9 +915,10 @@ def phase_main_path(ctx):
         plain_render_ms=plain_render_ms, plain_render_ms_all=plain_render_all,
         rasterize_forward_ms=a_ms, rasterize_forward_ms_all=a_all,
         rasterize_forward_plain_ms=a_plain_ms, rasterize_forward_plain_ms_all=a_plain_all,
+        rasterize_forward_device=a_device,
         expand_ms=b_ms, expand_ms_all=b_all,
-        expand_plain_ms=b_plain_ms, expand_plain_ms_all=b_plain_all,
-        rasterize_forward_bound=a_bound, expand_bound=b_bound,
+        expand_plain_ms=b_plain_ms, expand_plain_ms_all=b_plain_all, expand_device=b_device,
+        rasterize_forward_bound=a_bound, expand_bound=b_bound, sort_and_binning=sorting,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         render_profile=breakdown,
     )
@@ -1031,6 +1103,19 @@ def phase_train(ctx):
             cuda_ms(lambda: rasterize_backward(*c_args, tile_count_x=tcx)),
             cuda_ms(lambda: rasterize_backward_torch(*c_args, tile_count_x=tcx))),
     }
+    # Device time of each kernel's own launches per call (profiler, by name);
+    # B's call must launch nothing but its library's kernels.
+    devices = {
+        "rasterize_forward": kernel_device_ms(
+            lambda: rasterize_forward(rows, ids, ranges, tile_count_x=tcx), RASTERIZE_FORWARD),
+        "expand_point_orders": kernel_device_ms(
+            lambda: fused_point_orders(*b_args, **b_kw), EXPAND),
+        "rasterize_backward": kernel_device_ms(
+            lambda: rasterize_backward(*c_args, tile_count_x=tcx), RASTERIZE_BACKWARD),
+    }
+    check(not devices["expand_point_orders"].get("other_kernels"),
+          f"the expansion launched other kernels: {devices['expand_point_orders']}")
+    sorting = sort_and_binning(proj, tcx, ranges.shape[0] // tcx, capacity)
     # Bounds from these shapes: each input read once, each output written
     # once; A's and C's operations over the blended pairs.
     pairs = int(a_out[2].to(torch.int64).sum())
@@ -1065,6 +1150,7 @@ def phase_train(ctx):
         dict(name=name, route="cuda", source=f"gausplat_tpu_torch/csrc/{source}",
              replaces=replaces, launches=launches[source], max_abs_err=errors[name],
              ms=times[name][0][0], plain_ms=times[name][1][0],
+             device_ms=devices[name]["device_ms"],
              bound_ms=bounds[name]["bound_ms"], bound_by=bounds[name]["bound_by"],
              library_ms=None, **extra.get(name, {}))
         for name, source, replaces in kernel_rows
@@ -1096,7 +1182,8 @@ def phase_train(ctx):
                          rasterize_backward=c_rec),
             ms_all={name: t[0][1] for name, t in times.items()},
             plain_ms_all={name: t[1][1] for name, t in times.items()},
-            bounds=bounds, warp_keep_share=keep, no_skip=no_skip,
+            device=devices, bounds=bounds, warp_keep_share=keep, no_skip=no_skip,
+            sort_and_binning=sorting,
         ),
         grad_norm_max=float(norm.max()), culled_points=int(culled.sum()),
         step_profile=breakdown,
@@ -1234,9 +1321,12 @@ def phase_colmap_bf16(ctx):
     opts = trainer._options()
     view, target = loaded[0], targets[0]
     capacity = opts.tile_entry_capacity
-    rows, ids, ranges, tcx, _ = raster_inputs(
+    rows, ids, ranges, tcx, proj = raster_inputs(
         trainer.scene, view, capacity, opts.tight_culling, dev,
         sh_degree=opts.colors_sh_degree_max, packed=True)
+    b_rec = compare_expand(expand_args(proj), capacity, tcx)
+    check(all(b_rec["bit_identical"]),
+          f"expansion kernel differs from its plain version at the bf16 step's shapes: {b_rec}")
     f32_rows = raster_inputs(trainer.scene, view, capacity, opts.tight_culling, dev,
                              sh_degree=opts.colors_sh_degree_max)[0]
     a_rec, a_out = compare_forward(rows, ids, ranges, tcx)
@@ -1294,6 +1384,13 @@ def phase_colmap_bf16(ctx):
                                          blended * PAIR_FLOPS_MIN),
     }
     keep = warp_keep_share(rows, ids, ranges, tcx)
+    devices = {
+        "rasterize_forward_bf16": kernel_device_ms(
+            lambda: rasterize_forward(rows, ids, ranges, tile_count_x=tcx),
+            RASTERIZE_FORWARD_PACKED),
+        "rasterize_backward_bf16": kernel_device_ms(
+            lambda: rasterize_backward(*c_args, tile_count_x=tcx), RASTERIZE_BACKWARD_PACKED),
+    }
     errors = {"rasterize_forward_bf16": max(a_rec["image_max_abs"],
                                             a_rec["transmittance_max_abs"]),
               "rasterize_backward_bf16": c_rec["max_abs"]}
@@ -1305,7 +1402,7 @@ def phase_colmap_bf16(ctx):
         ctx["kernels"].append(dict(
             name=name, route="cuda", source=f"gausplat_tpu_torch/csrc/{kernel.source.name}",
             replaces=replaces, launches=launches[kernel.entry], max_abs_err=errors[name],
-            ms=times[name][0][0],
+            ms=times[name][0][0], device_ms=devices[name]["device_ms"],
             plain_ms=times[name][1][0], bound_ms=bounds[name]["bound_ms"],
             bound_by=bounds[name]["bound_by"], library_ms=None, warp_keep_share=keep,
             **kernel.launch_info()))
@@ -1321,7 +1418,9 @@ def phase_colmap_bf16(ctx):
         kernels_at_step=dict(
             capacity=capacity, points=trainer.scene.point_count, pairs_below_counts=pairs,
             blended_pairs=blended,
-            compare=dict(rasterize_forward_bf16=a_rec, rasterize_backward_bf16=c_rec),
+            compare=dict(rasterize_forward_bf16=a_rec, rasterize_backward_bf16=c_rec,
+                         expand_point_orders=b_rec),
+            device=devices,
             ms_all={name: [t[1] for t in pair] for name, pair in times.items()},
             ms={name: [t[0] for t in pair] for name, pair in times.items()},
             bounds=bounds, warp_keep_share=keep, no_skip=no_skip,

@@ -1,29 +1,44 @@
-"""Kernels A and C (their f32 entry points) of this checkout against the
-same kernels built from another source tree, timed in turns on one CUDA
-card.
+"""Kernels A, B and C of this checkout against the same kernels built from
+another source tree, timed in turns on one CUDA card.
 
     mkdir -p build/other
     git archive <commit> gausplat_tpu_torch/csrc | tar -x -C build/other
     python3 compare_builds.py build/other/gausplat_tpu_torch/csrc
 
 The argument is another tree's ``gausplat_tpu_torch/csrc``. Both libraries
-are built from source with the same nvcc flags and loaded side by side, and
-take the same inputs: those of chip_smoke.py's train phase at its first step
-with every SH degree (the bench scene with the train phase's seeded noise,
-1M points, view 0 at 1920x1080, its calibrated capacity; kernel C takes the
-photometric loss's image cotangent against the bench scene's render). Each
-kernel runs ``ROUNDS`` rounds of other, this, this, other
+are built from source with the same nvcc flags and loaded side by side.
+
+- A and C (their f32 entry points) take the inputs of chip_smoke.py's train
+  phase at its first step with every SH degree (the bench scene with the
+  train phase's seeded noise, 1M points, view 0 at 1920x1080, its
+  calibrated capacity; kernel C takes the photometric loss's image
+  cotangent against the bench scene's render).
+- B takes the projection of view 0 at two shapes: serving (the bench
+  scene, the capacity calibrated over the five bench views) and the train
+  phase's step after its 10-step fit (``chip_smoke.fit_ten_steps``). If the
+  other tree's B is the design before the int32 keys (its C entry takes
+  ``offsets_inc``, as up to commit cdd0e68), it is bound with that argument
+  list and fed by a ``torch.cumsum``, as its wrapper was; its int64 keys
+  must equal this tree's keys under ``keys_to_u32``, and its ids, offsets
+  and total must be bit-identical. This tree's B is also timed built with
+  chunks of 2,048 points against its default of 1,024 (outputs
+  bit-identical).
+
+Each pair runs ``ROUNDS`` rounds of other, this, this, other
 (``chip_smoke.in_turns``, ``REPS`` timed runs per turn after a warm-up). It
-prints the card's name and power limit, then one JSON line per kernel:
+prints the card's name and power limit, then one JSON line per comparison:
 each build's median over every run, each round's medians and their ratio
-(this over other), every time (ms), each build's registers, static shared
-memory and resident CTAs per SM, and whether the two builds' outputs are
-bit-identical. It exits non-zero on a machine without a CUDA device.
+(this over other), every time (ms), whether the outputs agree, for A and C
+each build's registers, static shared memory and resident CTAs per SM, and
+for B each build's device time per call (torch.profiler: its own kernels,
+and every kernel of the call). It exits non-zero on a machine without a
+CUDA device.
 """
 
 from __future__ import annotations
 
 import json
+import pathlib
 import statistics
 import sys
 
@@ -33,6 +48,104 @@ import chip_smoke as S
 
 REPS = 20
 ROUNDS = 5
+#: The device kernels of B before the int32 keys, by name.
+OLD_EXPAND_KERNELS = ("expand_entries", "fill_pads")
+
+
+def turns(other, this) -> dict:
+    """``ROUNDS`` rounds of other, this, this, other: medians, ratios, times."""
+    rounds = [S.in_turns(other, this, reps=REPS) for _ in range(ROUNDS)]
+    other_all = [t for r in rounds for t in r["first"][1]]
+    this_all = [t for r in rounds for t in r["second"][1]]
+    return dict(
+        order="other, this, this, other", rounds=ROUNDS, reps_per_turn=REPS,
+        other_ms=statistics.median(other_all), this_ms=statistics.median(this_all),
+        this_over_other=statistics.median(this_all) / statistics.median(other_all),
+        round_ms=[(r["first"][0], r["second"][0]) for r in rounds],
+        round_this_over_other=[r["second"][0] / r["first"][0] for r in rounds],
+        other_ms_all=other_all, this_ms_all=this_all,
+    )
+
+
+def old_expand(kernel):
+    """B before the int32 keys, as its wrapper called it: a ``torch.cumsum``
+    for the offsets, then one library call that took them (int64 keys)."""
+    from gausplat_tpu_torch.constants import DEPTH_ORDER_OFFSET
+    from gausplat_tpu_torch.utils.kernels import stream_of
+
+    def run(depths, tile_x_max, tile_x_min, tile_y_min, tile_counts, *, tile_count_x,
+            capacity):
+        offsets_inc = torch.cumsum(tile_counts, 0, dtype=torch.int32)
+        total = offsets_inc[-1]
+        keys = torch.empty((capacity,), dtype=torch.int64, device=depths.device)
+        src = torch.empty((capacity,), dtype=torch.int32, device=depths.device)
+        kernel.launch(
+            depths.data_ptr(), tile_x_max.data_ptr(), tile_x_min.data_ptr(),
+            tile_y_min.data_ptr(), tile_counts.data_ptr(), offsets_inc.data_ptr(),
+            total.data_ptr(), depths.shape[0], tile_count_x, capacity, DEPTH_ORDER_OFFSET,
+            keys.data_ptr(), src.data_ptr(), stream_of(depths),
+        )
+        return keys, src, offsets_inc, total
+
+    return run
+
+
+def expand_builds(other_dir):
+    """B of the other tree, B of this tree, and this tree's B with chunks of
+    2,048 points: ``{name: (kernel, call, device kernel names)}``."""
+    from gausplat_tpu_torch.ops.expand import EXPAND, fused_point_orders
+    from gausplat_tpu_torch.utils.kernels import I32, I64, NVCC_FLAGS, PTR, U32, CudaKernel
+
+    def new(kernel):
+        return lambda *a, **kw: fused_point_orders(*a, kernel=kernel, **kw)
+
+    names = S.DEVICE_KERNELS["expand.cu"]
+    source = (pathlib.Path(other_dir) / "expand.cu").read_text()
+    if "const void* offsets_inc" in source:
+        other = CudaKernel("expand.cu", EXPAND.entry,
+                           [PTR] * 7 + [I32, I32, I64, U32, PTR, PTR, PTR])
+        other = other.with_source_dir(other_dir)
+        other_build = (other, old_expand(other), OLD_EXPAND_KERNELS)
+    else:
+        other = EXPAND.with_source_dir(other_dir)
+        other_build = (other, new(other), names)
+    chunk_2048 = EXPAND.with_flags(NVCC_FLAGS + ("-DGS_EXPAND_CHUNK=2048",))
+    return {"other": other_build, "this": (EXPAND, new(EXPAND), names),
+            "this_chunk_2048": (chunk_2048, new(chunk_2048), names)}
+
+
+def same_orders(a, b) -> dict:
+    """Two expansions' outputs: keys (either layout, as u32), ids, offsets
+    and total, each bit for bit."""
+    from gausplat_tpu_torch.ops.binning import keys_to_u32
+
+    def u32(keys):
+        return keys if keys.dtype == torch.int64 else keys_to_u32(keys)
+
+    return dict(keys=bool(torch.equal(u32(a[0]), u32(b[0]))),
+                **{name: bool(torch.equal(x, y))
+                   for name, x, y in zip(("src", "offsets_inc", "total"), a[1:], b[1:])})
+
+
+def expand_in_turns(builds, shape, proj, tcx, capacity) -> None:
+    """B of the other tree against this tree's, and this tree's chunks of
+    2,048 points against its default, at one shape: one JSON line each."""
+    args = S.expand_args(proj)
+    kw = dict(tile_count_x=tcx, capacity=capacity)
+    outs = {name: call(*args, **kw) for name, (_, call, _) in builds.items()}
+    torch.cuda.synchronize()
+    total = int(outs["this"][3])
+    for other, this in (("other", "this"), ("this", "this_chunk_2048")):
+        same = same_orders(outs[other], outs[this])
+        record = dict(
+            kernel="expand_point_orders", shape=shape, other=other, this=this,
+            points=int(proj.depths.shape[0]), capacity=capacity, entries=total,
+            outputs_bit_identical=same,
+            **turns(lambda: builds[other][1](*args, **kw), lambda: builds[this][1](*args, **kw)),
+            other_device=S.device_ms(lambda: builds[other][1](*args, **kw), builds[other][2]),
+            this_device=S.device_ms(lambda: builds[this][1](*args, **kw), builds[this][2]),
+        )
+        print(json.dumps(record), flush=True)
 
 
 def main(argv) -> int:
@@ -51,19 +164,28 @@ def main(argv) -> int:
     from gausplat_tpu_torch.utils.kernels import build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     builds = {"this": (RASTERIZE_FORWARD, RASTERIZE_BACKWARD),
               "other": tuple(k.with_source_dir(argv[0])
                              for k in (RASTERIZE_FORWARD, RASTERIZE_BACKWARD))}
-    build_all([k for pair in builds.values() for k in pair])
+    b_builds = expand_builds(argv[0])
+    build_all([k for pair in builds.values() for k in pair]
+              + [k for k, _, _ in b_builds.values()])
 
     arrays = S.bench_scene_arrays()
     views = S.bench_views(T)
     view = views[0]
+    print(S.nvidia_smi("name,power.limit"), flush=True)
     with torch.no_grad():
         bench = T.GaussianScene.from_numpy(**arrays, device=dev)
-        target = T.render(bench, view, T.calibrate_options(bench, views)).colors_rgb_2d
-        del bench
+        options = T.calibrate_options(bench, views)
+        targets = [T.render(bench, v, options).colors_rgb_2d for v in views]
+        *_, tcx, proj = S.raster_inputs(bench, view, options.tile_entry_capacity,
+                                        options.tight_culling, dev)
+        expand_in_turns(b_builds, "serving", proj, tcx, options.tile_entry_capacity)
+        del bench, proj
+    target = targets[0]
     scene = T.GaussianScene.from_numpy(**S.train_start_arrays(arrays), device=dev)
     options = T.calibrate_options(scene, views)
     rows, ids, ranges, tcx, _ = S.raster_inputs(scene, view, options.tile_entry_capacity,
@@ -81,7 +203,6 @@ def main(argv) -> int:
     def backward(kernel):
         return lambda: rasterize_backward(*c_args, tile_count_x=tcx, kernel=kernel)
 
-    print(S.nvidia_smi("name,power.limit"), flush=True)
     for index, (name, make, same) in enumerate((
         ("rasterize_forward", forward,
          lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))),
@@ -90,20 +211,22 @@ def main(argv) -> int:
     )):
         other, this = builds["other"][index], builds["this"][index]
         identical = same(make(other)(), make(this)())
-        rounds = [S.in_turns(make(other), make(this), reps=REPS) for _ in range(ROUNDS)]
-        other_all = [t for r in rounds for t in r["first"][1]]
-        this_all = [t for r in rounds for t in r["second"][1]]
         print(json.dumps(dict(
             kernel=name, capacity=options.tile_entry_capacity, valid_entries=valid,
-            order="other, this, this, other", rounds=ROUNDS, reps_per_turn=REPS,
-            other_ms=statistics.median(other_all), this_ms=statistics.median(this_all),
-            this_over_other=statistics.median(this_all) / statistics.median(other_all),
-            round_ms=[(r["first"][0], r["second"][0]) for r in rounds],
-            round_this_over_other=[r["second"][0] / r["first"][0] for r in rounds],
-            other_ms_all=other_all, this_ms_all=this_all,
+            **turns(make(other), make(this)),
             other_launch=other.launch_info(), this_launch=this.launch_info(),
             outputs_bit_identical=identical,
         )), flush=True)
+    del rows, ids, ranges, c_args, image, image_tiles
+
+    # B at the train phase's step: its 10-step fit, then view 0's projection.
+    trainer = TT.Trainer(scene, view.image_width, view.image_height,
+                         S.train_config(options, views))
+    S.fit_ten_steps(trainer, views, targets)
+    opts = trainer._options()
+    *_, tcx, proj = S.raster_inputs(trainer.scene, view, opts.tile_entry_capacity,
+                                    opts.tight_culling, dev, sh_degree=opts.colors_sh_degree_max)
+    expand_in_turns(b_builds, "train_step", proj, tcx, opts.tile_entry_capacity)
     return 0
 
 

@@ -6,13 +6,16 @@ Counterpart of ``gausplat_tpu/ops/binning.py``. Reference: rank
 
 - The (tile, point) entry buffers have a fixed ``capacity``; the true
   total stays on the device and is returned so callers can see overflow.
-- Keys are the reference's u32 ``tile_index << 16 | depth16``, held in
-  int64 tensors (torch's uint32 arithmetic is patchy); pads are
-  ``0xFFFFFFFF`` with point id P.
+- Keys are the reference's u32 ``tile_index << 16 | depth16`` with the
+  sign bit flipped, held in int32 tensors (``u32 ^ 0x80000000``): signed
+  order is unsigned order, the transform the JAX package's
+  ``sort_entries`` applies before its int32 sort. Pads are ``0x7FFFFFFF``
+  (the u32 ``0xFFFFFFFF``) with point id P. :func:`keys_to_u32` and
+  :func:`keys_from_u32` convert.
 - Expansion on CUDA tensors is the hand-written kernel
   (:func:`gausplat_tpu_torch.ops.expand.fused_point_orders`);
   :func:`make_point_orders` here is its plain version.
-- The sort is ``torch.sort(stable=True)`` on the int64 keys, and the tile
+- The sort is ``torch.sort(stable=True)`` on the int32 keys, and the tile
   ranges come from ``torch.searchsorted``.
 """
 
@@ -24,8 +27,22 @@ import torch
 
 from ..constants import DEPTH_ORDER_OFFSET
 
-#: Key of a pad slot (sorts after every real key).
-PAD_KEY = 0xFFFFFFFF
+#: The sign bit a stored key flips.
+SIGN_FLIP = 0x80000000
+#: Key of a pad slot (sorts after every real key): the u32 ``0xFFFFFFFF``.
+PAD_KEY = 0x7FFFFFFF
+
+
+def keys_from_u32(u32: torch.Tensor) -> torch.Tensor:
+    """Reference u32 keys (any integer tensor holding values in [0, 2^32))
+    -> the stored int32 keys, ``u32 ^ 0x80000000`` as an int32."""
+    return (u32.to(torch.int64) - SIGN_FLIP).to(torch.int32)
+
+
+def keys_to_u32(keys: torch.Tensor) -> torch.Tensor:
+    """Stored int32 keys -> the reference's u32 keys, as int64 in [0, 2^32)
+    (torch's uint32 arithmetic is patchy); compares with JAX's uint32 keys."""
+    return keys.to(torch.int64) + SIGN_FLIP
 
 
 class BinningOutput(NamedTuple):
@@ -68,16 +85,17 @@ def make_point_orders(
     """Plain version of the expansion kernel: one (key, point) entry per
     touched tile of each point, at a fixed ``capacity``.
 
-    Returns ``(keys [capacity] int64, src [capacity] int32, offsets_inc [P]
+    Returns ``(keys [capacity] int32, src [capacity] int32, offsets_inc [P]
     int32, total [] int32)``, bit-identical to
-    ``gausplat_tpu.ops.binning.make_point_orders``.
+    ``gausplat_tpu.ops.binning.make_point_orders`` with its uint32 keys
+    stored as :func:`keys_from_u32` does.
     """
     p = depths.shape[0]
     device = depths.device
     offsets_inc = torch.cumsum(tile_counts.to(torch.int32), 0, dtype=torch.int32)
     total = entry_total(offsets_inc)
     if p == 0:
-        keys = torch.full((capacity,), PAD_KEY, dtype=torch.int64, device=device)
+        keys = torch.full((capacity,), PAD_KEY, dtype=torch.int32, device=device)
         return keys, torch.zeros((capacity,), dtype=torch.int32, device=device), offsets_inc, total
 
     slots = torch.arange(capacity, dtype=torch.int64, device=device)
@@ -92,7 +110,7 @@ def make_point_orders(
     tile_x = tile_x_min.to(torch.int64)[src] + local % width
     tile_y = tile_y_min.to(torch.int64)[src] + local // width
     tile_index = tile_y * tile_count_x + tile_x
-    keys = ((tile_index << 16) & 0xFFFFFFFF) | (depth_to_order(depths)[src] & 0xFFFF)
+    keys = keys_from_u32(((tile_index << 16) & 0xFFFFFFFF) | (depth_to_order(depths)[src] & 0xFFFF))
     keys = torch.where(valid, keys, torch.full_like(keys, PAD_KEY))
     src = torch.where(valid, src, torch.full_like(src, p)).to(torch.int32)
     return keys, src, offsets_inc, total
@@ -102,7 +120,8 @@ def sort_entries(keys: torch.Tensor, point_indices: torch.Tensor):
     """Stable sort of (key, point-index) pairs by key; pads sort last.
 
     Stability keeps the point-id order among equal keys, as the reference's
-    LSD radix sort does (sort/radix/mod.rs:43-155).
+    LSD radix sort does (sort/radix/mod.rs:43-155). On int32 keys a radix
+    sort makes half the passes it makes on int64.
     """
     sorted_keys, order = torch.sort(keys, stable=True)
     return sorted_keys, point_indices[order]
@@ -117,11 +136,13 @@ def tile_ranges_from_keys(
     (0, 0) (segment/kernel.2.wgsl:40-51).
     """
     capacity = sorted_keys.shape[0]
-    tile_ids = sorted_keys >> 16
-    queries = torch.arange(num_tiles, dtype=torch.int64, device=sorted_keys.device)
+    # The arithmetic shift keeps the flipped sign: (key >> 16) + 32768 is the
+    # u32 key's top 16 bits, the tile id.
+    tile_ids = (sorted_keys >> 16) + (SIGN_FLIP >> 16)
+    queries = torch.arange(num_tiles, dtype=torch.int32, device=sorted_keys.device)
     ends = torch.searchsorted(tile_ids, queries, right=True)
-    # Pads (key 0xFFFFFFFF) sort last; stability puts any real tile-0xFFFF
-    # entries before them, so clamping by the true total is exact.
+    # Pads (key 0x7FFFFFFF, tile 0xFFFF) sort last; stability puts any real
+    # tile-0xFFFF entries before them, so clamping by the true total is exact.
     ends = torch.minimum(ends, torch.clamp_max(total.to(torch.int64), capacity))
     starts = torch.cat([ends.new_zeros(1), ends[:-1]])
     return torch.stack([starts, ends], dim=-1).to(torch.int32)

@@ -1,11 +1,13 @@
 """Tile-key expansion: the hand-written CUDA kernel and its wrapper.
 
 Counterpart of ``gausplat_tpu/ops/expand.py::fused_point_orders`` (a
-Pallas kernel on the TPU). Here it is ``csrc/expand.cu``: one thread per
-point scatters its tile run at its exclusive-scan offset, and a
-grid-stride pass writes the pads. The plain version is
-:func:`gausplat_tpu_torch.ops.binning.make_point_orders`; the outputs of
-the two are bit-identical.
+Pallas kernel on the TPU). Here it is ``csrc/expand.cu``, one library call
+that scans the counts and writes every output: chunk sums scanned by the
+last CTA to finish, then one CTA per chunk of points that walks the
+chunk's slots slot-major (a binary search over the chunk's staged ends per
+slot), and pad CTAs that read the total on the device. The plain version
+is :func:`gausplat_tpu_torch.ops.binning.make_point_orders`; the outputs
+of the two are bit-identical.
 """
 
 from __future__ import annotations
@@ -14,14 +16,19 @@ import torch
 
 from ..constants import DEPTH_ORDER_OFFSET
 from ..utils.kernels import I32, I64, PTR, U32, CudaKernel, require_cuda, stream_of
-from .binning import entry_total, make_point_orders
+from .binning import make_point_orders
 
 #: The kernel library and its launch count.
 EXPAND = CudaKernel(
     "expand.cu",
     "gs_expand_point_orders",
-    [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I32, I32, I64, U32, PTR, PTR, PTR],
+    [PTR, PTR, PTR, PTR, PTR, I32, I32, I64, U32, PTR, PTR, PTR, PTR, PTR, PTR],
 )
+#: Points per chunk, ``GS_EXPAND_CHUNK`` in ``csrc/expand.cu`` (a test
+#: compares the two). The scratch holds a word per chunk of this size, so a
+#: build may take larger chunks but not smaller (``kScratchChunk`` there).
+#: The card tests' workloads straddle it.
+CHUNK_POINTS = 1024
 
 
 def fused_point_orders(
@@ -33,13 +40,16 @@ def fused_point_orders(
     *,
     tile_count_x: int,
     capacity: int,
+    kernel: CudaKernel = EXPAND,
 ):
     """Expand each visible point into one (key, point id) entry per
-    touched tile: ``(keys [capacity] int64, src [capacity] int32,
-    offsets_inc [P] int32, total [] int32)``.
+    touched tile: ``(keys [capacity] int32, src [capacity] int32,
+    offsets_inc [P] int32, total [] int32)``, keys as
+    :func:`gausplat_tpu_torch.ops.binning.keys_from_u32` stores them.
 
-    CPU tensors go to the plain version; CUDA tensors launch the kernel,
-    and anything the kernel does not take raises.
+    CPU tensors go to the plain version; CUDA tensors launch the kernel
+    (``kernel``: :data:`EXPAND` or another build of it) in one library
+    call, and anything the kernel does not take raises.
     """
     if depths.device.type == "cpu":
         return make_point_orders(
@@ -56,14 +66,15 @@ def fused_point_orders(
         if t.device != depths.device:
             raise ValueError(f"{name} is on {t.device}, depths on {depths.device}")
 
-    offsets_inc = torch.cumsum(tile_counts, 0, dtype=torch.int32)
-    total = entry_total(offsets_inc)
-    keys = torch.empty((capacity,), dtype=torch.int64, device=depths.device)
-    src = torch.empty((capacity,), dtype=torch.int32, device=depths.device)
-    EXPAND.launch(
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=depths.device)
+
+    keys, src, offsets_inc, total = empty(capacity), empty(capacity), empty(p), empty()
+    scratch = empty(1 + -(-p // CHUNK_POINTS))
+    kernel.launch(
         depths.data_ptr(), tile_x_max.data_ptr(), tile_x_min.data_ptr(),
-        tile_y_min.data_ptr(), tile_counts.data_ptr(), offsets_inc.data_ptr(),
-        total.data_ptr(), p, tile_count_x, capacity, DEPTH_ORDER_OFFSET,
-        keys.data_ptr(), src.data_ptr(), stream_of(depths),
+        tile_y_min.data_ptr(), tile_counts.data_ptr(), p, tile_count_x, capacity,
+        DEPTH_ORDER_OFFSET, keys.data_ptr(), src.data_ptr(), offsets_inc.data_ptr(),
+        total.data_ptr(), scratch.data_ptr(), stream_of(depths),
     )
     return keys, src, offsets_inc, total

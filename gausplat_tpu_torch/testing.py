@@ -1,11 +1,104 @@
-"""Inputs that stress the rasterize kernels, and the comparison of packed
-gradient rows, for tests and ``chip_smoke.py``.
+"""Inputs that stress the expansion and rasterize kernels, and the
+comparison of packed gradient rows, for tests and ``chip_smoke.py``.
 
 numpy and torch only: the card tests and the smoke run use it where neither
 JAX nor pytest is installed.
 """
 
 import numpy as np
+
+from .ops.expand import CHUNK_POINTS
+
+
+def expand_workload(p, seed, vis_frac=0.8, max_wh=6, y_range=(0, 50)):
+    """tests/test_expand.py::_workload (tile rows from ``y_range``): the
+    expansion's per-point inputs ``(depths, tile_x_max, tile_x_min,
+    tile_y_min, tile_counts)``."""
+    rng = np.random.default_rng(seed)
+    counts_w = rng.integers(1, max_wh, p).astype(np.int32)
+    counts_h = rng.integers(1, max_wh, p).astype(np.int32)
+    vis = rng.random(p) < vis_frac
+    tx_min = rng.integers(0, 100, p).astype(np.int32)
+    ty_min = rng.integers(*y_range, p).astype(np.int32)
+    counts = np.where(vis, counts_w * counts_h, 0).astype(np.int32)
+    depths = (0.3 + rng.random(p) * 1000).astype(np.float32)
+    return depths, tx_min + counts_w, tx_min, ty_min, counts
+
+
+def _cut(args, point):
+    """A capacity that ends inside the run of point ``point``."""
+    ends = np.cumsum(args[4].astype(np.int64))
+    return int(ends[point] - args[4][point] // 2 - 1)
+
+
+def _overflow():
+    args = expand_workload(2000, 7, 1.0, max_wh=8)
+    return args, (int(args[4].sum()) // 2) // 128 * 128, 120
+
+
+def _all_invisible():
+    rng = np.random.default_rng(9)
+    z = np.zeros(300, np.int32)
+    return ((rng.random(300) + 0.5).astype(np.float32), z, z, z, z), 1 << 12, 120
+
+
+def _giant_span():
+    counts = np.zeros(10, np.int32)
+    counts[4] = 1000
+    return (np.full(10, 2.0, np.float32), np.full(10, 25, np.int32),
+            np.full(10, 5, np.int32), np.full(10, 3, np.int32), counts), 1 << 11, 120
+
+
+def _long_run_among_empty():
+    """One 48x25-tile point (1,200 slots, more than a CTA's 256 threads
+    cover in one stride) among 4,999 points that touch no tile, in the
+    second chunk."""
+    p, k = 5000, CHUNK_POINTS + 700
+    counts = np.zeros(p, np.int32)
+    counts[k] = 48 * 25
+    x_min, y_min = np.full(p, 30, np.int32), np.full(p, 7, np.int32)
+    return (np.linspace(0.5, 900.0, p).astype(np.float32), x_min + 48, x_min, y_min,
+            counts), 1 << 11, 120
+
+
+def _chunks_cut(at_chunk):
+    """P = 3K + 5 for chunks of K points, cut inside a run in the middle of
+    the second chunk (the third and fourth start past capacity), or exactly
+    at the third chunk's first slot."""
+    args = expand_workload(3 * CHUNK_POINTS + 5, 13, 0.8)
+    if at_chunk:
+        return args, int(args[4][:2 * CHUNK_POINTS].astype(np.int64).sum()), 120
+    return args, _cut(args, CHUNK_POINTS + CHUNK_POINTS // 2), 120
+
+
+def _high_tiles(cut):
+    """Tile indices past 32768 (sign bit of the u32 key set): 256 tiles a
+    row, rows 100-253, so both halves occur; truncated or not."""
+    args = expand_workload(CHUNK_POINTS + 1000, 17, 0.9, y_range=(100, 249))
+    return args, (_cut(args, CHUNK_POINTS + 300) if cut else 1 << 15), 256
+
+
+#: The expansion's workloads (those of tests/test_expand.py, then the chunk
+#: edges of ``csrc/expand.cu``): name -> () -> (arrays, capacity, tile_count_x).
+EXPAND_WORKLOADS = {
+    "p1000_vis0.8": lambda: (expand_workload(1000, 0, 0.8), 1 << 13, 120),
+    "p1000_vis0.05": lambda: (expand_workload(1000, 1, 0.05), 1 << 13, 120),
+    "p257_vis1": lambda: (expand_workload(257, 2, 1.0), 1 << 12, 120),
+    "p64_vis0.5": lambda: (expand_workload(64, 3, 0.5), 1 << 12, 120),
+    "overflow": _overflow,
+    "all_invisible": _all_invisible,
+    "one_giant_span": _giant_span,
+    "p_chunk_minus_1": lambda: (expand_workload(CHUNK_POINTS - 1, 10), 1 << 15, 120),
+    "p_chunk": lambda: (expand_workload(CHUNK_POINTS, 11), 1 << 15, 120),
+    "p_chunk_plus_1": lambda: (expand_workload(CHUNK_POINTS + 1, 12), 1 << 15, 120),
+    "p_3chunks_plus_5": lambda: (expand_workload(3 * CHUNK_POINTS + 5, 13), 1 << 16, 120),
+    "chunks_cut_mid_chunk": lambda: _chunks_cut(False),
+    "chunks_cut_at_chunk": lambda: _chunks_cut(True),
+    "p0": lambda: ((np.zeros(0, np.float32),) + (np.zeros(0, np.int32),) * 4, 256, 120),
+    "long_run_among_empty": _long_run_among_empty,
+    "high_tiles": lambda: _high_tiles(False),
+    "high_tiles_cut": lambda: _high_tiles(True),
+}
 
 
 def grazing_position(cxx, cxy, cyy, opacity, pixel, axis, sign, slack):

@@ -5,7 +5,9 @@ a card and without JAX it runs alone, from the root of the repository:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the expansion is bit-identical; the forward rasterizer's image
+Tolerances: the expansion is bit-identical (every output, on workloads
+that straddle its chunks of points, cut inside a chunk or at one, with no
+points, with a run longer than a CTA, and with tile indices past 32768); the forward rasterizer's image
 and transmittance within 1e-4 (a sequential per-pixel product against the
 plain version's log-step product), rendered counts exactly; the backward
 rasterizer's gradient rows, and the render's parameter gradients and
@@ -60,11 +62,11 @@ def assert_scaled_close(got, want, what):
 
 @pytest.mark.parametrize("name", sorted(EXPAND_WORKLOADS))
 def test_expand_kernel_matches_plain(name, cuda_device):
-    arrays, capacity = EXPAND_WORKLOADS[name]()
+    arrays, capacity, tcx = EXPAND_WORKLOADS[name]()
     args = [torch.as_tensor(a, device=cuda_device) for a in arrays]
     before = EXPAND.launches
-    got = fused_point_orders(*args, tile_count_x=120, capacity=capacity)
-    want = make_point_orders(*args, tile_count_x=120, capacity=capacity)
+    got = fused_point_orders(*args, tile_count_x=tcx, capacity=capacity)
+    want = make_point_orders(*args, tile_count_x=tcx, capacity=capacity)
     torch.cuda.synchronize()
     assert EXPAND.launches == before + 1
     for g, w in zip(got, want):

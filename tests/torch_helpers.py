@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import gausplat_tpu_torch as T
+from gausplat_tpu_torch.testing import EXPAND_WORKLOADS  # noqa: F401  (re-exported)
 
 #: The small scene of tests/test_rasterize.py: P=80 at 56x40 (partial tiles
 #: on both axes), capacity 1024, blend windows of 64.
@@ -29,49 +30,6 @@ def scene_arrays(p, seed=3):
     op_inner = (rng.standard_normal((p, 1)) * 2).astype(np.float32)
     return dict(colors_sh=csh, opacities=op_inner, positions=positions,
                 rotations=rotations, scalings=scalings)
-
-
-def expand_workload(p, seed, vis_frac=0.8, max_wh=6):
-    """tests/test_expand.py::_workload: the expansion's per-point inputs."""
-    rng = np.random.default_rng(seed)
-    counts_w = rng.integers(1, max_wh, p).astype(np.int32)
-    counts_h = rng.integers(1, max_wh, p).astype(np.int32)
-    vis = rng.random(p) < vis_frac
-    tx_min = rng.integers(0, 100, p).astype(np.int32)
-    ty_min = rng.integers(0, 50, p).astype(np.int32)
-    counts = np.where(vis, counts_w * counts_h, 0).astype(np.int32)
-    depths = (0.3 + rng.random(p) * 1000).astype(np.float32)
-    return depths, tx_min + counts_w, tx_min, ty_min, counts
-
-
-def _overflow():
-    args = expand_workload(2000, 7, 1.0, max_wh=8)
-    return args, (int(args[4].sum()) // 2) // 128 * 128
-
-
-def _all_invisible():
-    rng = np.random.default_rng(9)
-    z = np.zeros(300, np.int32)
-    return ((rng.random(300) + 0.5).astype(np.float32), z, z, z, z), 1 << 12
-
-
-def _giant_span():
-    counts = np.zeros(10, np.int32)
-    counts[4] = 1000
-    return (np.full(10, 2.0, np.float32), np.full(10, 25, np.int32),
-            np.full(10, 5, np.int32), np.full(10, 3, np.int32), counts), 1 << 11
-
-
-#: The expansion workloads of tests/test_expand.py: name -> () -> (arrays, capacity).
-EXPAND_WORKLOADS = {
-    "p1000_vis0.8": lambda: (expand_workload(1000, 0, 0.8), 1 << 13),
-    "p1000_vis0.05": lambda: (expand_workload(1000, 1, 0.05), 1 << 13),
-    "p257_vis1": lambda: (expand_workload(257, 2, 1.0), 1 << 12),
-    "p64_vis0.5": lambda: (expand_workload(64, 3, 0.5), 1 << 12),
-    "overflow": _overflow,
-    "all_invisible": _all_invisible,
-    "one_giant_span": _giant_span,
-}
 
 
 def views(width, height, position=(0.0, 0.0, -4.0), rotation=None):
