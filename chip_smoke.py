@@ -217,12 +217,13 @@ DEVICE_KERNELS = {
 }
 
 
-def device_ms(fn, names, reps: int = 20) -> dict:
+def device_ms(fn, names=None, reps: int = 20) -> dict:
     """Device time per call of ``fn`` (torch.profiler, CUPTI) over ``reps``
     calls after a warm-up: ``device_ms`` of the kernels whose names contain
-    one of ``names`` (``kernels``: by name), ``device_all_ms`` of every
-    kernel, and the names of the others that ran. "not measured" where the
-    profiler saw no device time."""
+    one of ``names``, or of every kernel where ``names`` is None
+    (``kernels``: by name), ``device_all_ms`` of every kernel, and the names
+    of the others that ran. "not measured" where the profiler saw no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -239,7 +240,8 @@ def device_ms(fn, names, reps: int = 20) -> dict:
         us = getattr(event, "device_time_total", None)
         us = event.cuda_time_total if us is None else us
         every += us
-        found = [name for name in names if name in event.key]
+        found = ([event.key[:90]] if names is None
+                 else [name for name in names if name in event.key])
         if found:
             mine[found[0]] = mine.get(found[0], 0.0) + us / 1e3 / reps
         else:
@@ -440,9 +442,9 @@ def sort_and_binning(proj, tcx, tcy, capacity) -> dict:
         capacity=capacity, order="int64, int32, int32, int64",
         sort_int64_ms=turns["first"][0], sort_int32_ms=turns["second"][0],
         sort_int64_ms_all=turns["first"][1], sort_int32_ms_all=turns["second"][1],
-        sort_int64_device=device_ms(sort64, ()), sort_int32_device=device_ms(sort32, ()),
+        sort_int64_device=device_ms(sort64), sort_int32_device=device_ms(sort32),
         bin_gaussians_ms=bin_ms, bin_gaussians_ms_all=bin_all,
-        bin_gaussians_device=device_ms(binning, ()),
+        bin_gaussians_device=device_ms(binning),
     )
 
 

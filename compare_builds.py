@@ -20,9 +20,7 @@ are built from source with the same nvcc flags and loaded side by side.
   ``offsets_inc``, as up to commit cdd0e68), it is bound with that argument
   list and fed by a ``torch.cumsum``, as its wrapper was; its int64 keys
   must equal this tree's keys under ``keys_to_u32``, and its ids, offsets
-  and total must be bit-identical. This tree's B is also timed built with
-  chunks of 2,048 points against its default of 1,024 (outputs
-  bit-identical).
+  and total must be bit-identical.
 
 Each pair runs ``ROUNDS`` rounds of other, this, this, other
 (``chip_smoke.in_turns``, ``REPS`` timed runs per turn after a warm-up). It
@@ -91,10 +89,10 @@ def old_expand(kernel):
 
 
 def expand_builds(other_dir):
-    """B of the other tree, B of this tree, and this tree's B with chunks of
-    2,048 points: ``{name: (kernel, call, device kernel names)}``."""
+    """B of the other tree and B of this tree: ``{name: (kernel, call,
+    device kernel names)}``."""
     from gausplat_tpu_torch.ops.expand import EXPAND, fused_point_orders
-    from gausplat_tpu_torch.utils.kernels import I32, I64, NVCC_FLAGS, PTR, U32, CudaKernel
+    from gausplat_tpu_torch.utils.kernels import I32, I64, PTR, U32, CudaKernel
 
     def new(kernel):
         return lambda *a, **kw: fused_point_orders(*a, kernel=kernel, **kw)
@@ -109,9 +107,7 @@ def expand_builds(other_dir):
     else:
         other = EXPAND.with_source_dir(other_dir)
         other_build = (other, new(other), names)
-    chunk_2048 = EXPAND.with_flags(NVCC_FLAGS + ("-DGS_EXPAND_CHUNK=2048",))
-    return {"other": other_build, "this": (EXPAND, new(EXPAND), names),
-            "this_chunk_2048": (chunk_2048, new(chunk_2048), names)}
+    return {"other": other_build, "this": (EXPAND, new(EXPAND), names)}
 
 
 def same_orders(a, b) -> dict:
@@ -128,24 +124,28 @@ def same_orders(a, b) -> dict:
 
 
 def expand_in_turns(builds, shape, proj, tcx, capacity) -> None:
-    """B of the other tree against this tree's, and this tree's chunks of
-    2,048 points against its default, at one shape: one JSON line each."""
+    """B of the other tree against this tree's at one shape: one JSON line."""
     args = S.expand_args(proj)
     kw = dict(tile_count_x=tcx, capacity=capacity)
     outs = {name: call(*args, **kw) for name, (_, call, _) in builds.items()}
     torch.cuda.synchronize()
-    total = int(outs["this"][3])
-    for other, this in (("other", "this"), ("this", "this_chunk_2048")):
-        same = same_orders(outs[other], outs[this])
-        record = dict(
-            kernel="expand_point_orders", shape=shape, other=other, this=this,
-            points=int(proj.depths.shape[0]), capacity=capacity, entries=total,
-            outputs_bit_identical=same,
-            **turns(lambda: builds[other][1](*args, **kw), lambda: builds[this][1](*args, **kw)),
-            other_device=S.device_ms(lambda: builds[other][1](*args, **kw), builds[other][2]),
-            this_device=S.device_ms(lambda: builds[this][1](*args, **kw), builds[this][2]),
-        )
-        print(json.dumps(record), flush=True)
+    call_other, call_this = builds["other"][1], builds["this"][1]
+
+    def other():
+        return call_other(*args, **kw)
+
+    def this():
+        return call_this(*args, **kw)
+
+    record = dict(
+        kernel="expand_point_orders", shape=shape, points=int(proj.depths.shape[0]),
+        capacity=capacity, entries=int(outs["this"][3]),
+        outputs_bit_identical=same_orders(outs["other"], outs["this"]),
+        **turns(other, this),
+        other_device=S.device_ms(other, builds["other"][2]),
+        this_device=S.device_ms(this, builds["this"][2]),
+    )
+    print(json.dumps(record), flush=True)
 
 
 def main(argv) -> int:

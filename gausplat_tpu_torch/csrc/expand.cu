@@ -42,29 +42,21 @@
 // idle behind the longest run of their warp; each store instruction touched
 // the runs of 32 points), after a separate scan and before a separate pad
 // kernel, and held each key in 8 bytes. Tried on the card and no faster:
-// chunks of 512 or 2,048 points (compare_builds.py times 2,048), four slots
+// chunks of 512 or 2,048 points (2,048: 11-23% slower), four slots
 // a thread per pass, staging 256 points at a time with the next 256's loads
 // in flight, the pad CTAs first, and four chunks to a CTA of the first kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef GS_EXPAND_CHUNK
-#define GS_EXPAND_CHUNK 1024
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Points per chunk. The wrapper sizes the scratch (a ticket and one word per
-// chunk) for chunks of kScratchChunk (ops/expand.py::CHUNK_POINTS), the
-// smallest this file may be built with.
-constexpr int kChunk = GS_EXPAND_CHUNK;
-constexpr int kScratchChunk = 1024;
+// Points per chunk (ops/expand.py::CHUNK_POINTS, which sizes the scratch: a
+// ticket and one word per chunk).
+constexpr int kChunk = 1024;
 constexpr int kPerThread = kChunk / kThreads;
-static_assert(kChunk >= kScratchChunk && (kChunk & (kChunk - 1)) == 0,
-              "the chunk is a power of two of at least 1024 points");
 
 constexpr uint32_t kSignFlip = 0x80000000u;
 constexpr int32_t kPadKey = 0x7FFFFFFF;  // the u32 pad 0xFFFFFFFF, flipped
@@ -273,7 +265,7 @@ __global__ void __launch_bounds__(kThreads) expand_slots(
 }  // namespace
 
 // Outputs: keys, src [capacity] int32; offsets_inc [n_points] int32; total
-// [] int32. scratch: 1 + ceil(n_points / 1024) int32 words.
+// [] int32. scratch: 1 + ceil(n_points / kChunk) int32 words.
 extern "C" int gs_expand_point_orders(
     const void* depths, const void* tile_x_max, const void* tile_x_min,
     const void* tile_y_min, const void* tile_counts, int32_t n_points,

@@ -24,10 +24,9 @@ EXPAND = CudaKernel(
     "gs_expand_point_orders",
     [PTR, PTR, PTR, PTR, PTR, I32, I32, I64, U32, PTR, PTR, PTR, PTR, PTR, PTR],
 )
-#: Points per chunk, ``GS_EXPAND_CHUNK`` in ``csrc/expand.cu`` (a test
-#: compares the two). The scratch holds a word per chunk of this size, so a
-#: build may take larger chunks but not smaller (``kScratchChunk`` there).
-#: The card tests' workloads straddle it.
+#: Points per chunk, ``kChunk`` in ``csrc/expand.cu`` (a test compares the
+#: two). The scratch holds a ticket and a word per chunk. The card tests'
+#: workloads straddle it.
 CHUNK_POINTS = 1024
 
 

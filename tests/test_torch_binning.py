@@ -92,8 +92,7 @@ def test_key_converter_round_trip():
 
 def test_chunk_constants_match_the_source():
     source = (pathlib.Path(tbin.__file__).parent.parent / "csrc" / "expand.cu").read_text()
-    assert int(re.search(r"#define GS_EXPAND_CHUNK (\d+)", source).group(1)) == CHUNK_POINTS
-    assert int(re.search(r"kScratchChunk = (\d+);", source).group(1)) == CHUNK_POINTS
+    assert int(re.search(r"constexpr int kChunk = (\d+);", source).group(1)) == CHUNK_POINTS
 
 
 @pytest.mark.parametrize("name", ["high_tiles", "high_tiles_cut"])
