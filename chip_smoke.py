@@ -8,7 +8,7 @@ It imports torch, numpy and ``gausplat_tpu_torch`` only (no JAX, and
 nothing of ``tests/``), builds the three hand-written kernel libraries from
 ``gausplat_tpu_torch/csrc`` into ``build/gausplat_tpu_torch/`` (one nvcc
 each, all at once; the rasterize libraries hold an entry point for f32
-rows and one for packed bf16-pair rows), and runs ten phases, each
+rows and one for packed bf16-pair rows), and runs eleven phases, each
 printing one JSON line:
 
 1. env: versions, the card, the kernel builds and their ptxas reports;
@@ -78,11 +78,29 @@ printing one JSON line:
    projection, with bounds from the packed bytes; and render + loss +
    gradients on the fitted scene timed with bf16 and with f32 rows, in
    turns.
+11. parallel: multi-device render and training on ``torch.distributed``:
+   (a) one NCCL rank (world size 1) renders the bench view through
+   ``render_tile_sharded``, bit for bit ``render``, gradients too; then four
+   ranks spawned on this card over gloo (NCCL refuses two ranks on one
+   GPU; the backend is printed) run (b) BASELINE.json's fifth
+   configuration as ``scripts/mesh_4k.py`` makes it, 2,000,000 points at
+   3840x2176, in 4 slabs (the record's 8, cut to 4), against the single
+   render in rank 0 (at most 1e-3 of the pixels beyond 1e-4, radii equal,
+   every slab within its capacity), and (c) the (2, 2) (data, tiles) step
+   on the bench scene's 4 orbit views against the single-device loss
+   (rtol 2e-4) and gradients (1e-3 scaled) the parent computed, then 3
+   ``ShardedTrainer`` steps across a densify event, after which the ranks'
+   scenes must agree bit for bit; each rank's wall time is printed (four
+   processes share one card: not scaling numbers). Then A, B and C on
+   slab 0 and on the last slab (its padded rows) of the step's first view,
+   against their plain versions and timed beside them.
 
 Then it prints the card's name and power limit, one JSON line of
 per-kernel results, every number of which comes from a training path
 (phase 9 for the f32 entry points of A, B and C, phase 10 for the packed
-``rasterize_forward_bf16`` and ``rasterize_backward_bf16``: their
+``rasterize_forward_bf16`` and ``rasterize_backward_bf16``, phase 11 for
+A, B and C on the slabs, ``<kernel>@slab0`` and ``@last_slab``, whose
+launches are the parallel path's summed over its ranks: their
 launches, and the error, time (``ms``, CUDA events around the wrapper;
 ``device_ms``, its kernels' device time), plain time and bound at the
 step's shapes;
@@ -355,20 +373,26 @@ def bench_views(T):
             orbit_view(T, 0.0, 0.1), orbit_view(T, 0.0, -0.1)]
 
 
-def raster_inputs(scene, view, capacity, tight, device, sh_degree=3, packed=False):
+def raster_inputs(scene, view, capacity, tight, device, sh_degree=3, packed=False, slab=None):
     """Entry rows (f32, or packed bf16 pairs), sorted ids, tile ranges, the
     tile count across and the projection of one view, as the render builds
-    them."""
+    them; with ``slab = (y0, rows)``, of the slab of ``rows`` rows from row
+    ``y0``, as a tile-sharded render builds it (the camera's screen origin
+    shifted by ``y0``)."""
     from gausplat_tpu_torch.ops.binning import bin_gaussians
     from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
     from gausplat_tpu_torch.ops.blend import pack_rows
     from gausplat_tpu_torch.ops.rasterize import pack_point_data
 
-    tcx, tcy = -(-view.image_width // 16), -(-view.image_height // 16)
+    y0, rows = slab if slab is not None else (0, view.image_height)
+    tcx, tcy = -(-view.image_width // 16), -(-rows // 16)
+    camera = Camera.from_view(view, device=device)
+    if slab is not None:
+        camera.pos2d_shift = torch.tensor([0.0, float(y0)], device=device)
     with torch.no_grad():
         proj = project_gaussians(
             scene.colors_sh, scene.positions, scene.rotations, scene.scalings,
-            Camera.from_view(view, device=device), sh_degree=sh_degree,
+            camera, sh_degree=sh_degree,
             tile_count_x=tcx, tile_count_y=tcy, opacities=scene.opacities,
             tight_culling=tight,
         )
@@ -1430,6 +1454,412 @@ def phase_colmap_bf16(ctx):
     )
 
 
+# --- the parallel phase: torch.distributed ----------------------------------------
+
+#: BASELINE.json's fifth configuration, as scripts/mesh_4k.py renders it
+#: (MESH4K_r05.json): 2,000,000 points of ``default_rng(7)`` at 3840x2176.
+MESH4K_WIDTH, MESH4K_HEIGHT, MESH4K_POINTS = 3840, 2176, 2_000_000
+#: The cut: 4 slabs, where the record has 8 (this machine has one card).
+MESH4K_SLABS = 4
+#: Entries per slab: the record's 2^21 per slab of 8 (its largest slab
+#: held 1,955,178) times 4 for the slabs of twice the rows.
+MESH4K_CAPACITY = MESH4K_SLABS << 23
+#: The sharded step's ranks: a (data, tiles) mesh of 2 x 2 on the 4 orbit
+#: views of the bench scene.
+STEP_MESH = (2, 2)
+#: Pixels of the 4K frame whose largest channel difference from the
+#: single-device render may exceed 1e-4: at most this share.
+MESH4K_PIXEL_SHARE = 1e-3
+
+
+def mesh4k_scene(T, device):
+    """scripts/mesh_4k.py's scene: ``from_points`` of seeded points, then
+    per-axis scales in [0.004, 0.012) and opacities in [0.2, 0.9)."""
+    rng = np.random.default_rng(7)
+    points = T.Points(rng.random((MESH4K_POINTS, 3)).astype(np.float32),
+                      (rng.standard_normal((MESH4K_POINTS, 3)) * np.array([2.2, 1.3, 1.0])
+                       ).astype(np.float32))
+    scene = T.GaussianScene.from_points(points, device=device)
+    scene = scene.set_scalings(0.004 + 0.008 * rng.random((MESH4K_POINTS, 3)))
+    return scene.set_opacities(0.2 + 0.7 * rng.random((MESH4K_POINTS, 1)))
+
+
+def mesh4k_view(T):
+    return T.View(field_of_view_x=1.2, field_of_view_y=0.75, image_height=MESH4K_HEIGHT,
+                  image_width=MESH4K_WIDTH, view_position=[0.0, 0.0, -5.0],
+                  view_transform=T.View.transform(np.eye(3), [0.0, 0.0, 5.0]))
+
+
+def step_train_config(options, views):
+    """The sharded trainer's schedule: SH degrees 0-2 over 3 steps, a
+    densify after step 2, an overflow check every step."""
+    from gausplat_tpu_torch import train as TT
+
+    extent = TT.camera_extent(views)
+    return TT.TrainConfig(
+        sh_warmup_interval=1, densify_from=2, densify_interval=2, densify_until=3,
+        opacity_reset_interval=10**9, overflow_check_interval=1, render=options,
+        optimizer=TT.OptimizerConfig(scene_extent=extent),
+        densify=TT.DensifyConfig(scene_extent=extent))
+
+
+def params_digest(scene) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for p in scene.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def slab_bins(scene, view, index, device) -> dict:
+    """How the tile rows that slab ``index`` of a ``MESH4K_SLABS``-way
+    split bins differ from the whole frame's rows clipped to the slab: the
+    points binned differently (their tile-row range, or whether they reach
+    the slab at all), and the entries either way. The slab's bounds come
+    from positions shifted by ``y0`` in f32, the frame's from the unshifted
+    ones, so a bound that lies on a tile edge can round to either side."""
+    from gausplat_tpu_torch.ops.projection import Camera, project_gaussians
+    from gausplat_tpu_torch.parallel.render import slab_rows
+
+    h_local, _ = slab_rows(view.image_height, MESH4K_SLABS)
+    tcx, tcy = -(-view.image_width // 16), h_local // 16
+    t0 = index * tcy
+
+    def project(camera, rows):
+        with torch.no_grad():
+            return project_gaussians(scene.colors_sh, scene.positions, scene.rotations,
+                                     scene.scalings, camera, sh_degree=3, tile_count_x=tcx,
+                                     tile_count_y=rows, opacities=scene.opacities,
+                                     tight_culling=True)
+
+    full = project(Camera.from_view(view, device=device), -(-view.image_height // 16))
+    camera = Camera.from_view(view, device=device)
+    camera.pos2d_shift = torch.tensor([0.0, float(index * h_local)], device=device)
+    slab = project(camera, tcy)
+    lo = (full.tile_y_min - t0).clamp(0, tcy)
+    hi = (full.tile_y_max - t0).clamp(0, tcy)
+    full_in = (full.tile_counts > 0) & (hi > lo)
+    slab_in = slab.tile_counts > 0
+    same = (lo == slab.tile_y_min) & (hi == slab.tile_y_max)
+    differ = (full_in != slab_in) | (full_in & slab_in & ~same)
+    width = (full.tile_x_max - full.tile_x_min).to(torch.int64)
+    return dict(points_binned_differently=int(differ.sum()),
+                entries_slab=int(slab.tile_counts.to(torch.int64).sum()),
+                entries_frame_rows=int(torch.where(full_in, (hi - lo) * width, 0).sum()))
+
+
+def parallel_worker(rank, out_dir, spec):
+    """One of the four ranks of the parallel phase, all on one card
+    (``spec["device"]``) over gloo: (b) the 4K frame of ``mesh4k_scene`` in 4 slabs
+    (``render_tile_sharded``), rank 0 against the single-device render;
+    (c) the (2, 2) sharded step on the bench scene's 4 orbit views, rank 0
+    against the single-device loss and gradients in ``reference.pt``, then
+    3 ``ShardedTrainer`` steps across a densify event. Writes
+    ``rank{rank}.json``: its times, launch counts, checks and its scene's
+    digest."""
+    import torch.distributed as dist
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch.parallel import make_mesh, render_tile_sharded, stack_cameras
+    from gausplat_tpu_torch.parallel.train_step import ShardedTrainer, make_sharded_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(spec["device"])
+    out_dir = pathlib.Path(out_dir)
+    kernels = all_kernels()
+    rec = dict(rank=rank, backend=dist.get_backend())
+    begin = time.perf_counter()
+
+    # (b) The 4K frame in 4 slabs.
+    scene = mesh4k_scene(T, dev)
+    view = mesh4k_view(T)
+    options = T.RenderOptions(tile_entry_capacity=MESH4K_CAPACITY, block_size=128)
+    mesh = make_mesh((MESH4K_SLABS,), ("tiles",))
+    for kernel in kernels:
+        kernel.launches = 0
+    torch.cuda.synchronize()
+    dist.barrier()
+    start = time.perf_counter()
+    with torch.no_grad():
+        out = render_tile_sharded(scene, view, mesh, "tiles", options)
+    torch.cuda.synchronize()
+    rec["render_4k_seconds"] = time.perf_counter() - start
+    launches = {k.entry: k.launches for k in kernels}
+    slab_capacity = MESH4K_CAPACITY // MESH4K_SLABS
+    rec["bins"] = slab_bins(scene, view, mesh.coords["tiles"], dev)
+    rec["slab_watermark"], rec["slab_capacity"] = int(out.tile_point_total), slab_capacity
+    check(int(out.tile_point_total) < slab_capacity,
+          f"a slab overflowed: {int(out.tile_point_total)} >= {slab_capacity}")
+    if rank == 0:
+        with torch.no_grad():
+            single = T.render(scene, view, options)
+        diff = (out.colors_rgb_2d - single.colors_rgb_2d).abs().amax(dim=-1)
+        rec["mesh4k"] = dict(
+            image=[MESH4K_WIDTH, MESH4K_HEIGHT], points=MESH4K_POINTS, slabs=MESH4K_SLABS,
+            visible_points=int((single.radii > 0).sum()),
+            total_entries=int(single.tile_point_total), capacity=MESH4K_CAPACITY,
+            max_abs_diff=float(diff.max()), share_beyond_1e4=float((diff > 1e-4).double().mean()),
+            pixels_differing=int((diff > 0).sum()),
+            transmittance_max_abs=max_abs(out.transmittances, single.transmittances),
+            count_mismatches=int((out.point_rendered_counts
+                                  != single.point_rendered_counts).sum()),
+            radii_equal=bool(torch.equal(out.radii, single.radii)),
+            finite=bool(torch.isfinite(out.colors_rgb_2d).all()),
+            image_mean=float(out.colors_rgb_2d.mean()))
+        m = rec["mesh4k"]
+        check(m["finite"] and m["radii_equal"] and m["share_beyond_1e4"] <= MESH4K_PIXEL_SHARE
+              and int(single.tile_point_total) <= MESH4K_CAPACITY,
+              f"the 4K slabs differ from the single-device render: {m}")
+        del single, diff
+    del scene, out
+    torch.cuda.empty_cache()
+
+    # (c) The (2, 2) sharded step on the bench scene's 4 orbit views.
+    arrays = bench_scene_arrays()
+    views = bench_views(T)[1:]
+    with torch.no_grad():
+        bench = T.GaussianScene.from_numpy(**arrays, device=dev)
+        targets = torch.stack([
+            T.render(bench, v, T.RenderOptions(tile_entry_capacity=spec["bench_capacity"])
+                     ).colors_rgb_2d for v in views])
+        del bench
+    scene = T.GaussianScene.from_numpy(**train_start_arrays(arrays), device=dev)
+    grid = make_mesh(STEP_MESH, ("data", "tiles"))
+    options = T.RenderOptions(tile_entry_capacity=spec["step_capacity"])
+    config = step_train_config(options, views)
+    width, height = views[0].image_width, views[0].image_height
+    step, _, h_pad = make_sharded_train_step(grid, width, height, scene.point_count, options,
+                                             config.optimizer)
+    cams = stack_cameras(views, device=dev)
+    padded = torch.nn.functional.pad(targets, (0, 0, 0, 0, 0, h_pad - height))
+    for kernel in kernels:  # the targets' renders are set-up, not the path
+        kernel.launches = 0
+    torch.cuda.synchronize()
+    dist.barrier()
+    start = time.perf_counter()
+    got = step.loss_and_grads(scene, cams, padded)
+    torch.cuda.synchronize()
+    rec["step_gradients_seconds"] = time.perf_counter() - start
+    rec["step_watermark"], rec["step_slab_capacity"] = int(got["max_total"]), step.capacity
+    check(int(got["max_total"]) < step.capacity,
+          f"a slab of the step overflowed: {int(got['max_total'])} >= {step.capacity}")
+    if rank == 0:
+        want = torch.load(out_dir / "reference.pt", weights_only=True)
+        errors = {f: scaled_err(g, want["grads"][f].to(dev)) for f, g in got["grads"].items()}
+        errors["grad_norm_sum"] = scaled_err(got["grad_norm"], want["grad_norm"].to(dev))
+        rec["step"] = dict(loss=float(got["loss"]), loss_single=want["loss"],
+                           loss_rel_err=abs(float(got["loss"]) - want["loss"]) / want["loss"],
+                           scaled_err=errors, h_pad=h_pad)
+        check(rec["step"]["loss_rel_err"] <= 2e-4 and max(errors.values()) <= GRAD_SCALED_ATOL,
+              f"the sharded step differs from the single-device one: {rec['step']}")
+    del got
+
+    trainer = ShardedTrainer(scene, grid, width, height, config)
+    dist.barrier()
+    start = time.perf_counter()
+    history = trainer.fit(cams, targets, 3)
+    torch.cuda.synchronize()
+    rec["fit_3_steps_seconds"] = time.perf_counter() - start
+    rec["fit"] = dict(losses=[h["loss"] for h in history],
+                      densify=[{k: h[k] for k in ("cloned", "split", "pruned", "point_count")}
+                               for h in history if "point_count" in h],
+                      tile_point_total=[int(h["tile_point_total"]) for h in history],
+                      points=trainer.scene.point_count, digest=params_digest(trainer.scene))
+    check(all(math.isfinite(x) for x in rec["fit"]["losses"]) and rec["fit"]["densify"],
+          f"the sharded fit failed or ran no densify: {rec['fit']}")
+    rec["launches"] = {k.entry: launches[k.entry] + k.launches for k in kernels}
+    rec["wall_seconds"] = time.perf_counter() - begin
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def slab_kernel_records(scene, view, slab, capacity, dev, tag) -> tuple[dict, dict]:
+    """Kernels A, B and C on one slab of a tile-sharded frame (the camera
+    shifted by the slab's first row; its own tile grid and capacity),
+    each against its plain version (the tolerances of the full-size
+    phases), timed beside it, with its bound. Returns the comparison record
+    and the timings by kernel."""
+    from gausplat_tpu_torch.ops.binning import make_point_orders
+    from gausplat_tpu_torch.ops.expand import EXPAND, fused_point_orders
+    from gausplat_tpu_torch.ops.rasterize import (
+        RASTERIZE_BACKWARD, RASTERIZE_FORWARD, rasterize_backward, rasterize_backward_torch,
+        rasterize_forward, rasterize_forward_torch,
+    )
+
+    rows, ids, ranges, tcx, proj = raster_inputs(scene, view, capacity, True, dev, slab=slab)
+    b_args, b_kw = expand_args(proj), dict(tile_count_x=tcx, capacity=capacity)
+    b_rec = compare_expand(b_args, capacity, tcx)
+    check(all(b_rec["bit_identical"]), f"{tag}: expansion kernel differs: {b_rec}")
+    a_rec, a_out = compare_forward(rows, ids, ranges, tcx)
+    check(forward_close_at_full_size(a_rec), f"{tag}: forward kernel differs: {a_rec}")
+    grad = torch.randn((slab[1], view.image_width, 3), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(17))
+    c_args = backward_inputs(rows, ids, ranges, tcx, grad)
+    c_rec, _ = compare_backward(c_args, tcx, 256)
+    check(backward_close(c_rec), f"{tag}: backward kernel differs: {c_rec}")
+    blended = blended_pairs(rows, ids, ranges, a_out[2], tcx)
+    runs = {
+        "rasterize_forward": (lambda: rasterize_forward(rows, ids, ranges, tile_count_x=tcx),
+                              lambda: rasterize_forward_torch(rows, ids, ranges,
+                                                              tile_count_x=tcx),
+                              RASTERIZE_FORWARD,
+                              bound(entry_bytes(rows, ids, ranges) + nbytes(*a_out),
+                                    blended * PAIR_FLOPS_MIN),
+                              max(a_rec["image_max_abs"], a_rec["transmittance_max_abs"])),
+        "expand_point_orders": (lambda: fused_point_orders(*b_args, **b_kw),
+                                lambda: make_point_orders(*b_args, **b_kw), EXPAND,
+                                bound(nbytes(*b_args) + b_rec["out_bytes"], 0.0),
+                                b_rec["max_abs"]),
+        "rasterize_backward": (lambda: rasterize_backward(*c_args, tile_count_x=tcx),
+                               lambda: rasterize_backward_torch(*c_args, tile_count_x=tcx),
+                               RASTERIZE_BACKWARD,
+                               bound(entry_bytes(rows, ids, ranges) + nbytes(*c_args[3:])
+                                     + 9 * c_rec["valid_slots"] * 4, blended * PAIR_FLOPS_MIN),
+                               c_rec["max_abs"]),
+    }
+    timings = {}
+    for name, (run, plain, kernel, bnd, err) in runs.items():
+        timings[name] = dict(ms=cuda_ms(run)[0], plain_ms=cuda_ms(plain)[0],
+                             device_ms=kernel_device_ms(run, kernel)["device_ms"],
+                             bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                             max_abs_err=err, kernel=kernel)
+    rec = dict(slab=list(slab), capacity=capacity, entries=int(ranges[:, 1].max()),
+               blended_pairs=blended, rasterize_forward=a_rec, expand_point_orders=b_rec,
+               rasterize_backward=c_rec,
+               valid_rows=min(slab[1], view.image_height - slab[0]))
+    return rec, timings
+
+
+def phase_parallel(ctx):
+    """Multi-device render and training on torch.distributed: (a) one NCCL
+    rank, (b) the 4K frame in 4 gloo slabs, (c) the (2, 2) sharded step and
+    trainer, then A, B and C on slab 0 and the last slab of the step."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch import train as TT
+    from gausplat_tpu_torch.parallel import make_mesh, render_tile_sharded
+    from gausplat_tpu_torch.parallel.render import _shard_capacity, slab_rows
+    from gausplat_tpu_torch.testing import free_port, spawn_ranks
+
+    dev, arrays = ctx["device"], ctx["arrays"]
+    kernels = all_kernels()
+    result = {}
+
+    # (a) One rank over NCCL: the tile-sharded render of the bench view is
+    # the single render, bit for bit (the shift is 0), and so are its
+    # gradients of mean(image ** 2).
+    view = ctx["views"][0]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1,), ("tiles",))
+        runs = {}
+        for kernel in kernels:
+            kernel.launches = 0
+        for name in ("sharded", "single"):
+            scene = T.GaussianScene.from_numpy(**arrays, device=dev)
+            ref = torch.zeros(scene.point_count, device=dev, requires_grad=True)
+            out = (render_tile_sharded(scene, view, mesh, "tiles", ctx["options"], ref)
+                   if name == "sharded" else T.render(scene, view, ctx["options"], ref))
+            torch.mean(out.colors_rgb_2d ** 2).backward()
+            runs[name] = (out, {n: p.grad for n, p in scene.named_parameters()}, ref.grad)
+            if name == "sharded":
+                nccl_launches = {k.entry: k.launches for k in kernels}
+        (got, got_grads, got_norm), (want, want_grads, want_norm) = runs["sharded"], runs["single"]
+        same = {field: bool(torch.equal(a, b)) for field, a, b in zip(got._fields, got, want)}
+        grads_same = {n: bool(torch.equal(g, want_grads[n])) for n, g in got_grads.items()}
+        grads_same["norm"] = bool(torch.equal(got_norm, want_norm))
+        result["nccl_world_1"] = dict(backend=dist.get_backend(), outputs_bit_identical=same,
+                                      grads_bit_identical=grads_same, launches=nccl_launches)
+        check(all(same.values()), f"one NCCL rank differs from render: {same}")
+        check(all(grads_same.values()), f"one NCCL rank's gradients differ: {grads_same}")
+        del runs, got, want, got_grads, want_grads, got_norm, want_norm, out, scene, ref
+    finally:
+        dist.destroy_process_group()
+
+    # (c)'s single-device reference: the loss and gradients of the 4 orbit
+    # views' mean photometric loss, on the card, before the ranks start.
+    views = ctx["views"][1:]
+    targets = ctx["targets"][1:]
+    scene = T.GaussianScene.from_numpy(**train_start_arrays(arrays), device=dev)
+    single_options = T.calibrate_options(scene, views)
+    # Twice the calibrated budget, so that each of the two slabs gets it whole.
+    step_capacity = 2 * single_options.tile_entry_capacity
+    ref = torch.zeros(scene.point_count, device=dev, requires_grad=True)
+    loss = sum(TT.photometric_loss(T.render(scene, v, single_options, ref).colors_rgb_2d, t)
+               for v, t in zip(views, targets)) / len(views)
+    params = list(scene.named_parameters())
+    *grads, grad_norm = torch.autograd.grad(loss, [p for _, p in params] + [ref])
+    reference = dict(loss=float(loss.detach()), grad_norm=grad_norm.cpu(),
+                     grads={n: g.cpu() for (n, _), g in zip(params, grads)})
+    del loss, grads, grad_norm, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (b) and (c) in four ranks on this card over gloo: NCCL refuses two
+    # ranks on one GPU. The libraries are built (phase env), so no rank builds.
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(reference, pathlib.Path(tmp) / "reference.pt")
+        emit("parallel_ranks_start", 0.0, ranks=4, backend="gloo", device="cuda:0")
+        start = time.perf_counter()
+        spec = dict(device=str(dev), bench_capacity=ctx["capacity"],
+                    step_capacity=step_capacity)
+        spawn_ranks(parallel_worker, 4, tmp, spec,
+                    backend="gloo", timeout_s=600.0)
+        spawn_seconds = time.perf_counter() - start
+        ranks = [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(4)]
+    digests = {r["fit"]["digest"] for r in ranks}
+    check(len(digests) == 1, f"the ranks' scenes differ after the densify event: {digests}")
+    check(all(r["backend"] == "gloo" for r in ranks), "a rank is not on gloo")
+    launches = {k.entry: nccl_launches[k.entry] + sum(r["launches"][k.entry] for r in ranks)
+                for k in kernels}
+    path = ("gs_expand_point_orders", "gs_rasterize_forward", "gs_rasterize_backward")
+    check(all(launches[k] > 0 for k in path), f"a kernel of the parallel path never ran: "
+          f"{launches}")
+
+    # A, B and C on slab 0 and on the last slab (its rows past 1080 padded)
+    # of the step's first view, alone on the card.
+    h_local, h_pad = slab_rows(views[0].image_height, STEP_MESH[1])
+    capacity = _shard_capacity(step_capacity, STEP_MESH[1], 256)
+    slabs = {}
+    for tag, index in (("slab0", 0), ("last_slab", STEP_MESH[1] - 1)):
+        rec, timings = slab_kernel_records(scene, views[0], (index * h_local, h_local),
+                                           capacity, dev, tag)
+        slabs[tag] = rec
+        for name, t in timings.items():
+            kernel = t.pop("kernel")
+            ctx["kernels"].append(dict(
+                name=f"{name}@{tag}", route="cuda",
+                source=f"gausplat_tpu_torch/csrc/{kernel.source.name}",
+                replaces=dict(rasterize_forward="gausplat_tpu/ops/rasterize.py:409",
+                              expand_point_orders="gausplat_tpu/ops/expand.py:121",
+                              rasterize_backward="gausplat_tpu/ops/rasterize.py:604")[name],
+                path=(f"parallel: {tag} ({index * h_local}-{(index + 1) * h_local - 1} of "
+                      f"{h_pad} rows) of the (2, 2) sharded step, 1920 x {h_local}"),
+                launches=launches[kernel.entry], library_ms=None, **t))
+
+    rank0 = ranks[0]
+    return dict(
+        card=ctx["card"], backend_ranks="gloo",
+        **result, mesh4k=rank0["mesh4k"], step=rank0["step"], fit=rank0["fit"],
+        bins=[r["bins"] for r in ranks], slab_watermarks=[r["slab_watermark"] for r in ranks],
+        slab_capacity=rank0["slab_capacity"],
+        step_watermarks=[r["step_watermark"] for r in ranks],
+        step_slab_capacity=rank0["step_slab_capacity"], launches=launches,
+        rank_wall_seconds=[r["wall_seconds"] for r in ranks],
+        rank_render_4k_seconds=[r["render_4k_seconds"] for r in ranks],
+        rank_step_gradients_seconds=[r["step_gradients_seconds"] for r in ranks],
+        rank_fit_3_steps_seconds=[r["fit_3_steps_seconds"] for r in ranks],
+        wall_note="four processes share one card: these are not scaling numbers",
+        spawn_seconds=spawn_seconds, slabs=slabs,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1445,7 +1875,8 @@ def main() -> int:
               ("fixture", phase_fixture), ("main_path", phase_main_path),
               ("rasterize_backward", phase_rasterize_backward),
               ("adversarial", phase_adversarial), ("grad", phase_grad),
-              ("train", phase_train), ("colmap_bf16", phase_colmap_bf16)]
+              ("train", phase_train), ("colmap_bf16", phase_colmap_bf16),
+              ("parallel", phase_parallel)]
     for name, phase in phases:
         start = time.perf_counter()
         if name == "expand":

@@ -9,10 +9,11 @@ is found under the same name. Ported so far: projection, binning, the
 rasterizer forward and backward, the differentiable render with its
 densification signal in both entry layouts (f32 and packed bf16 pairs),
 training (losses, Adam, densify, trainer, checkpoints), the point cloud
-with ``GaussianScene.from_points``, and the COLMAP loader.
+with ``GaussianScene.from_points``, the COLMAP loader, and multi-device
+render and training on ``torch.distributed`` (:mod:`.parallel`).
 """
 
-from . import constants, errors, ops, scene, train, utils
+from . import constants, errors, ops, parallel, scene, train, utils
 from .constants import SH_COUNT_MAX, SH_DEGREE_MAX
 from .render.pipeline import (
     calibrate_options,
@@ -45,6 +46,7 @@ __all__ = [
     "encode_polygon",
     "errors",
     "ops",
+    "parallel",
     "render",
     "render_views",
     "scene",

@@ -53,6 +53,13 @@ class Camera:
     view_position: torch.Tensor  # [3]
     view_rotation: torch.Tensor  # [3, 3] row-major operator: p_v = R @ p + t
     view_translation: torch.Tensor  # [3]
+    #: Optional [2] screen-space origin shift (tile sharding: the slab's
+    #: pixel offset), subtracted from the full-frame ``pos2d``. An integer
+    #: pixel offset subtracts exactly in f32, so a slab render is bitwise
+    #: the matching rows of the full frame wherever the result is exact;
+    #: shifting the principal point instead would re-associate the sum and
+    #: move borderline Gaussians across tiles.
+    pos2d_shift: Optional[torch.Tensor] = None
 
     @classmethod
     def from_view(cls, view, *, device) -> "Camera":
@@ -97,6 +104,26 @@ class ProjectionOutput(NamedTuple):
     tile_counts: torch.Tensor  # [P] int32 touched-tile counts (0 if culled)
     visible: torch.Tensor  # [P] bool
 
+    # Array-of-structures views ([P, k]), for tests and small scenes; the
+    # pipeline reads the components.
+    @property
+    def colors_rgb_3d(self) -> torch.Tensor:
+        return torch.stack([self.color_r, self.color_g, self.color_b], -1)
+
+    @property
+    def conics(self) -> torch.Tensor:
+        return torch.stack([self.conic_xx, self.conic_xy, self.conic_yy], -1)
+
+    @property
+    def positions_2d(self) -> torch.Tensor:
+        return torch.stack([self.pos2d_x, self.pos2d_y], -1)
+
+    @property
+    def tile_bounds(self) -> torch.Tensor:
+        return torch.stack(
+            [self.tile_x_max, self.tile_x_min, self.tile_y_max, self.tile_y_min], -1
+        )
+
 
 def quat_to_rotmat_components(qx, qy, qz, qw):
     """Normalized quaternion components -> the 9 rotation-matrix entries
@@ -108,6 +135,14 @@ def quat_to_rotmat_components(qx, qy, qz, qw):
         2.0 * (0.5 - yy - zz), 2.0 * (xy - wz), 2.0 * (xz + wy),
         2.0 * (xy + wz), 2.0 * (0.5 - xx - zz), 2.0 * (yz - wx),
         2.0 * (xz - wy), 2.0 * (yz + wx), 2.0 * (0.5 - xx - yy),
+    )
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Normalized quaternion (x, y, z, w) [..., 4] -> rotation [..., 3, 3]."""
+    r = quat_to_rotmat_components(q[..., 0], q[..., 1], q[..., 2], q[..., 3])
+    return torch.stack(
+        [torch.stack(r[0:3], -1), torch.stack(r[3:6], -1), torch.stack(r[6:9], -1)], dim=-2
     )
 
 
@@ -227,6 +262,10 @@ def project_gaussians(
     norm_y = pv_y / depth_safe
     pos2d_x = norm_x * fx + camera.image_size_half[0] - 0.5
     pos2d_y = norm_y * fy + camera.image_size_half[1] - 0.5
+    if camera.pos2d_shift is not None:
+        # Slab-local coordinates (tile sharding); see Camera.pos2d_shift.
+        pos2d_x = pos2d_x - camera.pos2d_shift[0]
+        pos2d_y = pos2d_y - camera.pos2d_shift[1]
 
     # EWA: T = J @ Rv with clamped normalized coords (:214-241).
     fz_x = fx / depth_safe

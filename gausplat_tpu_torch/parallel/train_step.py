@@ -1,0 +1,289 @@
+"""The sharded training step: data parallelism by tile sharding on a mesh.
+
+Counterpart of ``gausplat_tpu/parallel/train_step.py``. One step over a
+2-D mesh ``(data, tiles)``, run by every rank on the same scene, views and
+targets:
+
+- the scene and the Adam state are replicated: every rank applies the same
+  update;
+- the views are split over ``data`` (each rank trains on ``V / D_data`` of
+  them) and each view's frame over ``tiles`` by rows (the slab's camera
+  shifted by its first row, as in :func:`.render.render_tile_sharded`);
+- the objective is L1 + D-SSIM; the 11x11 SSIM window needs 5 rows past
+  each slab's edge, which neighbouring slabs exchange
+  (:func:`._collectives.halo_extend`; zeros at the frame's borders, as the
+  single device's SAME padding gives);
+- rows past the image's height (the last slab's padding) are masked out of
+  both terms, so a height that does not split evenly trains as one device;
+- the gradients are all-reduced over both axes before the update;
+- the densify statistics accumulate as the single-device ``Trainer``'s do,
+  and the step returns the entry total's high-water mark over views and
+  slabs, so the host can grow the per-slab capacity at its own cadence.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..constants import SH_DEGREE_MAX
+from ..render.pipeline import RenderOptions, _capacity, _render_core, _use_kernels
+from ..scene.gaussian_3d import PARAM_DIMS, GaussianScene
+from ..train.densify import DensifyState, densify_and_prune, reset_opacity, zero_densify_acc
+from ..train.losses import ssim_map
+from ..train.optimizer import OptimizerConfig, make_optimizer, seed_count
+from ._collectives import MAX, all_reduce, all_reduce_each, halo_extend
+from .mesh import Mesh
+from .render import _shard_capacity, camera_at, camera_count, slab_rows
+
+#: Rows of cross-slab context the 11x11 SSIM window needs.
+_HALO = 5
+
+FIELDS = tuple(PARAM_DIMS)
+
+
+class ShardedStep:
+    """One sharded step, built by :func:`make_sharded_train_step`; call it
+    as ``step(scene, opt_state, densify_acc, cameras, targets)``."""
+
+    def __init__(self, mesh: Mesh, image_width: int, image_height: int, point_count: int,
+                 options: RenderOptions, optimizer, data_axis: str, tile_axis: str,
+                 ssim_weight: float):
+        self.mesh, self.optimizer, self.options = mesh, optimizer, options
+        self.width, self.height, self.point_count = image_width, image_height, point_count
+        self.data_axis, self.tile_axis, self.ssim_weight = data_axis, tile_axis, ssim_weight
+        self.h_local, self.h_pad = slab_rows(image_height, mesh.shape[tile_axis])
+        self.capacity = _shard_capacity(_capacity(point_count, options),
+                                        mesh.shape[tile_axis], options.block_size)
+
+    def loss_and_grads(self, scene: GaussianScene, cameras, targets) -> dict:
+        """The step without its update: ``loss`` (the whole batch's), the
+        five parameters' gradients ``grads`` summed over both axes,
+        ``grad_norm`` (each point's densification norm summed over the
+        views), ``radii`` ``[V_local, P]`` (maxed over the slabs) and
+        ``max_total`` (the entry total's max over views and slabs), all
+        the same on every rank."""
+        mesh, h_local, ssim_weight = self.mesh, self.h_local, self.ssim_weight
+        d_tiles, d_data = mesh.shape[self.tile_axis], mesh.shape[self.data_axis]
+        tiles, data = mesh.groups[self.tile_axis], mesh.groups[self.data_axis]
+        device = scene.device
+        y0 = mesh.coords[self.tile_axis] * h_local
+        if camera_count(cameras) % d_data:
+            raise ValueError(f"{camera_count(cameras)} views do not split over {d_data} ranks")
+        v_local = camera_count(cameras) // d_data
+        first = mesh.coords[self.data_axis] * v_local
+        shift = torch.tensor([0.0, float(y0)], device=device)
+        # Rows that exist in the true image (the slab padding off).
+        row_valid = (y0 + torch.arange(h_local, device=device) < self.height).to(
+            torch.float32)[None, :, None, None]
+        tgt = torch.as_tensor(targets, dtype=torch.float32, device=device)
+        tgt = tgt[first:first + v_local, y0:y0 + h_local] * row_valid
+
+        params = [getattr(scene, f) for f in FIELDS]
+        ref = torch.zeros((self.point_count,), dtype=torch.float32, device=device,
+                          requires_grad=True)
+        use_kernels = _use_kernels(self.options, device)
+        outs = [
+            _render_core(params, ref, camera_at(cameras, first + i, shift), self.width,
+                         h_local, self.capacity, self.options, use_kernels,
+                         grad_norm_half=(self.width / 2.0, self.height / 2.0),
+                         sum_over_tiles=lambda x: all_reduce(x, tiles))
+            for i in range(v_local)
+        ]
+        rendered = torch.stack([o.colors_rgb_2d for o in outs]) * row_valid
+        l1_sum = torch.sum(torch.abs(rendered - tgt))
+        ssim_sum = torch.zeros((), device=device)
+        if ssim_weight != 0.0:
+            ext_r = halo_extend(rendered, tiles, _HALO)
+            ext_t = halo_extend(tgt, tiles, _HALO)
+            smap = torch.stack([ssim_map(a, b) for a, b in zip(ext_r, ext_t)])
+            ssim_sum = torch.sum(smap[:, _HALO:_HALO + h_local] * row_valid)
+        # Pixel sums become whole-frame means only summed over the ranks;
+        # the normalisation is folded in so the gradient is of the true loss.
+        scale = 1.0 / (float(self.height * self.width * 3) * v_local * d_data)
+        local_loss = (1.0 - ssim_weight) * l1_sum * scale + ssim_weight * (
+            1.0 / (d_tiles * d_data)  # each rank's share of the constant 1
+            - ssim_sum * scale
+        )
+        *grads, grad_norm = torch.autograd.grad(local_loss, params + [ref],
+                                                materialize_grads=True)
+        # Over both axes, as one all-reduce of the mesh's group.
+        *grads, loss = all_reduce_each(grads + [local_loss.detach()], mesh.group)
+        max_total = torch.stack([o.tile_point_total for o in outs]).amax()
+        # The ref's gradient is each local view's whole-frame norm (the
+        # render core summed the position gradients over the slabs), so it
+        # sums over the data axis alone. A point's radius in a view is the
+        # max over the slabs.
+        return dict(loss=loss, grads=dict(zip(FIELDS, grads)),
+                    grad_norm=all_reduce(grad_norm, data),
+                    radii=all_reduce(torch.stack([o.radii for o in outs]), tiles, MAX),
+                    max_total=all_reduce(max_total, mesh.group, MAX))
+
+    def __call__(self, scene: GaussianScene, opt_state, densify_acc, cameras, targets):
+        data = self.mesh.groups[self.data_axis]
+        r = self.loss_and_grads(scene, cameras, targets)
+        updates, opt_state = self.optimizer.update(r["grads"], opt_state)
+        with torch.no_grad():
+            for f in FIELDS:
+                getattr(scene, f).add_(updates[f])
+        # A point is visible in a view where any slab saw it.
+        radii = r["radii"]
+        visible = all_reduce((radii > 0).sum(0, dtype=torch.int32), data)
+        max_radii = all_reduce(radii.amax(0), data, MAX)
+        densify_acc = {
+            "grad_norm_sum": densify_acc["grad_norm_sum"] + r["grad_norm"],
+            "visible_count": densify_acc["visible_count"] + visible,
+            "max_radii": torch.maximum(densify_acc["max_radii"], max_radii),
+        }
+        return scene, opt_state, densify_acc, {"loss": r["loss"],
+                                               "tile_point_total": r["max_total"]}
+
+
+def make_sharded_train_step(
+    mesh: Mesh,
+    image_width: int,
+    image_height: int,
+    point_count: int,
+    options: RenderOptions = RenderOptions(),
+    optimizer_config: OptimizerConfig = OptimizerConfig(),
+    data_axis: str = "data",
+    tile_axis: str = "tiles",
+    ssim_weight: float = 0.2,
+):
+    """Build ``(step, optimizer, h_pad)``. ``step(scene, opt_state,
+    densify_acc, cameras, targets) -> (scene, opt_state, densify_acc,
+    metrics)``, with ``cameras`` a stacked :class:`Camera` ``[V, ...]``
+    (``stack_cameras``; V a multiple of the data axis' size) and
+    ``targets`` ``[V, h_pad, W, 3]`` (rows padded to whole slabs; the pad
+    rows' values are ignored), the same on every rank. The scene's
+    parameters are updated in place and the scene returned. ``metrics``:
+    ``{"loss", "tile_point_total"}`` as 0-d tensors. ``densify_acc``
+    accumulates as the single-device ``Trainer``'s, summed over the views.
+    ``step.loss_and_grads`` is the step without its update
+    (:meth:`ShardedStep.loss_and_grads`).
+    """
+    step = ShardedStep(mesh, image_width, image_height, point_count, options,
+                       make_optimizer(optimizer_config), data_axis, tile_axis, ssim_weight)
+    return step, step.optimizer, step.h_pad
+
+
+class ShardedTrainer:
+    """Host-side orchestration of the sharded step and density control:
+    the mesh's counterpart of :class:`gausplat_tpu_torch.train.Trainer`.
+
+    Every rank runs it on the same scene, views and targets, and takes the
+    same host decisions on statistics that the collectives made identical
+    bit for bit, so a densify event reshapes every rank's replicated scene
+    alike (``densify_and_prune`` draws from ``default_rng(seed + P)``). The
+    optimizer state starts afresh when the point count changes; the
+    overflow watermark is read at ``overflow_check_interval``.
+    """
+
+    def __init__(
+        self,
+        scene: GaussianScene,
+        mesh: Mesh,
+        image_width: int,
+        image_height: int,
+        config=None,
+        data_axis: str = "data",
+        tile_axis: str = "tiles",
+    ):
+        from ..train.trainer import TrainConfig
+
+        self.scene = scene
+        self.mesh = mesh
+        self.config = config if config is not None else TrainConfig()
+        self.image_width = image_width
+        self.image_height = image_height
+        self.data_axis = data_axis
+        self.tile_axis = tile_axis
+        self.step_count = 0
+        self.device = scene.device
+        self._densify_acc = zero_densify_acc(scene.point_count, self.device)
+        self._opt_state = None
+        self._opt_point_count = -1
+        self._entry_capacity = _capacity(scene.point_count, self.config.render)
+        # Running on-device max of tile_point_total since the last check.
+        self._entry_watermark = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.h_pad = slab_rows(image_height, mesh.shape[tile_axis])[1]
+
+    def _sh_degree(self) -> int:
+        """SH warm-up schedule, as ``Trainer._sh_degree``."""
+        warm = self.step_count // max(self.config.sh_warmup_interval, 1)
+        return min(min(warm, SH_DEGREE_MAX), self.config.render.colors_sh_degree_max)
+
+    def _get_step(self):
+        options = dataclasses.replace(
+            self.config.render,
+            tile_entry_capacity=self._entry_capacity,
+            colors_sh_degree_max=self._sh_degree(),
+        )
+        step, optimizer, _ = make_sharded_train_step(
+            self.mesh, self.image_width, self.image_height, self.scene.point_count,
+            options, self.config.optimizer, self.data_axis, self.tile_axis,
+            self.config.ssim_weight,
+        )
+        return step, optimizer
+
+    def pad_targets(self, targets) -> torch.Tensor:
+        """``[V, H, W, 3]`` -> ``[V, h_pad, W, 3]`` on the scene's device
+        (zero rows; their values are ignored)."""
+        t = torch.as_tensor(targets, dtype=torch.float32, device=self.device)
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, self.h_pad - t.shape[1]))
+
+    def train_step(self, cameras, targets_padded) -> dict:
+        """One optimisation step on the view batch. Returns the metrics as
+        0-d tensors (no wait for the device), with the densify stats where
+        a densify ran."""
+        step, optimizer = self._get_step()
+        if self._opt_point_count != self.scene.point_count:
+            self._opt_state = seed_count(optimizer.init(self.scene), self.step_count)
+            self._opt_point_count = self.scene.point_count
+            self._densify_acc = zero_densify_acc(self.scene.point_count, self.device)
+        self.scene, self._opt_state, self._densify_acc, metrics = step(
+            self.scene, self._opt_state, self._densify_acc, cameras, targets_padded)
+        self.step_count += 1
+        self._entry_watermark = torch.maximum(self._entry_watermark,
+                                              metrics["tile_point_total"])
+        stats = self._host_events()
+        return {**metrics, **stats} if stats else metrics
+
+    def _host_events(self) -> dict:
+        """Densify, opacity reset and the overflow watch at ``step_count``,
+        on ``Trainer._host_events``' schedule."""
+        c = self.config
+        stats = {}
+        check_overflow = self.step_count % c.overflow_check_interval == 0
+        watermark_scale = 1.0
+        if c.densify_from <= self.step_count < c.densify_until:
+            if self.step_count % c.densify_interval == 0:
+                old_count = self.scene.point_count
+                state = DensifyState(**self._densify_acc)
+                self.scene, _, stats = densify_and_prune(self.scene, state, c.densify)
+                self._densify_acc = zero_densify_acc(self.scene.point_count, self.device)
+                # Check the capacity now, with the watermark scaled by the growth.
+                check_overflow = True
+                watermark_scale = self.scene.point_count / max(old_count, 1)
+            if self.step_count % c.opacity_reset_interval == 0:
+                self.scene = reset_opacity(self.scene, c.densify)
+        if check_overflow:
+            # The per-slab capacity is the global one over d_tiles, so the
+            # slab watermark times d_tiles is held to the global budget.
+            total = int(int(self._entry_watermark) * self.mesh.shape[self.tile_axis]
+                        * watermark_scale)
+            if total > c.capacity_grow_at * self._entry_capacity:
+                b = c.render.block_size
+                new_cap = int(total * c.capacity_grow_factor)
+                self._entry_capacity = max((new_cap + b - 1) // b * b, self._entry_capacity)
+            self._entry_watermark = torch.zeros((), dtype=torch.int32, device=self.device)
+        return stats
+
+    def fit(self, cameras, targets, iterations: int) -> list:
+        """``iterations`` steps on the fixed view batch; the metric history
+        as host floats, read once at the end."""
+        padded = self.pad_targets(targets)
+        history = [self.train_step(cameras, padded) for _ in range(iterations)]
+        return [{k: (float(v) if isinstance(v, torch.Tensor) and v.dim() == 0 else v)
+                 for k, v in h.items()} for h in history]

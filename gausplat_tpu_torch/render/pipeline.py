@@ -30,7 +30,7 @@ straight through the rounding, as the JAX package's custom VJP gives it.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -61,7 +61,7 @@ from ..ops.rasterize import (
     untile_image,
     untile_map,
 )
-from ..scene.gaussian_3d import GaussianScene
+from ..scene.gaussian_3d import PARAM_DIMS, GaussianScene
 from .view import View
 
 BACKENDS = ("cuda", "torch", "auto")
@@ -202,7 +202,14 @@ def reduce_entry_grads(
 
 
 class _Frame(NamedTuple):
-    """What the rasterizer's backward needs beside the saved tensors."""
+    """What the rasterizer's backward needs beside the saved tensors.
+
+    ``sum_over_tiles``: where the frame is one slab of a tile-sharded
+    frame, a function that sums a tensor over the slabs (an all-reduce over
+    the tile axis); the backward sums the screen-position gradients with it
+    before the densification norm, so a point that spans slabs gets the
+    norm of the whole frame. ``None`` for a whole frame.
+    """
 
     tile_count_x: int
     tile_count_y: int
@@ -212,20 +219,23 @@ class _Frame(NamedTuple):
     block_size: int
     use_kernels: bool
     packed: bool
+    sum_over_tiles: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
 
 class RasterizeFunction(torch.autograd.Function):
     """Rasterize per-point rows into an image, differentiably.
 
     ``apply(point_rows [9, P + 1], positions_2d_grad_norm_ref [P], binning,
-    image_size_half [2], frame)`` returns ``(image [H, W, 3],
+    grad_norm_half [2], frame)`` returns ``(image [H, W, 3],
     transmittances [H, W], rendered counts [H, W])``; the last two carry no
     gradient. The gradient of ``point_rows`` has a zero pad column; that of
     the ref is the per-point densification signal
     ``|| dL/d pos2d * (W / 2, H / 2) ||`` (transform_backward/kernel.wgsl:
-    364-370). With ``frame.packed`` the rows are packed here and the packed
-    rows are rasterized and saved; the f32 rows' gradient passes straight
-    through the rounding.
+    364-370), with ``grad_norm_half`` the whole frame's half-size and the
+    position gradients summed over the slabs first where
+    ``frame.sum_over_tiles`` is set. With ``frame.packed`` the rows are
+    packed here and the packed rows are rasterized and saved; the f32 rows'
+    gradient passes straight through the rounding.
     """
 
     @staticmethod
@@ -268,8 +278,80 @@ class RasterizeFunction(torch.autograd.Function):
         grad_norm = None
         if ctx.needs_input_grad[1]:
             *_, gx, gy = grad_rows_to_components(d)
+            if frame.sum_over_tiles is not None:
+                gx, gy = frame.sum_over_tiles(torch.stack([gx, gy]))
             grad_norm = torch.sqrt((gx * half[0]) ** 2 + (gy * half[1]) ** 2)
         return d_rows, grad_norm, None, None, None
+
+
+def _render_core(
+    params: Sequence[torch.Tensor],
+    positions_2d_grad_norm_ref: torch.Tensor,
+    camera: Camera,
+    width: int,
+    height: int,
+    capacity: int,
+    options: RenderOptions,
+    use_kernels: bool,
+    grad_norm_half: Optional[tuple] = None,
+    sum_over_tiles: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> RenderOutput:
+    """One differentiable render of a ``width`` x ``height`` frame, the
+    counterpart of the JAX package's ``_build_render_fn``; :func:`render`
+    and :mod:`gausplat_tpu_torch.parallel` both call it.
+
+    ``params``: the five inner parameters in ``PARAM_DIMS`` order.
+    ``capacity``: the entry buffer's size. ``grad_norm_half``: the
+    (half width, half height) of the densification norm, where the frame
+    is a slab of a larger one (default: the camera's). ``sum_over_tiles``:
+    see :class:`_Frame`.
+    """
+    colors_sh, opacities, positions, rotations, scalings = params
+    tile_count_x = -(-width // TILE_SIZE_X)
+    tile_count_y = -(-height // TILE_SIZE_Y)
+    proj = project_gaussians(
+        colors_sh,
+        positions,
+        rotations,
+        scalings,
+        camera,
+        sh_degree=options.colors_sh_degree_max,
+        tile_count_x=tile_count_x,
+        tile_count_y=tile_count_y,
+        opacities=opacities,
+        tight_culling=options.tight_culling,
+    )
+    binning = bin_gaussians(
+        proj.depths.detach(),
+        proj.tile_x_max,
+        proj.tile_x_min,
+        proj.tile_y_min,
+        proj.tile_counts,
+        tile_count_x=tile_count_x,
+        tile_count_y=tile_count_y,
+        capacity=capacity,
+        expand=fused_point_orders if use_kernels else make_point_orders,
+    )
+    point_rows = pack_point_data(proj, torch.sigmoid(opacities[:, 0]))
+    half = camera.image_size_half if grad_norm_half is None else torch.tensor(
+        grad_norm_half, dtype=torch.float32, device=positions.device)
+    frame = _Frame(tile_count_x, tile_count_y, width, height, capacity, options.block_size,
+                   use_kernels, options.entry_dtype == "bf16", sum_over_tiles)
+    image, trans, counts = RasterizeFunction.apply(
+        point_rows, positions_2d_grad_norm_ref, binning, half, frame
+    )
+    return RenderOutput(
+        colors_rgb_2d=image,
+        radii=proj.radii,
+        tile_point_total=binning.total,
+        transmittances=trans,
+        point_rendered_counts=counts,
+    )
+
+
+def scene_params(scene: GaussianScene) -> tuple:
+    """The scene's five inner parameters in ``PARAM_DIMS`` order."""
+    return tuple(getattr(scene, name) for name in PARAM_DIMS)
 
 
 def render(
@@ -294,51 +376,14 @@ def render(
     """
     device = _scene_device(scene, device)
     point_count = _validate(scene, view.image_width, view.image_height, options)
-    use_kernels = _use_kernels(options, device)
-    capacity = _capacity(point_count, options)
-    tile_count_x = -(-view.image_width // TILE_SIZE_X)
-    tile_count_y = -(-view.image_height // TILE_SIZE_Y)
-    camera = Camera.from_view(view, device=device)
-
-    proj = project_gaussians(
-        scene.colors_sh,
-        scene.positions,
-        scene.rotations,
-        scene.scalings,
-        camera,
-        sh_degree=options.colors_sh_degree_max,
-        tile_count_x=tile_count_x,
-        tile_count_y=tile_count_y,
-        opacities=scene.opacities,
-        tight_culling=options.tight_culling,
-    )
-    binning = bin_gaussians(
-        proj.depths.detach(),
-        proj.tile_x_max,
-        proj.tile_x_min,
-        proj.tile_y_min,
-        proj.tile_counts,
-        tile_count_x=tile_count_x,
-        tile_count_y=tile_count_y,
-        capacity=capacity,
-        expand=fused_point_orders if use_kernels else make_point_orders,
-    )
-    point_rows = pack_point_data(proj, torch.sigmoid(scene.opacities[:, 0]))
     if positions_2d_grad_norm_ref is None:
         positions_2d_grad_norm_ref = torch.zeros(
             (point_count,), dtype=torch.float32, device=device
         )
-    frame = _Frame(tile_count_x, tile_count_y, view.image_width, view.image_height,
-                   capacity, options.block_size, use_kernels, options.entry_dtype == "bf16")
-    image, trans, counts = RasterizeFunction.apply(
-        point_rows, positions_2d_grad_norm_ref, binning, camera.image_size_half, frame
-    )
-    return RenderOutput(
-        colors_rgb_2d=image,
-        radii=proj.radii,
-        tile_point_total=binning.total,
-        transmittances=trans,
-        point_rendered_counts=counts,
+    return _render_core(
+        scene_params(scene), positions_2d_grad_norm_ref, Camera.from_view(view, device=device),
+        view.image_width, view.image_height, _capacity(point_count, options), options,
+        _use_kernels(options, device),
     )
 
 
@@ -347,11 +392,19 @@ def render_views(
     views: Sequence[View],
     options: RenderOptions = RenderOptions(),
     *,
+    mode: str = "vmap",
     device=None,
 ) -> RenderOutput:
-    """Render one scene from same-resolution views, one after another.
-    Returns a :class:`RenderOutput` whose fields carry a leading view axis
-    ``[V, ...]``."""
+    """Render one scene from same-resolution views. Returns a
+    :class:`RenderOutput` whose fields carry a leading view axis ``[V, ...]``.
+
+    ``mode``, as the JAX package's:
+    - ``"vmap"``: every view's outputs stay in flight until all are
+      stacked;
+    - ``"map"``: one view at a time, each copied into the stacked outputs
+      as it finishes, so one view's outputs live beside the stack.
+    Both give the same values, and both are differentiable.
+    """
     views = list(views)
     if not views:
         raise ValueError("render_views needs at least one view")
@@ -360,8 +413,19 @@ def render_views(
         if (v.image_width, v.image_height) != (w, h):
             # Stacked outputs need one resolution.
             raise InvalidPixelCountError(v.image_width * v.image_height)
-    outs = [render(scene, v, options, device=device) for v in views]
-    return RenderOutput(*(torch.stack(field) for field in zip(*outs)))
+    if mode not in ("vmap", "map"):
+        raise ValueError(f"mode must be 'vmap' or 'map', got {mode!r}")
+    if mode == "vmap":
+        outs = [render(scene, v, options, device=device) for v in views]
+        return RenderOutput(*(torch.stack(field) for field in zip(*outs)))
+    stacked = None
+    for i, v in enumerate(views):
+        out = render(scene, v, options, device=device)
+        if stacked is None:
+            stacked = RenderOutput(*(f.new_empty((len(views),) + f.shape) for f in out))
+        for dst, src in zip(stacked, out):
+            dst[i] = src
+    return stacked
 
 
 @torch.no_grad()

@@ -184,20 +184,19 @@ class GaussianScene(nn.Module):
     # -- outer property getters (property.rs:61-93) ----------------------------
 
     def get_colors_sh(self) -> torch.Tensor:
-        return self.colors_sh
+        return make_colors_sh(self.colors_sh)
 
     def get_opacities(self) -> torch.Tensor:
-        return torch.sigmoid(self.opacities)
+        return make_opacities(self.opacities)
 
     def get_positions(self) -> torch.Tensor:
-        return self.positions
+        return make_positions(self.positions)
 
     def get_rotations(self) -> torch.Tensor:
-        norm = torch.sqrt(torch.sum(self.rotations**2, dim=-1, keepdim=True))
-        return self.rotations / norm
+        return make_rotations(self.rotations)
 
     def get_scalings(self) -> torch.Tensor:
-        return torch.exp(self.scalings)
+        return make_scalings(self.scalings)
 
     # -- outer property setters (property.rs:96-137) ---------------------------
     #
@@ -220,8 +219,7 @@ class GaussianScene(nn.Module):
         return self._with(colors_sh=self._outer(value))
 
     def set_opacities(self, value) -> "GaussianScene":
-        v = self._outer(value)
-        return self._with(opacities=torch.log(v / (1.0 - v)))
+        return self._with(opacities=make_inner_opacities(self._outer(value)))
 
     def set_positions(self, value) -> "GaussianScene":
         return self._with(positions=self._outer(value))
@@ -230,4 +228,58 @@ class GaussianScene(nn.Module):
         return self._with(rotations=self._outer(value))
 
     def set_scalings(self, value) -> "GaussianScene":
-        return self._with(scalings=torch.log(self._outer(value)))
+        return self._with(scalings=make_inner_scalings(self._outer(value)))
+
+
+# --- inner <-> outer transforms (property.rs) ---------------------------------
+#
+# ``make_*`` map an inner (optimisable) parameter to its outer value,
+# ``make_inner_*`` the outer value back. An array-like that is not a tensor
+# becomes a float32 tensor, as ``jnp.asarray`` keeps a float32 array.
+
+
+def _tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        np.asarray(x, np.float32))
+
+
+def make_colors_sh(colors_sh):
+    return colors_sh
+
+
+def make_opacities(opacities):
+    return torch.sigmoid(opacities)
+
+
+def make_positions(positions):
+    return positions
+
+
+def make_rotations(rotations):
+    norm = torch.sqrt(torch.sum(rotations**2, dim=-1, keepdim=True))
+    return rotations / norm
+
+
+def make_scalings(scalings):
+    return torch.exp(scalings)
+
+
+def make_inner_colors_sh(colors_sh):
+    return _tensor(colors_sh)
+
+
+def make_inner_opacities(opacities):
+    opacities = _tensor(opacities)
+    return torch.log(opacities / (1.0 - opacities))
+
+
+def make_inner_positions(positions):
+    return _tensor(positions)
+
+
+def make_inner_rotations(rotations):
+    return _tensor(rotations)
+
+
+def make_inner_scalings(scalings):
+    return torch.log(_tensor(scalings))

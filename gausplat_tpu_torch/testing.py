@@ -225,3 +225,160 @@ def assert_packed_grads_close(got, want, atol: float) -> dict:
     if not all(e <= atol for e in rec["row_scaled_err"]):
         raise AssertionError(f"packed gradient rows differ beyond {atol}: {rec}")
     return rec
+
+
+# --- ranks of torch.distributed, spawned -------------------------------------
+
+
+def free_port() -> int:
+    """A TCP port on localhost that was free a moment ago."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, world_size, port, backend, timeout_s, worker, args):
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world_size, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        worker(rank, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(worker, world_size: int, *args, backend: str = "gloo",
+                timeout_s: float = 300.0) -> None:
+    """Run ``worker(rank, *args)`` in ``world_size`` spawned processes that
+    share one default process group (``backend``, over
+    ``tcp://localhost``). ``worker`` must be importable by name, as a
+    spawned child imports it afresh. A rank that raises ends the others,
+    and the exception is raised here (``torch.multiprocessing``'s
+    ``ProcessRaisedException``); a collective that waits longer than
+    ``timeout_s`` fails."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_rank_main, args=(world_size, free_port(), backend, timeout_s, worker, args),
+             nprocs=world_size, join=True)
+
+
+def _numpy(t):
+    return t.detach().cpu().numpy()
+
+
+def _grads(scene, ref) -> dict:
+    out = {f"grad/{name}": _numpy(p.grad) for name, p in scene.named_parameters()}
+    out["grad/norm"] = _numpy(ref.grad)
+    return out
+
+
+def _outputs(prefix: str, out) -> dict:
+    return {f"{prefix}/{field}": _numpy(v) for field, v in zip(out._fields, out)}
+
+
+def parallel_render_worker(rank, out_dir, arrays, views, options, tile_view, tile_options):
+    """A rank of ``tests/test_torch_parallel.py`` on 4 gloo CPU ranks:
+    ``make_mesh``, ``render_data_parallel`` over ``views`` and
+    ``render_tile_sharded`` of ``tile_view``, each with the gradients of
+    ``mean(image ** 2)`` (five parameters and the densification ref), and
+    the single-device ``render`` of the same inputs. Writes
+    ``out_dir/rank{rank}.npz``."""
+    import pathlib
+
+    import torch
+
+    from . import GaussianScene, render, render_views
+    from .parallel import make_mesh, render_data_parallel, render_tile_sharded, stack_cameras
+
+    torch.set_num_threads(1)
+    out = {}
+    mesh = make_mesh((4,), ("data",))
+    out["mesh/data"] = np.array([mesh.shape["data"], mesh.coords["data"]])
+    grid = make_mesh((2, 2), ("data", "tiles"))
+    out["mesh/grid"] = np.array([grid.shape["data"], grid.shape["tiles"],
+                                 grid.coords["data"], grid.coords["tiles"]])
+    try:
+        make_mesh((2, 4), ("data", "tiles"))
+        out["mesh/too_few_raises"] = np.array(False)
+    except ValueError:
+        out["mesh/too_few_raises"] = np.array(True)
+
+    def run(fn):
+        scene = GaussianScene.from_numpy(**arrays, device="cpu")
+        ref = torch.zeros(scene.point_count, requires_grad=True)
+        result = fn(scene, ref)
+        torch.mean(result.colors_rgb_2d ** 2).backward()
+        return result, _grads(scene, ref)
+
+    w, h = views[0].image_width, views[0].image_height
+    cams = stack_cameras(views, device="cpu")
+    got, grads = run(lambda s, r: render_data_parallel(s, cams, w, h, mesh, "data", options, r))
+    out.update(_outputs("data_parallel", got), **{f"data_parallel/{k}": v
+                                                   for k, v in grads.items()})
+    with torch.no_grad():
+        single = render_views(GaussianScene.from_numpy(**arrays, device="cpu"), views, options)
+    out.update(_outputs("data_parallel_single", single))
+
+    tiles = make_mesh((4,), ("tiles",))
+    got, grads = run(lambda s, r: render_tile_sharded(s, tile_view, tiles, "tiles",
+                                                      tile_options, r))
+    out.update(_outputs("tile_sharded", got), **{f"tile_sharded/{k}": v
+                                                  for k, v in grads.items()})
+    single, grads = run(lambda s, r: render(s, tile_view, tile_options, r))
+    out.update(_outputs("tile_sharded_single", single), **{f"tile_sharded_single/{k}": v
+                                                           for k, v in grads.items()})
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+
+
+def sharded_train_worker(rank, out_dir, arrays, views_by_height, targets_by_height, options,
+                         cases, fit):
+    """A rank of ``tests/test_torch_sharded_train.py`` on 4 gloo CPU ranks,
+    a (2, 2) mesh of ``("data", "tiles")``: one ``make_sharded_train_step``
+    step for each ``(name, height, ssim_weight)`` of ``cases`` from the
+    scene ``arrays`` and a fresh Adam state (targets ``[V, H, W, 3]``
+    padded with 7.7, which the step must mask), then
+    ``ShardedTrainer.fit`` with ``fit = (arrays, height, config,
+    iterations)``. Writes ``out_dir/rank{rank}.npz``."""
+    import pathlib
+
+    import torch
+
+    from . import GaussianScene
+    from .parallel import make_mesh, stack_cameras
+    from .parallel.train_step import ShardedTrainer, make_sharded_train_step
+    from .train.densify import zero_densify_acc
+
+    torch.set_num_threads(1)
+    mesh = make_mesh((2, 2), ("data", "tiles"))
+    out = {}
+    for name, height, ssim_weight in cases:
+        scene = GaussianScene.from_numpy(**arrays, device="cpu")
+        views = views_by_height[height]
+        step, optimizer, h_pad = make_sharded_train_step(
+            mesh, views[0].image_width, height, scene.point_count, options,
+            ssim_weight=ssim_weight)
+        targets = np.pad(targets_by_height[height], ((0, 0), (0, h_pad - height), (0, 0), (0, 0)),
+                         constant_values=7.7)
+        scene, _, acc, metrics = step(scene, optimizer.init(scene),
+                                      zero_densify_acc(scene.point_count, "cpu"),
+                                      stack_cameras(views, device="cpu"), targets)
+        out[f"{name}/h_pad"] = np.array(h_pad)
+        out.update({f"{name}/{k}": _numpy(v) for k, v in {**metrics, **acc}.items()})
+        out.update({f"{name}/{k}": _numpy(p) for k, p in scene.named_parameters()})
+
+    fit_arrays, height, config, iterations = fit
+    views = views_by_height[height]
+    trainer = ShardedTrainer(GaussianScene.from_numpy(**fit_arrays, device="cpu"), mesh,
+                             views[0].image_width, height, config)
+    history = trainer.fit(stack_cameras(views, device="cpu"), targets_by_height[height],
+                          iterations)
+    out["fit/loss"] = np.array([h["loss"] for h in history])
+    out["fit/point_count"] = np.array([h.get("point_count", -1) for h in history])
+    out.update({f"fit/{k}": _numpy(p) for k, p in trainer.scene.named_parameters()})
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)

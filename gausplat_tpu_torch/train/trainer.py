@@ -160,14 +160,9 @@ class Trainer:
         out = render(self.scene, view, self._options(), ref)
         loss = photometric_loss(out.colors_rgb_2d, target, self.config.ssim_weight)
         grad_norm = self._apply_gradients(loss, ref)
-        visible = out.radii > 0
-        acc = self._densify_acc
-        self._densify_acc = {
-            "grad_norm_sum": acc["grad_norm_sum"]
-            + torch.where(visible, grad_norm, torch.zeros_like(grad_norm)),
-            "visible_count": acc["visible_count"] + visible.to(torch.int32),
-            "max_radii": torch.maximum(acc["max_radii"], out.radii),
-        }
+        acc = DensifyState(**self._densify_acc)
+        acc.accumulate(grad_norm, out.radii)
+        self._densify_acc = vars(acc)
         metrics = {
             "loss": loss.detach(),
             "psnr": psnr(out.colors_rgb_2d.detach(), target),

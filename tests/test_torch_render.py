@@ -70,6 +70,29 @@ def test_render_views_matches_jax():
     assert_outputs_match(want, got, atol=1e-4)
 
 
+@pytest.mark.parametrize("mode", ["vmap", "map"])
+def test_render_views_modes_match_render_and_jax(mode):
+    """Each mode bit for bit against stacked ``render`` calls (and
+    differentiable), and within 1e-4 of the JAX ``render_views`` in the
+    same mode; any other mode raises ``ValueError`` before any work."""
+    c = SMALL
+    jscene, tscene = scenes(scene_arrays(c["p"]))
+    # The views of test_render_views_matches_jax: one JAX compile serves both.
+    pairs = [views(c["width"], c["height"], position=(x, 0.1, -4.0)) for x in (-0.4, 0.0, 0.5)]
+    opts = _options(T, c, 3, True)
+    got = T.render_views(tscene, [t for _, t in pairs], opts, mode=mode)
+    singles = [T.render(tscene, t, opts) for _, t in pairs]
+    for field, value in zip(got._fields, got):
+        assert torch.equal(value, torch.stack([getattr(o, field) for o in singles])), field
+    torch.sum(got.colors_rgb_2d).backward()
+    assert tscene.positions.grad is not None and bool(tscene.positions.grad.abs().sum() > 0)
+    want = G.render_views(jscene, [j for j, _ in pairs], _options(G, c, 3, True, backend="xla"),
+                          mode=mode)
+    assert_outputs_match(want, got, atol=1e-4)
+    with pytest.raises(ValueError, match="mode"):
+        T.render_views(tscene, [t for _, t in pairs], opts, mode="bogus")
+
+
 def test_calibrate_options_matches_jax():
     c = MEDIUM
     jscene, tscene = scenes(scene_arrays(c["p"]))

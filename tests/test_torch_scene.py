@@ -196,10 +196,31 @@ def test_setters_match_jax_and_copy():
     np.testing.assert_allclose(torch_value.get_scalings().detach().numpy(), 0.5, rtol=1e-6)
 
 
+@pytest.mark.parametrize("name", ["colors_sh", "opacities", "positions", "rotations",
+                                  "scalings"])
+def test_make_transforms_match_jax(name):
+    """The module-level inner <-> outer transforms (``make_*`` and
+    ``make_inner_*``) against JAX's, and each pair round-trips."""
+    from gausplat_tpu.scene import gaussian_3d as jg
+    from gausplat_tpu_torch.scene import gaussian_3d as tg
+
+    inner = scene_arrays(40, seed=4)[name]
+    outer = np.array(getattr(jg, f"make_{name}")(jnp.asarray(inner)))
+    got = getattr(tg, f"make_{name}")(torch.as_tensor(inner))
+    np.testing.assert_allclose(got.numpy(), outer, rtol=1e-6, atol=1e-7)
+    want_inner = np.asarray(getattr(jg, f"make_inner_{name}")(outer))
+    for value in (outer, torch.as_tensor(outer)):  # an array-like, and a tensor
+        back = getattr(tg, f"make_inner_{name}")(value)
+        assert back.dtype == torch.float32
+        np.testing.assert_allclose(back.numpy(), want_inner, rtol=1e-5, atol=1e-6)
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, gausplat_tpu_torch\n"
         "import gausplat_tpu_torch.scene.colmap, gausplat_tpu_torch.examples.train_from_colmap\n"
+        "import gausplat_tpu_torch.parallel, gausplat_tpu_torch.parallel.train_step\n"
+        "import gausplat_tpu_torch.testing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'gausplat_tpu' or m.startswith('gausplat_tpu.')]\n"
         "assert not bad, bad\n"

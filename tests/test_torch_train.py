@@ -146,6 +146,22 @@ def _densify_inputs():
     return a, grad_sum, visible, radii
 
 
+def test_densify_state_accumulate_matches_jax():
+    p = 40
+    rng = np.random.default_rng(8)
+    jstate = GT.DensifyState.zeros(p)
+    tstate = TT.DensifyState.zeros(p, device="cpu")
+    for _ in range(3):
+        grad_norm = rng.uniform(0, 1e-3, p).astype(np.float32)
+        radii = np.where(rng.random(p) < 0.3, 0, rng.integers(1, 30, p)).astype(np.int32)
+        jstate.accumulate(jnp.asarray(grad_norm), jnp.asarray(radii))
+        tstate.accumulate(torch.as_tensor(grad_norm), torch.as_tensor(radii))
+    for field in ("grad_norm_sum", "visible_count", "max_radii"):
+        got, want = getattr(tstate, field).numpy(), getattr(jstate, field)
+        assert got.dtype == want.dtype, field
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0, err_msg=field)
+
+
 @pytest.mark.parametrize("max_screen_radius", [0.0, 20.0])
 def test_densify_and_prune_matches_jax(max_screen_radius):
     a, grad_sum, visible, radii = _densify_inputs()
