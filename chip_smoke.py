@@ -8,7 +8,7 @@ It imports torch, numpy and ``gausplat_tpu_torch`` only (no JAX, and
 nothing of ``tests/``), builds the three hand-written kernel libraries from
 ``gausplat_tpu_torch/csrc`` into ``build/gausplat_tpu_torch/`` (one nvcc
 each, all at once; the rasterize libraries hold an entry point for f32
-rows and one for packed bf16-pair rows), and runs eleven phases, each
+rows and one for packed bf16-pair rows), and runs twelve phases, each
 printing one JSON line:
 
 1. env: versions, the card, the kernel builds and their ptxas reports;
@@ -94,13 +94,36 @@ printing one JSON line:
    processes share one card: not scaling numbers). Then A, B and C on
    slab 0 and on the last slab (its padded rows) of the step's first view,
    against their plain versions and timed beside them.
+12. tools: the user-facing modules. (a) the PLY payload codec on the
+   serving scene through the host C++ library (``utils/native.py``, which
+   must be available) and through numpy (``scene/ply.py``): the same
+   bytes, both decodes bit for bit the scene, seconds per million points
+   each way; then ``encode_polygon`` / ``decode_polygon`` on the card, a
+   bit-for-bit round trip; (b) ``python -m
+   gausplat_tpu_torch.scripts.render_ply`` (its ``main``) on that PLY at
+   1920x1080 on the card: A and B launched once each, and the PNG, read
+   back with the standard library, equal to the u8 pixels of the
+   in-process render of the same ``orbit_view``; (c) ``fit_toy_scene(400)``:
+   losses finite, the last PSNR above the first, the decoded PLY's scene
+   and its render bit for bit the fitted one, A, B and C launched; (d)
+   ``train_long``'s lego recipe for 2,000 steps (losses finite, no step's
+   entries over its capacity, the last 200-step chunk's mean loss below the
+   first's, A, B and C launched), its curve printed beside the JAX
+   package's record ``train_long_r05_lego.json`` (read as data) with the
+   wall ms per step and the peak memory, then A, B and C at its shapes
+   (view 0 of the fitted scene) against their plain versions and timed;
+   (e) one render inside ``profiling.trace`` and two ``profiling.stage``
+   scopes: the Chrome trace must name both stages and the kernels of A
+   and B.
 
 Then it prints the card's name and power limit, one JSON line of
 per-kernel results, every number of which comes from a training path
 (phase 9 for the f32 entry points of A, B and C, phase 10 for the packed
 ``rasterize_forward_bf16`` and ``rasterize_backward_bf16``, phase 11 for
 A, B and C on the slabs, ``<kernel>@slab0`` and ``@last_slab``, whose
-launches are the parallel path's summed over its ranks: their
+launches are the parallel path's summed over its ranks, phase 12 for A, B
+and C at the lego fit's shapes, ``<kernel>@lego_fit``, whose launches are
+its 2,000 steps': their
 launches, and the error, time (``ms``, CUDA events around the wrapper;
 ``device_ms``, its kernels' device time), plain time and bound at the
 step's shapes;
@@ -1860,6 +1883,198 @@ def phase_parallel(ctx):
     )
 
 
+# --- phase 12: the user-facing tools --------------------------------------------
+
+#: The JAX package's record of the same lego recipe (read as data).
+LEGO_RECORD = ROOT / "train_long_r05_lego.json"
+LEGO_STEPS = 2_000
+TOY_STEPS = 400
+
+
+def counted(fn):
+    """Run ``fn`` with every kernel's count set to 0 just before and read
+    just after; returns its result, the launches by entry point and the
+    seconds."""
+    kernels = all_kernels()
+    torch.cuda.synchronize()
+    for kernel in kernels:
+        kernel.launches = 0
+    start = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, {k.entry: k.launches for k in kernels}, time.perf_counter() - start
+
+
+def phase_tools(ctx):
+    """(a) the native PLY codec against numpy on the serving scene, (b)
+    ``render_ply`` at 1080p against the in-process render, (c) the toy fit,
+    (d) 2,000 steps of the lego long fit beside the JAX record, then A, B
+    and C at its shapes, (e) ``profiling.trace`` of one render."""
+    import dataclasses
+    import tempfile
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch.examples.fit_toy_scene import fit_toy_scene
+    from gausplat_tpu_torch.scene import ply
+    from gausplat_tpu_torch.scripts import render_ply as RP
+    from gausplat_tpu_torch.scripts.train_long import long_fit_setup, run_long_fit
+    from gausplat_tpu_torch.utils import native, profiling
+
+    dev, scene = ctx["device"], ctx["scene"]
+    millions = scene.point_count / 1e6
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="gausplat_tools_") as tmp:
+        tmp = pathlib.Path(tmp)
+
+        # (a) The codec: the payload through the C++ library and through
+        # numpy (the same bytes, the arrays bit for bit), then the PLY
+        # round trip through the user's calls (native, as it is available).
+        check(native.available(), "no host C++ compiler: the native codec is unavailable")
+        start = time.perf_counter()
+        native.encode_payload(*(np.zeros((1, w), np.float32) for w in native.WIDTHS))
+        codec = dict(build_or_load_seconds=time.perf_counter() - start)
+        arrays = [getattr(scene, f).detach().cpu().numpy() for f in ply.FIELDS]
+        payloads = {}
+        for name, encode, decode in (
+                ("native", native.encode_payload, native.decode_payload),
+                ("numpy", ply.encode_payload_numpy, ply.decode_payload_numpy)):
+            start = time.perf_counter()
+            payloads[name] = encode(*arrays)
+            encode_s = time.perf_counter() - start
+            start = time.perf_counter()
+            back = decode(payloads[name], scene.point_count)
+            decode_s = time.perf_counter() - start
+            for f, got, want in zip(ply.FIELDS, back, arrays):
+                check(np.array_equal(got.view(np.int32), want.view(np.int32)),
+                      f"{name} decode of {f} is not bit for bit")
+            codec[name] = dict(encode_s_per_million=encode_s / millions,
+                               decode_s_per_million=decode_s / millions)
+        check(payloads["native"] == payloads["numpy"], "the native payload differs from numpy's")
+        start = time.perf_counter()
+        blob = T.encode_polygon(scene)
+        encode_s = time.perf_counter() - start
+        start = time.perf_counter()
+        restored = T.decode_polygon(blob, device=dev)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - start
+        check(blob.endswith(payloads["native"]), "encode_polygon's payload is not the codec's")
+        for f in ply.FIELDS:
+            check(torch.equal(getattr(restored, f).view(torch.int32),
+                              getattr(scene, f).detach().view(torch.int32)),
+                  f"the PLY round trip changed {f}")
+        codec.update(points=scene.point_count, ply_bytes=len(blob),
+                     polygon_encode_s_per_million=encode_s / millions,
+                     polygon_decode_s_per_million=decode_s / millions)
+        out["codec"] = codec
+
+        # (b) render_ply at 1920x1080 on that PLY, A and B launched once each.
+        ply_path, png = tmp / "scene.3dgs.ply", tmp / "out.png"
+        ply_path.write_bytes(blob)
+        argv = [str(ply_path), str(png), "--width", "1920", "--height", "1080", "--device", "cuda"]
+        _, launches, cli_seconds = counted(lambda: RP.main(argv))
+        check(launches["gs_rasterize_forward"] == 1 and launches["gs_expand_point_orders"] == 1
+              and launches["gs_rasterize_backward"] == 0,
+              f"render_ply launched {launches}, not A and B once each")
+        image = RP.decode_png(png.read_bytes())
+        view = RP.orbit_view(restored.positions.detach().cpu().numpy(), 1920, 1080)
+        with torch.no_grad():
+            rendered = T.render(restored, view, T.RenderOptions())
+        want = RP.to_u8(rendered.colors_rgb_2d)
+        check(image.shape == (1080, 1920, 3) and np.array_equal(image, want),
+              "render_ply's PNG differs from the in-process render of its view")
+        out["render_ply"] = dict(seconds=cli_seconds, launches=launches,
+                                 png_bytes=png.stat().st_size,
+                                 tile_point_total=int(rendered.tile_point_total),
+                                 image_mean=float(image.mean()))
+
+        # (c) The toy fit: finite, improving, a lossless PLY round trip.
+        toy, launches, toy_seconds = counted(
+            lambda: fit_toy_scene(TOY_STEPS, device=dev, log=lambda line: None))
+        check(all(math.isfinite(x) for x in toy["losses"]), "toy fit: a non-finite loss")
+        check(toy["last"]["psnr"] > toy["first"]["psnr"], f"toy fit did not improve: {toy}")
+        check(toy["round_trip_identical"], "toy fit: the PLY round trip is not bit for bit")
+        path = ("gs_expand_point_orders", "gs_rasterize_forward", "gs_rasterize_backward")
+        check(all(launches[k] > 0 for k in path), f"toy fit: a kernel never ran: {launches}")
+        out["toy_fit"] = dict(
+            seconds=toy_seconds, launches=launches, first=toy["first"], last=toy["last"],
+            points_start=toy["points_start"], points_end=toy["points_end"],
+            ply_bytes=toy["ply_bytes"], round_trip_psnr=toy["round_trip_psnr"])
+
+        # (d) The lego recipe for 2,000 steps beside the JAX record.
+        start = time.perf_counter()
+        setup = long_fit_setup(True, True, dev, iterations=LEGO_STEPS)
+        setup_seconds = time.perf_counter() - start
+        fit, launches, lego_seconds = counted(lambda: run_long_fit(
+            setup, LEGO_STEPS, tmp / "lego.json", log=lambda line: None))
+        records = fit["run"]["records"]
+        check(all(math.isfinite(r["loss"]) and math.isfinite(r["mean_loss"]) for r in records),
+              "lego fit: a non-finite loss")
+        check(records[-1]["mean_loss"] < records[0]["mean_loss"],
+              "lego fit: the last chunk's mean loss is not below the first's")
+        check(all(launches[k] > 0 for k in path), f"lego fit: a kernel never ran: {launches}")
+        reference = {r["step"]: r for r in json.loads(LEGO_RECORD.read_text())}
+        curve = [dict(step=r["step"], loss=r["loss"], psnr=r["psnr"], points=r["points"],
+                      ref_loss=reference[r["step"]]["loss"], ref_psnr=reference[r["step"]]["psnr"],
+                      ref_points=reference[r["step"]]["points"], ms_per_step=r["ms_per_step"],
+                      max_total=r["max_total"], capacity=r["capacity"]) for r in records]
+        trainer = fit["trainer"]
+        out["lego_fit"] = dict(
+            setup_seconds=setup_seconds, seconds=lego_seconds, launches=launches, curve=curve,
+            ms_per_step=[r["ms_per_step"] for r in records],
+            peak_memory_gb=fit["run"].get("peak_memory_gb"),
+            max_total=max(r["max_total"] for r in records),
+            capacity_final=trainer._entry_capacity,
+            capacity_growths=fit["run"]["capacity_growths"],
+            points_at_end=trainer.scene.point_count, record_points_at_end=reference[LEGO_STEPS]["points"],
+            psnr_at_end=records[-1]["psnr"], record_psnr_at_end=reference[LEGO_STEPS]["psnr"])
+
+        # A, B and C at the lego fit's shapes (its scene after the fit, view 0).
+        lego_view = setup["views"][0]
+        rec, timings = slab_kernel_records(trainer.scene, lego_view, (0, lego_view.image_height),
+                                           trainer._entry_capacity, dev, "lego_fit")
+        out["lego_fit"]["kernels"] = rec
+        for name, t in timings.items():
+            kernel = t.pop("kernel")
+            ctx["kernels"].append(dict(
+                name=f"{name}@lego_fit", route="cuda",
+                source=f"gausplat_tpu_torch/csrc/{kernel.source.name}",
+                replaces=dict(rasterize_forward="gausplat_tpu/ops/rasterize.py:409",
+                              expand_point_orders="gausplat_tpu/ops/expand.py:121",
+                              rasterize_backward="gausplat_tpu/ops/rasterize.py:604")[name],
+                path=(f"tools (d): view 0 of the lego fit after {LEGO_STEPS} steps, "
+                      f"{trainer.scene.point_count} points, 800 x 800"),
+                launches=launches[kernel.entry], library_ms=None, **t))
+
+        # A lego step with no host event (after the counts were read): its
+        # time and where it goes.
+        trainer.config = dataclasses.replace(trainer.config, densify_until=0,
+                                             overflow_check_interval=10**9)
+        target = setup["targets"][0]
+        step_ms, step_all = cuda_ms(lambda: trainer.train_step(lego_view, target))
+        try:
+            breakdown = profile_device_time(lambda: trainer.train_step(lego_view, target))
+        except RuntimeError as e:  # the profiler is a measurement, not the path
+            breakdown = dict(device_busy_ms=f"not measured ({e})")
+        out["lego_fit"].update(step_ms=step_ms, step_ms_all=step_all, step_profile=breakdown)
+
+        # (e) A Chrome trace of one render holds the stages and the kernels.
+        trace_dir = tmp / "trace"
+        with torch.no_grad(), profiling.trace(str(trace_dir)):
+            with profiling.stage("gausplat.tools.render"):
+                traced = T.render(scene, ctx["views"][0], ctx["options"])
+            with profiling.stage("gausplat.tools.readback"):
+                float(traced.colors_rgb_2d.mean())
+        (trace_file,) = trace_dir.glob("*.pt.trace.json")
+        names = {e.get("name", "") for e in json.loads(trace_file.read_text())["traceEvents"]}
+        wanted = ["gausplat.tools.render", "gausplat.tools.readback",
+                  *DEVICE_KERNELS["expand.cu"][:2], *DEVICE_KERNELS["rasterize_forward.cu"]]
+        missing = [w for w in wanted if not any(w in n for n in names)]
+        check(not missing, f"the trace lacks {missing}")
+        out["trace"] = dict(events=len(names), found=wanted,
+                            trace_bytes=trace_file.stat().st_size)
+    return dict(card=ctx["card"], **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1876,7 +2091,7 @@ def main() -> int:
               ("rasterize_backward", phase_rasterize_backward),
               ("adversarial", phase_adversarial), ("grad", phase_grad),
               ("train", phase_train), ("colmap_bf16", phase_colmap_bf16),
-              ("parallel", phase_parallel)]
+              ("parallel", phase_parallel), ("tools", phase_tools)]
     for name, phase in phases:
         start = time.perf_counter()
         if name == "expand":

@@ -9,8 +9,11 @@ is found under the same name. Ported so far: projection, binning, the
 rasterizer forward and backward, the differentiable render with its
 densification signal in both entry layouts (f32 and packed bf16 pairs),
 training (losses, Adam, densify, trainer, checkpoints), the point cloud
-with ``GaussianScene.from_points``, the COLMAP loader, and multi-device
-render and training on ``torch.distributed`` (:mod:`.parallel`).
+with ``GaussianScene.from_points``, the COLMAP loader, multi-device
+render and training on ``torch.distributed`` (:mod:`.parallel`), the PLY
+codec's host C++ library (:mod:`.utils.native`), profiling helpers
+(:mod:`.utils.profiling`), and the user-facing tools: the examples
+(:mod:`.examples`) and the command-line scripts (:mod:`.scripts`).
 """
 
 from . import constants, errors, ops, parallel, scene, train, utils

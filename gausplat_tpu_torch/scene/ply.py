@@ -1,8 +1,11 @@
-"""3DGS PLY codec (checkpoint / interchange format), numpy underneath.
+"""3DGS PLY codec (checkpoint / interchange format).
 
-Counterpart of ``gausplat_tpu/scene/ply.py`` without its optional C++
-codec. Reference: src/scene/gaussian_3d/header.3dgs.ply (canonical
-header), import.rs:15-89 (decode), export.rs:11-71 (encode).
+Counterpart of ``gausplat_tpu/scene/ply.py``. The payload goes through the
+host C++ codec of :mod:`gausplat_tpu_torch.utils.native` where a compiler
+is found (``native.available()``), else through numpy; both give the same
+bytes and bit-identical arrays. Reference:
+src/scene/gaussian_3d/header.3dgs.ply (canonical header), import.rs:15-89
+(decode), export.rs:11-71 (encode).
 
 Layout per vertex (62 float32 properties)::
 
@@ -23,6 +26,7 @@ import torch
 
 from ..constants import SH_COUNT_MAX
 from ..errors import IoError, MismatchedPolygonHeaderError
+from ..utils import native
 from .gaussian_3d import GaussianScene
 
 PROPERTY_COUNT = 62
@@ -100,12 +104,57 @@ def _parse_header(reader: BinaryIO) -> tuple[int, str]:
     return point_count, fmt
 
 
+FIELDS = ("colors_sh", "opacities", "positions", "rotations", "scalings")
+
+
+def decode_payload_numpy(payload: bytes, point_count: int, dtype: str = "<f4"):
+    """Payload bytes of ``dtype`` floats -> (colors_sh, opacities, positions,
+    rotations, scalings) float32 arrays: the numpy twin of
+    :func:`gausplat_tpu_torch.utils.native.decode_payload`."""
+    data = np.frombuffer(payload, dtype=dtype, count=point_count * PROPERTY_COUNT)
+    data = data.astype(np.float32).reshape(point_count, PROPERTY_COUNT)
+
+    f_rest = data[:, 9:54].reshape(point_count, 3, SH_COUNT_MAX - 1)
+    # [P, M, 3]: DC at m=0; rest transposed channel-major -> coefficient-major.
+    colors_sh = np.empty((point_count, SH_COUNT_MAX, 3), np.float32)
+    colors_sh[:, 0, :] = data[:, 6:9]
+    colors_sh[:, 1:, :] = np.transpose(f_rest, (0, 2, 1))
+    return (
+        colors_sh.reshape(point_count, SH_COUNT_MAX * 3),
+        data[:, 54:55],
+        data[:, 0:3],
+        data[:, 58:62][:, [1, 2, 3, 0]],  # wxyz -> xyzw
+        data[:, 55:58],
+    )
+
+
+def encode_payload_numpy(colors_sh, opacities, positions, rotations, scalings) -> bytes:
+    """Five float32 arrays -> little-endian interleaved payload bytes: the
+    numpy twin of :func:`gausplat_tpu_torch.utils.native.encode_payload`."""
+    point_count = colors_sh.shape[0]
+    f_rest = (
+        colors_sh[:, 3:]
+        .reshape(point_count, SH_COUNT_MAX - 1, 3)
+        .transpose(0, 2, 1)
+        .reshape(point_count, 3 * (SH_COUNT_MAX - 1))
+    )
+    data = np.empty((point_count, PROPERTY_COUNT), np.float32)
+    data[:, 0:3] = positions
+    data[:, 3:6] = 0.0  # unused normals
+    data[:, 6:9] = colors_sh[:, 0:3]
+    data[:, 9:54] = f_rest
+    data[:, 54:55] = opacities
+    data[:, 55:58] = scalings
+    data[:, 58:62] = rotations[:, [3, 0, 1, 2]]
+    return data.astype("<f4").tobytes()
+
+
 def decode_polygon(source: Union[bytes, BinaryIO], *, device) -> GaussianScene:
-    """Decode a 3DGS PLY file into a :class:`GaussianScene` on ``device``."""
+    """Decode a 3DGS PLY file into a :class:`GaussianScene` on ``device``
+    (a little-endian payload through the native codec where available)."""
     reader = io.BytesIO(source) if isinstance(source, (bytes, bytearray)) else source
     point_count, fmt = _parse_header(reader)
 
-    dtype = "<f4" if fmt == "binary_little_endian" else ">f4"
     try:
         payload = reader.read(point_count * PROPERTY_COUNT * 4)
     except OSError as e:
@@ -116,50 +165,20 @@ def decode_polygon(source: Union[bytes, BinaryIO], *, device) -> GaussianScene:
             f"{point_count} vertices ({point_count * PROPERTY_COUNT * 4} bytes)"
         )
 
-    data = np.frombuffer(payload, dtype=dtype, count=point_count * PROPERTY_COUNT)
-    data = data.astype(np.float32).reshape(point_count, PROPERTY_COUNT)
-
-    f_rest = data[:, 9:54].reshape(point_count, 3, SH_COUNT_MAX - 1)
-    # [P, M, 3]: DC at m=0; rest transposed channel-major -> coefficient-major.
-    colors_sh = np.empty((point_count, SH_COUNT_MAX, 3), np.float32)
-    colors_sh[:, 0, :] = data[:, 6:9]
-    colors_sh[:, 1:, :] = np.transpose(f_rest, (0, 2, 1))
-
-    return GaussianScene.from_numpy(
-        colors_sh=colors_sh.reshape(point_count, SH_COUNT_MAX * 3),
-        opacities=data[:, 54:55],
-        positions=data[:, 0:3],
-        rotations=data[:, 58:62][:, [1, 2, 3, 0]],  # wxyz -> xyzw
-        scalings=data[:, 55:58],
-        device=device,
-    )
+    if fmt == "binary_little_endian" and native.available():
+        arrays = native.decode_payload(payload, point_count)
+    else:
+        dtype = "<f4" if fmt == "binary_little_endian" else ">f4"
+        arrays = decode_payload_numpy(payload, point_count, dtype)
+    return GaussianScene.from_numpy(**dict(zip(FIELDS, arrays)), device=device)
 
 
 def encode_polygon(scene: GaussianScene, writer: BinaryIO | None = None) -> bytes:
-    """Encode a :class:`GaussianScene` as a 3DGS PLY file (little-endian)."""
-    point_count = scene.point_count
-
-    def host(t):
-        return t.detach().to("cpu", torch.float32).numpy()
-
-    colors_sh = host(scene.colors_sh)
-    f_rest = (
-        colors_sh[:, 3:]
-        .reshape(point_count, SH_COUNT_MAX - 1, 3)
-        .transpose(0, 2, 1)
-        .reshape(point_count, 3 * (SH_COUNT_MAX - 1))
-    )
-
-    data = np.empty((point_count, PROPERTY_COUNT), np.float32)
-    data[:, 0:3] = host(scene.positions)
-    data[:, 3:6] = 0.0  # unused normals
-    data[:, 6:9] = colors_sh[:, 0:3]
-    data[:, 9:54] = f_rest
-    data[:, 54:55] = host(scene.opacities)
-    data[:, 55:58] = host(scene.scalings)
-    data[:, 58:62] = host(scene.rotations)[:, [3, 0, 1, 2]]
-
-    out = _header_text(point_count).encode("ascii") + data.astype("<f4").tobytes()
+    """Encode a :class:`GaussianScene` as a 3DGS PLY file (little-endian),
+    through the native codec where available."""
+    arrays = [getattr(scene, f).detach().to("cpu", torch.float32).numpy() for f in FIELDS]
+    encode = native.encode_payload if native.available() else encode_payload_numpy
+    out = _header_text(scene.point_count).encode("ascii") + encode(*arrays)
     if writer is not None:
         try:
             writer.write(out)

@@ -1,1 +1,2 @@
-"""Build and launch support for the hand-written CUDA kernels."""
+"""Build and launch support for the hand-written CUDA kernels, the host
+C++ PLY codec, and profiling helpers."""

@@ -6,7 +6,9 @@ every entry point takes raw device pointers and a CUDA stream, launches on
 that stream and returns ``cudaGetLastError()``. At first use the file is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/gausplat_tpu_torch/`` at
 the root of the checkout, under a name keyed by a hash of the source, the
-headers and the flags, and loaded with ``ctypes``.
+headers and the flags, and loaded with ``ctypes``. The host C++ library of
+:mod:`.native` goes through the same build and cache (:func:`load_library`)
+with the host compiler.
 Nothing is built when this module is imported, and nothing here falls back
 to a plain version: a kernel that does not build, load or launch raises
 :class:`~gausplat_tpu_torch.errors.KernelError`.
@@ -109,50 +111,11 @@ class CudaKernel:
         kernel.source = pathlib.Path(directory).resolve() / self.source.name
         return kernel
 
-    def library_path(self) -> pathlib.Path:
-        headers = b"".join(h.read_bytes() for h in sorted(self.source.parent.glob("*.cuh")))
-        digest = hashlib.sha256(
-            self.source.read_bytes() + headers + "\0".join(self.flags).encode()
-        ).hexdigest()[:16]
-        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
-
-    def _build(self, out: pathlib.Path) -> str:
-        out.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-        os.close(fd)
-        cmd = [find_nvcc(), *self.flags, "-o", tmp, str(self.source)]
-        try:
-            done = subprocess.run(cmd, capture_output=True, text=True)
-            if done.returncode != 0:
-                raise KernelError(
-                    f"nvcc failed ({done.returncode}) on {self.source.name}:\n"
-                    f"{' '.join(cmd)}\n{done.stdout}{done.stderr}"
-                )
-            os.replace(tmp, out)
-            return done.stdout + done.stderr
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-
-    def _library(self, out: pathlib.Path):
-        """The loaded library at ``out`` and its build log, built once per
-        process however many entry points share it."""
-        with _LIBRARIES_GUARD:
-            lock = _LIBRARY_LOCKS.setdefault(out, threading.Lock())
-        with lock:
-            if out not in _LIBRARIES:
-                log = None if out.exists() else self._build(out)
-                try:
-                    _LIBRARIES[out] = (ctypes.CDLL(str(out)), log)
-                except OSError as e:
-                    raise KernelError(f"cannot load {out}: {e}") from e
-            return _LIBRARIES[out]
-
     def load(self):
         """Build the library if its hashed file is missing, then bind it."""
         if self._fn is None:
             start = time.perf_counter()
-            lib, self.build_log = self._library(self.library_path())
+            lib, self.build_log = load_library(self.source, self.flags, find_nvcc)
             fn = getattr(lib, self.entry)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -190,10 +153,60 @@ class CudaKernel:
 
 
 #: Loaded libraries by path, with their build logs, and a lock per path so
-#: that entry points of one library built at once run one nvcc.
+#: that entry points of one library built at once run one compiler.
 _LIBRARIES: dict = {}
 _LIBRARY_LOCKS: dict = {}
 _LIBRARIES_GUARD = threading.Lock()
+
+
+def library_path(source: pathlib.Path, flags: Sequence[str], header_glob="*.cuh") -> pathlib.Path:
+    """Where ``source`` built with ``flags`` lives: a name keyed by a hash of
+    the source, the headers beside it that match ``header_glob`` (None: no
+    headers) and the flags."""
+    headers = b"" if header_glob is None else b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob(header_glob)))
+    digest = hashlib.sha256(
+        source.read_bytes() + headers + "\0".join(flags).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"{source.stem}-{digest}.so"
+
+
+def _build(compiler: str, source: pathlib.Path, flags: Sequence[str], out: pathlib.Path) -> str:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [compiler, *flags, "-o", tmp, str(source)]
+    try:
+        done = subprocess.run(cmd, capture_output=True, text=True)
+        if done.returncode != 0:
+            raise KernelError(
+                f"{pathlib.Path(compiler).name} failed ({done.returncode}) on {source.name}:\n"
+                f"{' '.join(cmd)}\n{done.stdout}{done.stderr}"
+            )
+        os.replace(tmp, out)
+        return done.stdout + done.stderr
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load_library(source: pathlib.Path, flags: Sequence[str], find_compiler,
+                 header_glob="*.cuh"):
+    """The loaded library of ``source`` built with ``flags`` and its build log
+    (None where the hashed file was already there), built once per process
+    however many callers share it. ``find_compiler()`` names the compiler;
+    it is asked only when a build is needed."""
+    out = library_path(source, flags, header_glob)
+    with _LIBRARIES_GUARD:
+        lock = _LIBRARY_LOCKS.setdefault(out, threading.Lock())
+    with lock:
+        if out not in _LIBRARIES:
+            log = None if out.exists() else _build(find_compiler(), source, flags, out)
+            try:
+                _LIBRARIES[out] = (ctypes.CDLL(str(out)), log)
+            except OSError as e:
+                raise KernelError(f"cannot load {out}: {e}") from e
+        return _LIBRARIES[out]
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> None:

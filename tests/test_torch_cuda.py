@@ -309,3 +309,55 @@ def test_kernel_wrappers_reject_bad_arguments(cuda_device):
         fused_point_orders(depths, ints, ints, ints, ints, tile_count_x=4, capacity=64)
     assert issubclass(KernelError, Exception)
     assert np.isfinite(rows.cpu().numpy()).all()
+
+
+# --- the user-facing tools on the card ------------------------------------------------
+
+def test_native_codec_matches_numpy_on_the_card(cuda_device):
+    from gausplat_tpu_torch.utils import native
+
+    from gausplat_tpu_torch.scene import ply
+
+    assert native.available()
+    scene = T.GaussianScene.from_numpy(**scene_arrays(100_000, seed=8), device=cuda_device)
+    arrays = [getattr(scene, f).detach().cpu().numpy() for f in ply.FIELDS]
+    payload = native.encode_payload(*arrays)
+    assert payload == ply.encode_payload_numpy(*arrays)
+    for decode in (native.decode_payload, ply.decode_payload_numpy):
+        for got, want in zip(decode(payload, 100_000), arrays):
+            np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    blob = T.encode_polygon(scene)
+    assert blob.endswith(payload)
+    back = T.decode_polygon(blob, device=cuda_device)
+    for f in ply.FIELDS:
+        assert torch.equal(getattr(back, f).view(torch.int32),
+                           getattr(scene, f).detach().view(torch.int32)), f
+
+
+def test_render_ply_end_to_end_on_the_card(cuda_device, tmp_path):
+    from gausplat_tpu_torch.scripts import render_ply as RP
+
+    scene = T.GaussianScene.from_numpy(**scene_arrays(MEDIUM["p"]), device=cuda_device)
+    ply, png = tmp_path / "scene.3dgs.ply", tmp_path / "out.png"
+    ply.write_bytes(T.encode_polygon(scene))
+    launches = (EXPAND.launches, RASTERIZE_FORWARD.launches)
+    RP.main([str(ply), str(png), "--width", "320", "--height", "200", "--azimuth", "0.4",
+             "--device", "cuda"])
+    assert (EXPAND.launches, RASTERIZE_FORWARD.launches) == (launches[0] + 1, launches[1] + 1)
+    view = RP.orbit_view(scene.positions.detach().cpu().numpy(), 320, 200, azimuth=0.4)
+    with torch.no_grad():
+        want = RP.to_u8(T.render(scene, view, T.RenderOptions()).colors_rgb_2d)
+    got = RP.decode_png(png.read_bytes())
+    assert got.shape == (200, 320, 3) and want.std() > 1
+    np.testing.assert_array_equal(got, want)
+
+
+def test_fit_toy_scene_launches_every_kernel(cuda_device):
+    from gausplat_tpu_torch.examples.fit_toy_scene import fit_toy_scene
+
+    kernels = (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)
+    before = [k.launches for k in kernels]
+    result = fit_toy_scene(20, device=cuda_device, log=lambda line: None)
+    assert all(k.launches >= b + 20 for k, b in zip(kernels, before))
+    assert np.isfinite(result["losses"]).all() and len(result["losses"]) == 20
+    assert result["round_trip_identical"]
