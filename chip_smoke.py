@@ -8,7 +8,7 @@ It imports torch, numpy and ``gausplat_tpu_torch`` only (no JAX, and
 nothing of ``tests/``), builds the three hand-written kernel libraries from
 ``gausplat_tpu_torch/csrc`` into ``build/gausplat_tpu_torch/`` (one nvcc
 each, all at once; the rasterize libraries hold an entry point for f32
-rows and one for packed bf16-pair rows), and runs twelve phases, each
+rows and one for packed bf16-pair rows), and runs thirteen phases, each
 printing one JSON line:
 
 1. env: versions, the card, the kernel builds and their ptxas reports;
@@ -106,7 +106,8 @@ printing one JSON line:
    in-process render of the same ``orbit_view``; (c) ``fit_toy_scene(400)``:
    losses finite, the last PSNR above the first, the decoded PLY's scene
    and its render bit for bit the fitted one, A, B and C launched; (d)
-   ``train_long``'s lego recipe for 2,000 steps (losses finite, no step's
+   ``train_long``'s lego recipe for 2,000 steps at the record's densify
+   interval of 500 (losses finite, no step's
    entries over its capacity, the last 200-step chunk's mean loss below the
    first's, A, B and C launched), its curve printed beside the JAX
    package's record ``train_long_r05_lego.json`` (read as data) with the
@@ -115,6 +116,25 @@ printing one JSON line:
    (e) one render inside ``profiling.trace`` and two ``profiling.stage``
    scopes: the Chrome trace must name both stages and the kernels of A
    and B.
+13. scripts: the last three scripts, each through its own function, with
+   a JSON line before each: (a) ``train_convergence`` at 1,500 steps
+   (every loss finite, the last of its five printed PSNRs above the first,
+   the points grown, A, B and C launched; ms per step); (b)
+   ``train_sharded_compare`` at 300 steps (cut from the JAX script's 600
+   to keep the phase near 5 minutes; the cut is printed): the single side
+   here, the (2, 4) ``ShardedTrainer`` side in 8 gloo ranks on this card,
+   ``delta_db`` at most 0.5, A, B and C launched on both sides; (c)
+   ``mesh_scale`` at 8, 16 and 32 gloo ranks on this card: each n's
+   sharded step within the JAX script's tolerances of the single-device
+   step, its loss within 2e-4 relative of the JAX record
+   ``MESH_SCALE_r05.json`` (read as data), the toy dry run finite with
+   entries, and A, B and C launched, also on the ranks whose slab lies
+   wholly in the padding. A, B and C are then held to their plain
+   versions at each part's own shapes, timed: view 0 of (a)'s fitted scene
+   (256 x 256), slab 0 of view 0 of (b)'s sharded scene (128 x 32), and
+   at n = 8 slab 0 of (c)'s step (rows 0-31, live) and its slab wholly in
+   the padding (rows 96-127 of an 80-row frame; the entry total and every
+   rendered count exact). The live ones must compare entries that blend.
 
 Then it prints the card's name and power limit, one JSON line of
 per-kernel results, every number of which comes from a training path
@@ -123,7 +143,11 @@ per-kernel results, every number of which comes from a training path
 A, B and C on the slabs, ``<kernel>@slab0`` and ``@last_slab``, whose
 launches are the parallel path's summed over its ranks, phase 12 for A, B
 and C at the lego fit's shapes, ``<kernel>@lego_fit``, whose launches are
-its 2,000 steps': their
+its 2,000 steps', phase 13 for A, B and C at each script's shapes,
+``<kernel>@convergence`` (launches: (a)'s 1,500 steps),
+``@sharded_compare_slab0`` ((b)'s sharded steps on the ranks of slab 0),
+``@mesh_scale_slab0`` and ``@pad_slab`` (``mesh_scale``'s step at 8 ranks
+on the ranks of that slab): their
 launches, and the error, time (``ms``, CUDA events around the wrapper;
 ``device_ms``, its kernels' device time), plain time and bound at the
 step's shapes;
@@ -170,6 +194,10 @@ PAIR_FLOPS_MIN = 17
 #: against their plain versions, scaled by each row's or field's largest
 #: magnitude (sequential sums on the card against log-step sums).
 GRAD_SCALED_ATOL = 1e-3
+#: The TPU kernel each kernel's entry of the kernels line replaces.
+REPLACES = dict(rasterize_forward="gausplat_tpu/ops/rasterize.py:409",
+                expand_point_orders="gausplat_tpu/ops/expand.py:121",
+                rasterize_backward="gausplat_tpu/ops/rasterize.py:604")
 
 
 def nvidia_smi(query: str) -> str:
@@ -1750,8 +1778,30 @@ def slab_kernel_records(scene, view, slab, capacity, dev, tag) -> tuple[dict, di
     rec = dict(slab=list(slab), capacity=capacity, entries=int(ranges[:, 1].max()),
                blended_pairs=blended, rasterize_forward=a_rec, expand_point_orders=b_rec,
                rasterize_backward=c_rec,
-               valid_rows=min(slab[1], view.image_height - slab[0]))
+               valid_rows=max(0, min(slab[1], view.image_height - slab[0])))
     return rec, timings
+
+
+def add_kernel_rows(ctx, timings, tag, path, launches) -> None:
+    """Append one row of the kernels line per kernel of ``timings`` (as
+    :func:`slab_kernel_records` returns them), named ``<kernel>@<tag>``,
+    with ``launches`` (by entry point) from the run of the path they stand
+    for."""
+    for name, t in timings.items():
+        kernel = t.pop("kernel")
+        ctx["kernels"].append(dict(
+            name=f"{name}@{tag}", route="cuda",
+            source=f"gausplat_tpu_torch/csrc/{kernel.source.name}", replaces=REPLACES[name],
+            path=path, launches=launches[kernel.entry], library_ms=None, **t))
+
+
+def check_live(rec, tag) -> None:
+    """A comparison of :func:`slab_kernel_records` held A, B and C to their
+    plain versions on entries that blend, not on an empty frame only."""
+    check(rec["entries"] > 0 and rec["blended_pairs"] > 0
+          and rec["rasterize_backward"]["valid_slots"] > 0,
+          f"{tag}: the kernels were compared on no blending entry: entries {rec['entries']}, "
+          f"blended pairs {rec['blended_pairs']}")
 
 
 def phase_parallel(ctx):
@@ -1854,17 +1904,9 @@ def phase_parallel(ctx):
         rec, timings = slab_kernel_records(scene, views[0], (index * h_local, h_local),
                                            capacity, dev, tag)
         slabs[tag] = rec
-        for name, t in timings.items():
-            kernel = t.pop("kernel")
-            ctx["kernels"].append(dict(
-                name=f"{name}@{tag}", route="cuda",
-                source=f"gausplat_tpu_torch/csrc/{kernel.source.name}",
-                replaces=dict(rasterize_forward="gausplat_tpu/ops/rasterize.py:409",
-                              expand_point_orders="gausplat_tpu/ops/expand.py:121",
-                              rasterize_backward="gausplat_tpu/ops/rasterize.py:604")[name],
-                path=(f"parallel: {tag} ({index * h_local}-{(index + 1) * h_local - 1} of "
-                      f"{h_pad} rows) of the (2, 2) sharded step, 1920 x {h_local}"),
-                launches=launches[kernel.entry], library_ms=None, **t))
+        add_kernel_rows(ctx, timings, tag,
+                        f"parallel: {tag} ({index * h_local}-{(index + 1) * h_local - 1} of "
+                        f"{h_pad} rows) of the (2, 2) sharded step, 1920 x {h_local}", launches)
 
     rank0 = ranks[0]
     return dict(
@@ -1888,6 +1930,9 @@ def phase_parallel(ctx):
 #: The JAX package's record of the same lego recipe (read as data).
 LEGO_RECORD = ROOT / "train_long_r05_lego.json"
 LEGO_STEPS = 2_000
+#: The record's own densify interval (its point count changes only in
+#: chunks that hold a multiple of 500).
+LEGO_DENSIFY_INTERVAL = 500
 TOY_STEPS = 400
 
 
@@ -2002,7 +2047,8 @@ def phase_tools(ctx):
 
         # (d) The lego recipe for 2,000 steps beside the JAX record.
         start = time.perf_counter()
-        setup = long_fit_setup(True, True, dev, iterations=LEGO_STEPS)
+        setup = long_fit_setup(True, True, dev, iterations=LEGO_STEPS,
+                               densify_interval=LEGO_DENSIFY_INTERVAL)
         setup_seconds = time.perf_counter() - start
         fit, launches, lego_seconds = counted(lambda: run_long_fit(
             setup, LEGO_STEPS, tmp / "lego.json", log=lambda line: None))
@@ -2019,7 +2065,8 @@ def phase_tools(ctx):
                       max_total=r["max_total"], capacity=r["capacity"]) for r in records]
         trainer = fit["trainer"]
         out["lego_fit"] = dict(
-            setup_seconds=setup_seconds, seconds=lego_seconds, launches=launches, curve=curve,
+            setup_seconds=setup_seconds, seconds=lego_seconds, launches=launches,
+            densify_interval=LEGO_DENSIFY_INTERVAL, curve=curve,
             ms_per_step=[r["ms_per_step"] for r in records],
             peak_memory_gb=fit["run"].get("peak_memory_gb"),
             max_total=max(r["max_total"] for r in records),
@@ -2033,17 +2080,9 @@ def phase_tools(ctx):
         rec, timings = slab_kernel_records(trainer.scene, lego_view, (0, lego_view.image_height),
                                            trainer._entry_capacity, dev, "lego_fit")
         out["lego_fit"]["kernels"] = rec
-        for name, t in timings.items():
-            kernel = t.pop("kernel")
-            ctx["kernels"].append(dict(
-                name=f"{name}@lego_fit", route="cuda",
-                source=f"gausplat_tpu_torch/csrc/{kernel.source.name}",
-                replaces=dict(rasterize_forward="gausplat_tpu/ops/rasterize.py:409",
-                              expand_point_orders="gausplat_tpu/ops/expand.py:121",
-                              rasterize_backward="gausplat_tpu/ops/rasterize.py:604")[name],
-                path=(f"tools (d): view 0 of the lego fit after {LEGO_STEPS} steps, "
-                      f"{trainer.scene.point_count} points, 800 x 800"),
-                launches=launches[kernel.entry], library_ms=None, **t))
+        add_kernel_rows(ctx, timings, "lego_fit",
+                        f"tools (d): view 0 of the lego fit after {LEGO_STEPS} steps, "
+                        f"{trainer.scene.point_count} points, 800 x 800", launches)
 
         # A lego step with no host event (after the counts were read): its
         # time and where it goes.
@@ -2075,6 +2114,158 @@ def phase_tools(ctx):
     return dict(card=ctx["card"], **out)
 
 
+# --- phase 13: the scripts ---------------------------------------------------------
+
+CONVERGENCE_STEPS = 1_500
+#: Cut from the JAX script's 600: at 600 the phase ran 351 s on an NVIDIA
+#: H100 80GB HBM3 (700 W), past its 5-minute budget (8 ranks share the card
+#: over gloo).
+SHARDED_COMPARE_STEPS = 300
+PATH = ("gs_expand_point_orders", "gs_rasterize_forward", "gs_rasterize_backward")
+
+
+def mesh_scale_slab_records(ctx, n, index, launches) -> dict:
+    """A, B and C on slab ``index`` of ``mesh_scale``'s step at n ranks, from
+    the step's start scene and its first view, against their plain versions
+    (as at full size; on a slab wholly below the image, besides, the entry
+    total and every rendered count exact, and elsewhere entries that
+    blend), timed; appended to the kernels line as ``<kernel>@pad_slab`` or
+    ``<kernel>@mesh_scale_slab<index>`` with ``launches``, the step's on
+    the ranks of that slab."""
+    from gausplat_tpu_torch.parallel.render import _shard_capacity, slab_rows
+    from gausplat_tpu_torch.render.pipeline import _capacity
+    from gausplat_tpu_torch.scripts import mesh_scale as MS
+
+    dev = ctx["device"]
+    d_tiles = n // MS.D_DATA
+    height = MS.parity_height(n)
+    options = MS.PARITY_OPTIONS
+    scene = MS.parity_scene(dev)
+    view = MS.parity_views(height)[0]
+    h_local, h_pad = slab_rows(height, d_tiles)
+    slab = (index * h_local, h_local)
+    pad = slab[0] >= height
+    tag = "pad_slab" if pad else f"mesh_scale_slab{index}"
+    capacity = _shard_capacity(_capacity(scene.point_count, options), d_tiles,
+                               options.block_size)
+    rec, timings = slab_kernel_records(scene, view, slab, capacity, dev, tag)
+    if pad:
+        check(all(rec["expand_point_orders"]["bit_identical"])
+              and rec["rasterize_forward"]["count_mismatches"] == 0,
+              f"pad slab: the entry total or a rendered count differs: {rec}")
+    else:
+        check_live(rec, tag)
+    add_kernel_rows(ctx, timings, tag,
+                    f"scripts (c): slab {index} (rows {slab[0]}-{slab[0] + h_local - 1} of "
+                    f"{h_pad}, the image {height} rows) of mesh_scale's step at {n} ranks, "
+                    f"{view.image_width} x {h_local}", launches)
+    return rec
+
+
+def phase_scripts(ctx):
+    """(a) ``train_convergence`` at 1,500 steps, (b) ``train_sharded_compare``
+    at 300 steps (cut from the script's 600; 8 gloo ranks on this card),
+    (c) ``mesh_scale`` at 8, 16 and 32 ranks. Kernels A, B and C are held
+    to their plain versions at each part's shapes: view 0 of (a)'s fitted
+    scene, slab 0 of (b)'s sharded scene, and at 8 ranks slab 0 of (c)'s
+    step and its slab that lies wholly in the padding."""
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch.parallel.render import _shard_capacity, slab_rows
+    from gausplat_tpu_torch.render.pipeline import _capacity
+    from gausplat_tpu_torch.scripts import mesh_scale as MS
+    from gausplat_tpu_torch.scripts import train_sharded_compare as SC
+    from gausplat_tpu_torch.scripts.train_convergence import train_convergence
+
+    dev = ctx["device"]
+    out = {}
+
+    def log(line):
+        print(line, flush=True)
+
+    # (a) The convergence fit: finite, improving, growing, through A, B and
+    # C. Its launches are the fit's, not the target renders'.
+    emit("scripts_train_convergence_start", 0.0, steps=CONVERGENCE_STEPS)
+    conv, _, seconds = counted(lambda: train_convergence(CONVERGENCE_STEPS, dev, log))
+    launches = conv["launches"]
+    losses = [h["loss"] for h in conv["history"]]
+    check(all(math.isfinite(x) for x in losses), "train_convergence: a non-finite loss")
+    check(conv["curve"][-1]["psnr"] > conv["curve"][0]["psnr"],
+          f"train_convergence did not improve: {conv['curve']}")
+    check(conv["points_end"] > conv["points_start"],
+          f"train_convergence: no growth ({conv['points_start']} -> {conv['points_end']})")
+    check(all(launches[k] > 0 for k in PATH), f"train_convergence: a kernel never ran: {launches}")
+    trainer, view = conv["trainer"], conv["views"][0]
+    rec, timings = slab_kernel_records(trainer.scene, view, (0, view.image_height),
+                                       trainer._entry_capacity, dev, "convergence")
+    check_live(rec, "convergence")
+    add_kernel_rows(ctx, timings, "convergence",
+                    f"scripts (a): view 0 of train_convergence after {CONVERGENCE_STEPS} steps, "
+                    f"{trainer.scene.point_count} points, {view.image_width} x "
+                    f"{view.image_height}", launches)
+    out["train_convergence"] = dict(
+        steps=CONVERGENCE_STEPS, seconds=seconds, fit_seconds=conv["fit_seconds"],
+        ms_per_step=conv["fit_seconds"] * 1e3 / CONVERGENCE_STEPS, launches=launches,
+        curve=conv["curve"], points_start=conv["points_start"], points_end=conv["points_end"],
+        kernels=rec)
+    del conv, trainer
+
+    # (b) Sharded against single-device training, the JAX script's claim.
+    emit("scripts_train_sharded_compare_start", 0.0, steps=SHARDED_COMPARE_STEPS,
+         ranks=SC.RANKS, mesh=list(SC.MESH), backend="gloo", device=str(dev))
+    result, _, seconds = counted(lambda: SC.compare(SHARDED_COMPARE_STEPS, dev, log))
+    single, sharded = result["single"], result["sharded"]
+    check(result["delta_db"] <= SC.MAX_DELTA_DB,
+          f"train_sharded_compare: delta_db {result['delta_db']} > {SC.MAX_DELTA_DB}")
+    check(all(math.isfinite(x) for x in single["losses"] + sharded["losses"]),
+          "train_sharded_compare: a non-finite loss")
+    check(all(single["launches"][k] > 0 and sharded["launches"][k] > 0 for k in PATH),
+          f"train_sharded_compare: a kernel never ran: {single['launches']}, "
+          f"{sharded['launches']}")
+    scene = T.GaussianScene.from_numpy(**sharded["scene"], device=dev)
+    view = SC.compare_views()[0]
+    h_local, h_pad = slab_rows(SC.SIZE, SC.MESH[1])
+    capacity = _shard_capacity(_capacity(scene.point_count, SC.OPTIONS), SC.MESH[1],
+                               SC.OPTIONS.block_size)
+    rec, timings = slab_kernel_records(scene, view, (0, h_local), capacity, dev,
+                                       "sharded_compare_slab0")
+    check_live(rec, "sharded_compare_slab0")
+    add_kernel_rows(ctx, timings, "sharded_compare_slab0",
+                    f"scripts (b): slab 0 (rows 0-{h_local - 1} of {h_pad}) of view 0 of "
+                    f"train_sharded_compare's sharded scene after {SHARDED_COMPARE_STEPS} steps, "
+                    f"{scene.point_count} points, {SC.SIZE} x {h_local}",
+                    sharded["slab_launches"][0])
+    out["train_sharded_compare"] = dict(
+        steps=SHARDED_COMPARE_STEPS,
+        steps_note=("the JAX script's default" if SHARDED_COMPARE_STEPS == 600
+                    else f"cut from the JAX script's 600 to {SHARDED_COMPARE_STEPS}"),
+        seconds=seconds, delta_db=result["delta_db"], single_batched_psnr=single["psnr"],
+        sharded_psnr=sharded["psnr"], points=[single["points"], sharded["points"]],
+        single_ms_per_step=single["seconds"] * 1e3 / SHARDED_COMPARE_STEPS,
+        sharded_rank_ms_per_step=[t * 1e3 / SHARDED_COMPARE_STEPS
+                                  for t in sharded["rank_seconds"]],
+        first_losses=[single["losses"][:3], sharded["losses"][:3]],
+        last_losses=[single["losses"][-1], sharded["losses"][-1]],
+        single_launches=single["launches"], sharded_launches=sharded["launches"],
+        sharded_slab_launches=sharded["slab_launches"], kernels=rec,
+        wall_note="8 ranks share one card over gloo: not scaling numbers")
+    del result, single, sharded, scene
+
+    # (c) The mesh-scale sweep, each n's ranks on this card over gloo.
+    emit("scripts_mesh_scale_start", 0.0, ranks=list(MS.SWEEP), backend="gloo",
+         device=str(dev))
+    sweep, _, seconds = counted(lambda: MS.sweep(dev, log=log))
+    for rec in sweep:
+        check(all(rec["launches"][k] > 0 and rec["dryrun_launches"][k] > 0
+                  and all(rec["slab_launches"][i][k] > 0 for i in rec["pad_slabs"])
+                  for k in PATH),
+              f"mesh_scale at {rec['n']}: a kernel never ran: {rec}")
+    out["mesh_scale"] = dict(seconds=seconds, sweep=sweep)
+    n, (pad,) = sweep[0]["n"], sweep[0]["pad_slabs"]
+    out["mesh_scale_slab0"] = mesh_scale_slab_records(ctx, n, 0, sweep[0]["slab_launches"][0])
+    out["pad_slab"] = mesh_scale_slab_records(ctx, n, pad, sweep[0]["slab_launches"][pad])
+    return dict(card=ctx["card"], **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2091,7 +2282,8 @@ def main() -> int:
               ("rasterize_backward", phase_rasterize_backward),
               ("adversarial", phase_adversarial), ("grad", phase_grad),
               ("train", phase_train), ("colmap_bf16", phase_colmap_bf16),
-              ("parallel", phase_parallel), ("tools", phase_tools)]
+              ("parallel", phase_parallel), ("tools", phase_tools),
+              ("scripts", phase_scripts)]
     for name, phase in phases:
         start = time.perf_counter()
         if name == "expand":

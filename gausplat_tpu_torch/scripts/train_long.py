@@ -44,6 +44,7 @@ from ..render.view import View
 from ..scene.gaussian_3d import GaussianScene
 from ..scene.point import Points
 from ..train import DensifyConfig, OptimizerConfig, TrainConfig, Trainer, camera_extent
+from . import ring_views
 
 CHUNK = 200
 
@@ -94,27 +95,15 @@ def long_fit_setup(lego: bool, full: bool = False, device="cuda", *, iterations=
     truth = truth.set_scalings(np.asarray(gt_scale, np.float32))
     truth = truth.set_opacities(np.asarray(0.3 + 0.6 * rng.random((p, 1)), np.float32))
 
-    views = []
     if lego:
         # 16 views: two elevation rings of 8 around the unit-box scene.
+        views = []
         for i in range(8):
             views.append(_orbit_view(i, 8, 0.0, len(views), size, 0.8))
         for i in range(8):
             views.append(_orbit_view(i, 8, 0.45, len(views), size, 0.8))
     else:
-        for i in range(10):
-            a = 2 * np.pi * i / 10
-            c, s = np.cos(a), np.sin(a)
-            rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
-            pos = np.array([4 * s, 0.0, -4 * c])
-            views.append(
-                View(
-                    field_of_view_x=1.0, field_of_view_y=1.0,
-                    image_height=size, image_width=size, view_id=i,
-                    view_position=pos,
-                    view_transform=View.transform(rot.T, -rot @ pos),
-                )
-            )
+        views = ring_views(10, size, size)
     with torch.no_grad():
         targets = [render(truth, v, opts).colors_rgb_2d for v in views]
 

@@ -382,3 +382,31 @@ def sharded_train_worker(rank, out_dir, arrays, views_by_height, targets_by_heig
     out["fit/point_count"] = np.array([h.get("point_count", -1) for h in history])
     out.update({f"fit/{k}": _numpy(p) for k, p in trainer.scene.named_parameters()})
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+
+
+def scripts_worker(rank, out_dir, compare_iters):
+    """A rank of ``tests/test_torch_scripts.py`` on 8 gloo CPU ranks: the
+    ``mesh_scale`` parity step and dry run at n = 8, then
+    ``train_sharded_compare``'s sharded side for ``compare_iters`` steps.
+    Writes ``out_dir/rank{rank}.npz``."""
+    import pathlib
+
+    import torch
+
+    from .scripts.mesh_scale import dryrun_toy, parity_rank
+    from .scripts.train_sharded_compare import sharded_rank
+
+    torch.set_num_threads(1)
+    cpu = torch.device("cpu")
+    parity = parity_rank(rank, 8, cpu)
+    dryrun = dryrun_toy(8, cpu, log=lambda line: None)
+    sharded = sharded_rank(rank, compare_iters, cpu, log=lambda line: None)
+    out = {f"parity/{k}": np.asarray(v) for k, v in parity.items()
+           if k not in ("scene", "errors", "launches")}
+    out.update({f"parity/scene/{k}": v for k, v in parity["scene"].items()})
+    out.update({f"parity/errors/{k}": np.asarray(v) for k, v in parity.get("errors", {}).items()})
+    out.update({f"dryrun/{k}": np.asarray(v) for k, v in dryrun.items() if k != "launches"})
+    out.update({f"sharded/{k}": np.asarray(v) for k, v in sharded.items()
+                if k not in ("scene", "launches")})
+    out.update({f"sharded/scene/{k}": v for k, v in sharded["scene"].items()})
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)

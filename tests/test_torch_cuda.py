@@ -361,3 +361,69 @@ def test_fit_toy_scene_launches_every_kernel(cuda_device):
     assert all(k.launches >= b + 20 for k, b in zip(kernels, before))
     assert np.isfinite(result["losses"]).all() and len(result["losses"]) == 20
     assert result["round_trip_identical"]
+
+
+@pytest.mark.parametrize("slab", [3, 0])
+def test_pad_slab_kernels_match_plain(slab, cuda_device):
+    """A, B and C on a slab of ``mesh_scale``'s step at 8 ranks (the camera
+    shifted by its first row, as the sharded step renders it): slab 3 (rows
+    96-127 of an 80-row frame) lies wholly in the padding and bins no
+    entry; slab 0 (rows 0-31) is live, with entries for C to write. B bit
+    for bit, A's counts exact and its image within 1e-4, C's rows within
+    1e-3 scaled."""
+    from gausplat_tpu_torch.parallel.render import _shard_capacity, slab_rows
+    from gausplat_tpu_torch.render.pipeline import _capacity
+    from gausplat_tpu_torch.scripts import mesh_scale as MS
+
+    n = 8
+    height, options = MS.parity_height(n), MS.PARITY_OPTIONS
+    h_local, _ = slab_rows(height, n // 2)
+    y0 = slab * h_local
+    assert h_local == 32 and height == 80 and (y0 >= height) == (slab == 3)
+    scene = MS.parity_scene(cuda_device)
+    view = MS.parity_views(height)[0]
+    tcx, tcy = view.image_width // 16, h_local // 16
+    capacity = _shard_capacity(_capacity(scene.point_count, options), n // 2, options.block_size)
+    camera = Camera.from_view(view, device=cuda_device)
+    camera.pos2d_shift = torch.tensor([0.0, float(y0)], device=cuda_device)
+    with torch.no_grad():
+        proj = project_gaussians(
+            scene.colors_sh, scene.positions, scene.rotations, scene.scalings, camera,
+            sh_degree=3, tile_count_x=tcx, tile_count_y=tcy, opacities=scene.opacities,
+            tight_culling=True)
+        b_args = (proj.depths, proj.tile_x_max, proj.tile_x_min, proj.tile_y_min,
+                  proj.tile_counts)
+        binning = bin_gaussians(*b_args, tile_count_x=tcx, tile_count_y=tcy, capacity=capacity)
+        rows = pack_point_data(proj, torch.sigmoid(scene.opacities[:, 0]))
+    before = [k.launches for k in (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)]
+    got = fused_point_orders(*b_args, tile_count_x=tcx, capacity=capacity)
+    want = make_point_orders(*b_args, tile_count_x=tcx, capacity=capacity)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    args = (rows, binning.point_indices, binning.tile_ranges)
+    a_got = rasterize_forward(*args, tile_count_x=tcx)
+    a_want = rasterize_forward_torch(*args, tile_count_x=tcx, block_size=options.block_size)
+    torch.testing.assert_close(a_got[0], a_want[0], atol=1e-4, rtol=0)
+    assert torch.equal(a_got[2], a_want[2])
+    c_args = _backward_args(*args, tcx, view.image_width, h_local)
+    c_got = rasterize_backward(*c_args, tile_count_x=tcx)
+    c_want = rasterize_backward_torch(*c_args, tile_count_x=tcx, block_size=options.block_size)
+    torch.cuda.synchronize()
+    valid = int(binning.tile_ranges[:, 1].max())
+    assert (valid == 0) == (slab == 3)
+    for r in range(9 if valid else 0):  # the padded slab: no entry, no row to compare
+        assert_scaled_close(c_got[r, :valid], c_want[r, :valid], f"row {r}")
+    after = [k.launches for k in (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)]
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 1]  # A again in C's inputs
+
+
+def test_train_convergence_launches_every_kernel(cuda_device):
+    from gausplat_tpu_torch.scripts.train_convergence import train_convergence
+
+    kernels = (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)
+    before = [k.launches for k in kernels]
+    result = train_convergence(20, device=cuda_device, log=lambda line: None)
+    assert all(k.launches >= b + 20 for k, b in zip(kernels, before))
+    assert all(result["launches"][k.entry] >= 20 for k in kernels)  # the fit's alone
+    assert np.isfinite([h["loss"] for h in result["history"]]).all()
+    assert len(result["history"]) == 20 and len(result["curve"]) == 5
