@@ -8,7 +8,7 @@ It imports torch, numpy and ``gausplat_tpu_torch`` only (no JAX, and
 nothing of ``tests/``), builds the three hand-written kernel libraries from
 ``gausplat_tpu_torch/csrc`` into ``build/gausplat_tpu_torch/`` (one nvcc
 each, all at once; the rasterize libraries hold an entry point for f32
-rows and one for packed bf16-pair rows), and runs thirteen phases, each
+rows and one for packed bf16-pair rows), and runs fourteen phases, each
 printing one JSON line:
 
 1. env: versions, the card, the kernel builds and their ptxas reports;
@@ -63,7 +63,8 @@ printing one JSON line:
    PINHOLE 1920x1080 images, no image files) is written to a temporary
    directory, loaded with ``load_sparse_model`` (views and points must
    round-trip), initialised with ``GaussianScene.from_points`` on the card
-   and fitted with ``Trainer.fit`` for 10 steps with phase 9's
+   and fitted with ``Trainer.fit_scan`` (as ``train_from_colmap`` fits:
+   packed A and C inside the captured step) for 10 steps with phase 9's
    ``TrainConfig`` and ``entry_dtype="bf16"`` against phase 9's f32
    targets (losses finite and falling, every entry total within its
    capacity, the packed kernels launched and the f32 rasterizers not);
@@ -107,7 +108,7 @@ printing one JSON line:
    losses finite, the last PSNR above the first, the decoded PLY's scene
    and its render bit for bit the fitted one, A, B and C launched; (d)
    ``train_long``'s lego recipe for 2,000 steps at the record's densify
-   interval of 500 (losses finite, no step's
+   interval of 500, through ``Trainer.fit_scan`` (losses finite, no step's
    entries over its capacity, the last 200-step chunk's mean loss below the
    first's, A, B and C launched), its curve printed beside the JAX
    package's record ``train_long_r05_lego.json`` (read as data) with the
@@ -135,6 +136,23 @@ printing one JSON line:
    at n = 8 slab 0 of (c)'s step (rows 0-31, live) and its slab wholly in
    the padding (rows 96-127 of an 80-row frame; the entry total and every
    rendered count exact). The live ones must compare entries that blend.
+14. fit_scan: the training step captured as a CUDA graph. (a) phase 9's
+   configuration at full size (1,000,000 points, SH 0-3, a densify, an
+   opacity reset): 10 steps of ``Trainer.fit`` twice from one start, whose
+   largest parameter difference is the card's spread, then 10 steps of
+   ``Trainer.fit_scan`` (chunks break at every host event; A, B and C
+   counted at 10 launches each, replays included), its parameters within
+   the spread of the first fit's and its point count equal; (b) the steady
+   state at those shapes (20 steps, SH 3, no host event): eager ``fit``
+   against ``fit_scan``, each with ms a step (median of 5 CUDA-event
+   timings), the profiler's device-busy ms, idle share, kernels and host
+   launches a step and the peak memory, the memory the graph's pool keeps,
+   and one replay under ``torch.cuda.set_sync_debug_mode("error")``, after
+   A, B and C at the captured shapes against their plain versions,
+   timed; (c) phase 12's lego prefix, which ran through ``fit_scan``: its
+   points (PR 8's eager prefix's 4,114, exactly where (a)'s spread is 0)
+   and PSNR beside PR 8's, its ms a step, and the steady state at its
+   shapes as in (b).
 
 Then it prints the card's name and power limit, one JSON line of
 per-kernel results, every number of which comes from a training path
@@ -147,7 +165,9 @@ its 2,000 steps', phase 13 for A, B and C at each script's shapes,
 ``<kernel>@convergence`` (launches: (a)'s 1,500 steps),
 ``@sharded_compare_slab0`` ((b)'s sharded steps on the ranks of slab 0),
 ``@mesh_scale_slab0`` and ``@pad_slab`` (``mesh_scale``'s step at 8 ranks
-on the ranks of that slab): their
+on the ranks of that slab), phase 14 for A, B and C at the captured
+step's shapes, ``<kernel>@fit_scan``, whose launches are (a)'s fit_scan's,
+replays included: their
 launches, and the error, time (``ms``, CUDA events around the wrapper;
 ``device_ms``, its kernels' device time), plain time and bound at the
 step's shapes;
@@ -243,10 +263,17 @@ def in_turns(first, second, reps: int = REPS) -> dict:
     return {name: (statistics.median(t), t) for name, t in times.items()}
 
 
+#: The host's calls that put work on the card, as the profiler names them.
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch",
+                     "cudaMemsetAsync", "cudaMemcpyAsync")
+
+
 def profile_device_time(fn, reps: int = 3, top: int = 12) -> dict:
     """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler,
-    CUPTI), the device-busy time per call against the host clock, and the
-    idle share of the window."""
+    CUPTI), the device-busy time per call against the host clock, the idle
+    share of the window, the kernels the card ran per call and the host's
+    calls that put work on the card per call (``host_launches``: kernel
+    and graph launches, memsets and copies; by name in ``host_calls``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -257,9 +284,11 @@ def profile_device_time(fn, reps: int = 3, top: int = 12) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3 / reps
-    kernels = []
+    kernels, host = [], {}
     for event in prof.key_averages():
         if event.device_type != torch.autograd.DeviceType.CUDA:
+            if event.key.startswith(HOST_LAUNCH_CALLS):
+                host[event.key] = event.count / reps
             continue
         device_us = getattr(event, "device_time_total", None)
         if device_us is None:
@@ -272,7 +301,8 @@ def profile_device_time(fn, reps: int = 3, top: int = 12) -> dict:
                     wall_ms=wall_ms)
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
-        kernel_launches=sum(k[1] for k in kernels),
+        kernel_launches=sum(k[1] for k in kernels), host_launches=sum(host.values()),
+        host_calls=host,
         top=[dict(ms=ms, calls=n, name=name) for ms, n, name in kernels[:top]],
     )
 
@@ -698,12 +728,12 @@ def all_kernels():
             RASTERIZE_BACKWARD_PACKED)
 
 
-def fit_ten_steps(trainer, views, targets) -> tuple[list, list, dict, float]:
-    """The training path: ``Trainer.fit`` for 10 steps, in three calls (4, 4
-    and 2 steps) so that every step's entry total is checked against the
-    capacity it ran with. Every kernel's count is set to 0 just before and
-    read just after. Returns the history, the segments, the launches and
-    the seconds."""
+def fit_ten_steps(trainer, views, targets, method="fit") -> tuple[list, list, dict, float]:
+    """The training path: ``Trainer.fit`` (or ``method``, e.g. ``fit_scan``)
+    for 10 steps, in three calls (4, 4 and 2 steps) so that every step's
+    entry total is checked against the capacity it ran with. Every kernel's
+    count is set to 0 just before and read just after. Returns the history,
+    the segments, the launches and the seconds."""
     kernels = all_kernels()
     torch.cuda.synchronize()
     for kernel in kernels:
@@ -712,7 +742,7 @@ def fit_ten_steps(trainer, views, targets) -> tuple[list, list, dict, float]:
     history, segments = [], []
     for steps in (4, 4, 2):
         capacity, points = trainer._entry_capacity, trainer.scene.point_count
-        part = trainer.fit(views, targets, steps)
+        part = getattr(trainer, method)(views, targets, steps)
         segments.append(dict(steps=steps, capacity=capacity, points_before=points,
                              points_after=trainer.scene.point_count,
                              max_total=max(int(h["tile_point_total"]) for h in part)))
@@ -1324,8 +1354,10 @@ def write_sparse_model(directory: pathlib.Path, positions, colors_u8, views) -> 
 def phase_colmap_bf16(ctx):
     """The bf16 training path from a COLMAP capture: a synthetic sparse
     model of the bench scene through ``load_sparse_model``,
-    ``GaussianScene.from_points`` and ``Trainer.fit`` with packed bf16
-    entry rows; then the packed kernels A and C at the step's shapes."""
+    ``GaussianScene.from_points`` and ``Trainer.fit_scan`` (the fit of
+    ``train_from_colmap``) with packed bf16 entry rows, so packed A and C
+    run inside the captured step; then the packed kernels A and C at the
+    step's shapes."""
     import dataclasses
     import tempfile
 
@@ -1377,7 +1409,10 @@ def phase_colmap_bf16(ctx):
     width, height = loaded[0].image_width, loaded[0].image_height
     trainer = TT.Trainer(scene, width, height, config)
     targets = ctx["targets"]
-    history, segments, launches, fit_seconds = fit_ten_steps(trainer, loaded, targets)
+    history, segments, launches, fit_seconds = fit_ten_steps(trainer, loaded, targets,
+                                                             "fit_scan")
+    graph = dict(captures=trainer._graph.captures, replays=trainer._graph.replays)
+    check(graph["replays"] > 0, f"the bf16 fit replayed no captured step: {graph}")
 
     losses = [h["loss"] for h in history]
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
@@ -1487,7 +1522,7 @@ def phase_colmap_bf16(ctx):
     return dict(
         card=ctx["card"], points=len(points), views=len(loaded), write_seconds=write_seconds,
         load_seconds=load_seconds, from_points_seconds=init_seconds, view_round_trip=view_err,
-        steps=len(history), launches=launches, losses=losses,
+        steps=len(history), launches=launches, graph=graph, losses=losses,
         psnr=[h["psnr"] for h in history],
         tile_point_total=[int(h["tile_point_total"]) for h in history], segments=segments,
         start_capacity=options.tile_entry_capacity, fit_10_steps_seconds=fit_seconds,
@@ -2095,6 +2130,8 @@ def phase_tools(ctx):
         except RuntimeError as e:  # the profiler is a measurement, not the path
             breakdown = dict(device_busy_ms=f"not measured ({e})")
         out["lego_fit"].update(step_ms=step_ms, step_ms_all=step_all, step_profile=breakdown)
+        ctx["lego"] = dict(trainer=trainer, views=setup["views"], targets=setup["targets"],
+                           record=out["lego_fit"])
 
         # (e) A Chrome trace of one render holds the stages and the kernels.
         trace_dir = tmp / "trace"
@@ -2266,6 +2303,164 @@ def phase_scripts(ctx):
     return dict(card=ctx["card"], **out)
 
 
+# --- phase 14: the training step as a CUDA graph ------------------------------------
+
+#: PR 8's eager 2,000-step lego prefix at interval 500 (its chip runs 1 and
+#: 3-5, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+LEGO_EAGER_POINTS, LEGO_EAGER_PSNR = 4_114, 16.56
+#: Steps of the steady-state comparison, and where they start: the SH
+#: warm-up interval is raised to STEADY_SH_INTERVAL and the step count set to
+#: three times it, so the steps run at SH degree 3 with no host event (a
+#: smaller interval would put one at each of its multiples).
+STEADY_STEPS = 20
+STEADY_SH_INTERVAL = 1_000_000
+
+
+def params_of(scene) -> list:
+    return [p.detach().clone() for p in scene.parameters()]
+
+
+def params_max_diff(a, b) -> float:
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+
+
+def steady_state(trainer, views, targets) -> dict:
+    """``STEADY_STEPS`` steps with no host event, eager ``fit`` against
+    ``fit_scan`` (the captured step; captured here where the key missed):
+    ms a step (median of 5 CUDA-event timings of the whole call, the
+    history's read included), the profiler's device-busy ms, idle share,
+    kernels and host launches a step, the peak memory of each, and the
+    memory the graph's pool keeps. Then one replay with the host's sync
+    checks set to raise."""
+    import dataclasses
+    import gc
+
+    n = STEADY_STEPS
+    trainer.config = dataclasses.replace(
+        trainer.config, densify_until=0, overflow_check_interval=10**9,
+        sh_warmup_interval=STEADY_SH_INTERVAL)
+    trainer.step_count = 3 * STEADY_SH_INTERVAL
+    check(trainer._sh_degree() == min(3, trainer.config.render.colors_sh_degree_max),
+          "the steady state is not at the full SH degree")
+    trainer._graph.invalidate()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    trainer.fit_scan(views, targets, n)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    graph_pool_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
+    out = dict(steps=n, graph_pool_gb=graph_pool_gb, points=trainer.scene.point_count)
+    for name in ("fit", "fit_scan"):
+        run = lambda: getattr(trainer, name)(views, targets, n)  # noqa: E731
+        torch.cuda.reset_peak_memory_stats()
+        ms, ms_all = cuda_ms(run)
+        try:
+            prof = profile_device_time(run, reps=2)
+        except RuntimeError as e:  # the profiler is a measurement, not the path
+            prof = dict(device_busy_ms=f"not measured ({e})")
+        per_step = {k: (v / n if isinstance(v, (int, float)) else v) for k, v in prof.items()
+                    if k in ("wall_ms", "device_busy_ms", "kernel_launches", "host_launches")}
+        out[name] = dict(ms_per_step=ms / n, ms_all=ms_all, per_step=per_step,
+                         device_idle_share=prof.get("device_idle_share"),
+                         host_calls=prof.get("host_calls"), top=prof.get("top"),
+                         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    graph = trainer._graph
+    check(graph.graph is not None, "fit_scan left no captured step")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    out["strict_replay"] = "no host read"
+    return out
+
+
+def phase_fit_scan(ctx):
+    """``Trainer.fit_scan``: (a) the train phase's configuration at full
+    size, 10 steps of ``fit`` twice from one start (the card's spread) and
+    of ``fit_scan`` (the path: its launches), the parameters held to the
+    spread; A, B and C at the captured shapes against their plain versions
+    (``<kernel>@fit_scan``); (b) the steady state at those shapes, eager
+    against the graph; (c) the tools phase's lego prefix, which ran through
+    ``fit_scan``, beside PR 8's eager prefix, and its steady state."""
+    import gc
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch import train as TT
+
+    dev, views, targets = ctx["device"], ctx["views"], ctx["targets"]
+    start = train_start_arrays(ctx["arrays"])
+    width, height = views[0].image_width, views[0].image_height
+    out = {}
+
+    def trainer():
+        scene = T.GaussianScene.from_numpy(**start, device=dev)
+        return TT.Trainer(scene, width, height,
+                          train_config(T.calibrate_options(scene, views), views))
+
+    # (a) Two eager fits, then the captured one, from the same start.
+    finals, eager_seconds = [], []
+    for _ in range(2):
+        tr = trainer()
+        _, _, _, seconds = fit_ten_steps(tr, views, targets)
+        finals.append((params_of(tr.scene), tr.scene.point_count))
+        eager_seconds.append(seconds)
+        del tr
+        gc.collect()
+    scan = trainer()
+    history, segments, launches, scan_seconds = fit_ten_steps(scan, views, targets, "fit_scan")
+    spread = params_max_diff(finals[0][0], finals[1][0])
+    diff = params_max_diff(params_of(scan.scene), finals[0][0])
+    points = [finals[0][1], finals[1][1], scan.scene.point_count]
+    graph = dict(captures=scan._graph.captures, replays=scan._graph.replays)
+    check(len(set(points)) == 1, f"the point counts differ: {points}")
+    check(diff <= spread, f"fit_scan's parameters differ by {diff}, beyond the spread {spread}")
+    check(all(launches[k] == 10 for k in PATH), f"fit_scan's launches: {launches}")
+    check(graph["replays"] > 0, f"fit_scan replayed no captured step: {graph}")
+    check(all(seg["max_total"] <= seg["capacity"] for seg in segments),
+          f"entry overflow: {segments}")
+    check(all(math.isfinite(h["loss"]) for h in history), "fit_scan: a non-finite loss")
+    out["train_config"] = dict(
+        points=points, spread=spread, max_abs_diff_from_fit=diff, launches=launches,
+        graph=graph, losses=[h["loss"] for h in history], segments=segments,
+        eager_seconds=eager_seconds, scan_seconds=scan_seconds)
+    del finals
+    gc.collect()
+
+    # A, B and C at the captured shapes, then (b) the steady state there.
+    opts = scan._options()
+    rec, timings = slab_kernel_records(scan.scene, views[0], (0, height),
+                                       opts.tile_entry_capacity, dev, "fit_scan")
+    check_live(rec, "fit_scan")
+    out["kernels"] = rec
+    add_kernel_rows(ctx, timings, "fit_scan",
+                    f"fit_scan (a): 10 steps of the train phase's configuration, "
+                    f"{scan.scene.point_count} points, {width} x {height}, captured", launches)
+    out["steady"] = steady_state(scan, views, targets)
+    del scan
+    gc.collect()
+
+    # (c) The lego prefix of the tools phase, run through fit_scan.
+    lego = ctx["lego"]
+    record = lego["record"]
+    lego_points = record["points_at_end"]
+    tolerance = 0 if out["train_config"]["spread"] == 0.0 else 0.2 * LEGO_EAGER_POINTS
+    check(abs(lego_points - LEGO_EAGER_POINTS) <= tolerance,
+          f"the lego prefix reached {lego_points} points, PR 8's eager prefix "
+          f"{LEGO_EAGER_POINTS} (spread {out['train_config']['spread']})")
+    out["lego_prefix"] = dict(
+        points=lego_points, eager_points=LEGO_EAGER_POINTS, psnr=record["psnr_at_end"],
+        eager_psnr=LEGO_EAGER_PSNR, ms_per_step=record["ms_per_step"],
+        median_ms_per_step=statistics.median(record["ms_per_step"]),
+        seconds=record["seconds"], launches=record["launches"])
+    out["lego_steady"] = steady_state(lego["trainer"], lego["views"], lego["targets"])
+    return dict(card=ctx["card"], **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2283,7 +2478,7 @@ def main() -> int:
               ("adversarial", phase_adversarial), ("grad", phase_grad),
               ("train", phase_train), ("colmap_bf16", phase_colmap_bf16),
               ("parallel", phase_parallel), ("tools", phase_tools),
-              ("scripts", phase_scripts)]
+              ("scripts", phase_scripts), ("fit_scan", phase_fit_scan)]
     for name, phase in phases:
         start = time.perf_counter()
         if name == "expand":

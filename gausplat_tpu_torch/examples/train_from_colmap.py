@@ -11,8 +11,9 @@ CUDA card unless asked for the CPU:
 ``SPARSE_DIR`` holds cameras.bin / images.bin / points3D.bin; ``IMAGE_DIR``
 the registered images (file names from images.bin), read with PIL (needed
 only here). Images larger than 1600 px are downscaled as standard 3DGS
-training does. The fit is ``Trainer.fit``, round-robin over the views (the
-JAX example's ``fit_scan`` batches steps for the TPU and is not ported).
+training does. The fit is ``Trainer.fit_scan``, round-robin over the
+views, as in the JAX example: on the card each run of steps between host
+events replays one captured step.
 """
 
 from __future__ import annotations
@@ -82,7 +83,7 @@ def train_from_colmap(
         optimizer=dataclasses.replace(cfg.optimizer, scene_extent=extent),
     )
     trainer = Trainer(scene, views[0].image_width, views[0].image_height, cfg)
-    history = trainer.fit(views, targets, iterations)
+    history = trainer.fit_scan(views, targets, iterations)
     log(f"final loss {history[-1]['loss']:.4f}, psnr {history[-1]['psnr']:.2f} dB, "
         f"{trainer.scene.point_count} Gaussians")
 

@@ -15,8 +15,9 @@ as true positions plus noise; see :func:`long_fit_setup`).
         [--full] [--lego] [--entry-dtype f32|bf16] [--densify-interval 300] \\
         [--deadline-s 0] [--device cuda]
 
-The loop calls ``Trainer.fit`` in chunks of 200 steps, round-robin over
-the views, and after each chunk appends one record: the last step's
+The loop calls ``Trainer.fit_scan`` in chunks of 200 steps, round-robin
+over the views (on the card each sub-chunk between host events replays
+one captured step), and after each chunk appends one record: the last step's
 ``step``, ``loss``, ``psnr`` and ``points`` (as the JAX script does), the
 chunk's means, its wall milliseconds per step (CUDA events on the card),
 its largest entry total with the capacity that step ran with, the count of
@@ -156,11 +157,11 @@ def long_fit_setup(lego: bool, full: bool = False, device="cuda", *, iterations=
 class CapacityTrainer(Trainer):
     """A :class:`Trainer` whose step metrics also carry ``capacity``, the
     entry capacity the step rendered with (the trainer grows it only at its
-    host events)."""
+    host events, so in ``fit_scan`` it is the capacity of the step's
+    sub-chunk)."""
 
-    def train_step(self, view, target) -> dict:
-        capacity = self._entry_capacity
-        return {**super().train_step(view, target), "capacity": capacity}
+    def _step_info(self) -> dict:
+        return {"capacity": self._entry_capacity}
 
 
 def card_name() -> str | None:
@@ -206,13 +207,13 @@ def run_long_fit(setup: dict, iterations: int, out_path=None, *, deadline_s=None
         if cuda:
             begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             begin.record()
-            hist = tr.fit(views, targets, k)
+            hist = tr.fit_scan(views, targets, k)
             end.record()
             end.synchronize()
             ms = begin.elapsed_time(end) / k
         else:
             t0 = time.perf_counter()
-            hist = tr.fit(views, targets, k)
+            hist = tr.fit_scan(views, targets, k)
             ms = (time.perf_counter() - t0) * 1e3 / k
         step += k
         worst = max(hist, key=lambda h: h["tile_point_total"] - h["capacity"])

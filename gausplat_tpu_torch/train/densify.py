@@ -61,13 +61,13 @@ class DensifyState:
         return cls(**zero_densify_acc(point_count, device))
 
     def accumulate(self, grad_norm: torch.Tensor, radii: torch.Tensor) -> None:
-        """Add one view's statistics: the grad norms of the points it sees
-        (``radii > 0``), their visibility, and the running max radius."""
+        """Add one view's statistics in place: the grad norms of the points
+        it sees (``radii > 0``), their visibility, and the running max
+        radius."""
         visible = radii > 0
-        self.grad_norm_sum = self.grad_norm_sum + torch.where(
-            visible, grad_norm, torch.zeros_like(grad_norm))
-        self.visible_count = self.visible_count + visible.to(torch.int32)
-        self.max_radii = torch.maximum(self.max_radii, radii)
+        self.grad_norm_sum.add_(torch.where(visible, grad_norm, torch.zeros_like(grad_norm)))
+        self.visible_count.add_(visible.to(torch.int32))
+        torch.maximum(self.max_radii, radii, out=self.max_radii)
 
 
 def _rotation_matrices(q: torch.Tensor) -> torch.Tensor:

@@ -30,10 +30,17 @@ def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
-def _blur(img: torch.Tensor, window: np.ndarray) -> torch.Tensor:
-    """Separable Gaussian blur of [H, W, C] with SAME zero padding."""
-    size = window.shape[0]
-    kernel = torch.as_tensor(window, device=img.device)
+@functools.lru_cache(maxsize=16)
+def _window_on(size: int, sigma: float, device: torch.device) -> torch.Tensor:
+    """The window on ``device``, copied there once (a captured CUDA graph
+    may copy nothing from the host)."""
+    return torch.as_tensor(_gaussian_window(size, sigma), device=device)
+
+
+def _blur(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Separable Gaussian blur of [H, W, C] with SAME zero padding by the
+    1-D window ``kernel`` (on the image's device)."""
+    size = kernel.shape[0]
     # Channels as the batch: [C, 1, H, W] with a one-channel kernel.
     x = img.permute(2, 0, 1)[:, None]
     x = F.conv2d(x, kernel.reshape(1, 1, size, 1), padding=(size // 2, 0))
@@ -44,7 +51,7 @@ def _blur(img: torch.Tensor, window: np.ndarray) -> torch.Tensor:
 def ssim_map(a: torch.Tensor, b: torch.Tensor, size: int = 11,
              sigma: float = 1.5) -> torch.Tensor:
     """Per-pixel SSIM map between two [H, W, C] images."""
-    w = _gaussian_window(size, sigma)
+    w = _window_on(size, sigma, a.device)
     mu_a, mu_b = _blur(a, w), _blur(b, w)
     mu_aa, mu_bb, mu_ab = mu_a * mu_a, mu_b * mu_b, mu_a * mu_b
     # E[x^2] - E[x]^2 can go slightly negative in f32; a variance cannot.

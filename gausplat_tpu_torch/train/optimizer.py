@@ -47,14 +47,20 @@ class OptimizerConfig:
 
 def position_lr_schedule(config: OptimizerConfig):
     """Log-linear interpolation from init to final over max_steps, in
-    float32 on the step's device."""
+    float32 on the step's device. The logs of init and final are made once
+    per device, so a schedule inside a captured CUDA graph copies nothing
+    from the host."""
     init = config.position_lr_init * config.scene_extent
     final = config.position_lr_final * config.scene_extent
+    logs = {}
 
     def schedule(step: torch.Tensor) -> torch.Tensor:
         t = torch.clamp(step / config.position_lr_max_steps, 0.0, 1.0)
-        log_init = torch.log(torch.tensor(init, dtype=torch.float32, device=t.device))
-        log_final = torch.log(torch.tensor(final, dtype=torch.float32, device=t.device))
+        if t.device not in logs:
+            logs[t.device] = tuple(
+                torch.log(torch.tensor(x, dtype=torch.float32, device=t.device))
+                for x in (init, final))
+        log_init, log_final = logs[t.device]
         return torch.exp((1.0 - t) * log_init + t * log_final)
 
     return schedule
@@ -79,7 +85,9 @@ def seed_count(state: dict, step: int) -> dict:
 class Optimizer(NamedTuple):
     """``init(scene) -> state`` and ``update(grads, state) -> (updates,
     state)``, as an optax GradientTransformation; ``grads`` and ``updates``
-    are ``{field: tensor}``, and the caller adds the updates."""
+    are ``{field: tensor}``, and the caller adds the updates. ``update``
+    writes the new moments and counts into the state's own tensors and
+    returns that state, so a captured step keeps their addresses."""
 
     init: object
     update: object
@@ -90,6 +98,7 @@ def make_optimizer(config: OptimizerConfig = OptimizerConfig()) -> Optimizer:
     moments and learning rate (positions on the decaying schedule; the
     higher-order SH columns at dc_lr / 20)."""
     schedule = position_lr_schedule(config)
+    sh_scales = {}  # the colors_sh lr scale, made once per device
 
     def init(scene) -> dict:
         params = {f: getattr(scene, f) for f in FIELDS}
@@ -104,26 +113,27 @@ def make_optimizer(config: OptimizerConfig = OptimizerConfig()) -> Optimizer:
         }
 
     def update(grads: dict, state: dict):
-        count = state["count"] + 1
-        new_adam, updates = {}, {}
+        count = state["count"].add_(1)
+        updates = {}
         for f in FIELDS:
             g = grads[f]
             c, mu, nu = state["adam"][f]
-            mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
-            nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * nu
-            c = c + 1
+            torch.add((1 - ADAM_B1) * g, ADAM_B1 * mu, out=mu)
+            torch.add((1 - ADAM_B2) * (g * g), ADAM_B2 * nu, out=nu)
+            c.add_(1)
             cf = c.to(torch.float32)
             mu_hat = mu / (1 - ADAM_B1**cf)
             nu_hat = nu / (1 - ADAM_B2**cf)
             updates[f] = mu_hat / (torch.sqrt(nu_hat) + config.eps)
-            new_adam[f] = (c, mu, nu)
-        sh_scale = _sh_lr_scale(config, updates["colors_sh"].device)
-        updates["colors_sh"] = updates["colors_sh"] * (-config.colors_sh_dc_lr * sh_scale)
+        device = updates["colors_sh"].device
+        if device not in sh_scales:
+            sh_scales[device] = _sh_lr_scale(config, device)
+        updates["colors_sh"] = updates["colors_sh"] * (-config.colors_sh_dc_lr * sh_scales[device])
         updates["opacities"] = updates["opacities"] * (-config.opacity_lr)
         updates["positions"] = updates["positions"] * (-schedule(count))
         updates["rotations"] = updates["rotations"] * (-config.rotation_lr)
         updates["scalings"] = updates["scalings"] * (-config.scaling_lr)
-        return updates, {"adam": new_adam, "count": count}
+        return updates, state
 
     return Optimizer(init, update)
 

@@ -8,6 +8,13 @@ place. The densify statistics accumulate on the device; the host reads
 them only at densify events, and reads the entry-count watermark only at
 its cadence, so a step without a host event never waits for the device.
 
+The step writes all of its state in place (the parameters, the Adam
+moments and counts, the densify accumulators, the watermark), and copies
+nothing from the host once its camera and target are on the device, so
+:meth:`Trainer.fit_scan` captures it once as a CUDA graph
+(:mod:`.step_graph`) and replays it for each step of a chunk between host
+events, the counterpart of the JAX package's ``lax.scan`` chunks.
+
 SH-degree warm-up raises ``colors_sh_degree_max`` every
 ``sh_warmup_interval`` steps. The JAX package recompiles its step there;
 here the next render simply takes the new degree.
@@ -21,7 +28,16 @@ from typing import Optional
 import torch
 
 from ..constants import SH_DEGREE_MAX
-from ..render.pipeline import RenderOptions, _capacity, render
+from ..ops.projection import Camera
+from ..render.pipeline import (
+    RenderOptions,
+    _capacity,
+    _render_core,
+    _use_kernels,
+    _validate,
+    render,
+    scene_params,
+)
 from ..render.view import View
 from ..scene.gaussian_3d import GaussianScene
 from .densify import (
@@ -33,6 +49,7 @@ from .densify import (
 )
 from .losses import photometric_loss, psnr
 from .optimizer import FIELDS, OptimizerConfig, make_optimizer, seed_count
+from .step_graph import StepGraph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +123,9 @@ class Trainer:
         self._entry_capacity = _capacity(scene.point_count, config.render)
         # Running on-device max of tile_point_total since the last check.
         self._entry_watermark = torch.zeros((), dtype=torch.int32, device=self.device)
+        # fit_scan's captured step and its device-side inputs.
+        self._graph = StepGraph()
+        self._scan = None
 
     # -- internals -------------------------------------------------------------
 
@@ -120,15 +140,18 @@ class Trainer:
             tile_entry_capacity=self._entry_capacity,
         )
 
-    def _prepare(self) -> torch.Tensor:
-        """Fresh optimizer state and statistics after a reshape; returns the
-        densification ref of this step."""
+    def _prepare(self) -> None:
+        """Fresh optimizer state and statistics after a reshape."""
         p = self.scene.point_count
         if self._opt_point_count != p:
             self._opt_state = seed_count(self._optimizer.init(self.scene), self.step_count)
             self._opt_point_count = p
             self._densify_acc = zero_densify_acc(p, self.device)
-        return torch.zeros((p,), dtype=torch.float32, device=self.device, requires_grad=True)
+
+    def _ref(self) -> torch.Tensor:
+        """The densification ref of one step."""
+        return torch.zeros((self.scene.point_count,), dtype=torch.float32, device=self.device,
+                           requires_grad=True)
 
     def _apply_gradients(self, loss: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
         """Adam step from ``loss``; returns the ref's gradient (grad norms)."""
@@ -147,6 +170,32 @@ class Trainer:
     def _target(self, target) -> torch.Tensor:
         return torch.as_tensor(target, dtype=torch.float32, device=self.device)
 
+    def _step(self, camera: Camera, target: torch.Tensor, width: int, height: int) -> dict:
+        """One optimisation step of a ``width`` x ``height`` render from
+        ``camera`` against ``target`` (both on the device), written in place
+        into the scene, the optimizer state, the densify accumulators and
+        the watermark. Returns the step's metrics as 0-d device tensors."""
+        options = self._options()
+        point_count = _validate(self.scene, width, height, options)
+        ref = self._ref()
+        out = _render_core(scene_params(self.scene), ref, camera, width, height,
+                           _capacity(point_count, options), options,
+                           _use_kernels(options, self.device))
+        loss = photometric_loss(out.colors_rgb_2d, target, self.config.ssim_weight)
+        grad_norm = self._apply_gradients(loss, ref)
+        DensifyState(**self._densify_acc).accumulate(grad_norm, out.radii)
+        torch.maximum(self._entry_watermark, out.tile_point_total, out=self._entry_watermark)
+        return {
+            "loss": loss.detach(),
+            "psnr": psnr(out.colors_rgb_2d.detach(), target),
+            "tile_point_total": out.tile_point_total,
+        }
+
+    def _step_info(self) -> dict:
+        """Host facts added to each step's metrics, taken before the step
+        (none here; a subclass may add some)."""
+        return {}
+
     # -- public API ------------------------------------------------------------
 
     def train_step(self, view: View, target) -> dict:
@@ -155,23 +204,13 @@ class Trainer:
         Returns metrics as 0-d device tensors: the step does not wait for
         the device. Convert with ``float()`` when a value is needed.
         """
-        ref = self._prepare()
-        target = self._target(target)
-        out = render(self.scene, view, self._options(), ref)
-        loss = photometric_loss(out.colors_rgb_2d, target, self.config.ssim_weight)
-        grad_norm = self._apply_gradients(loss, ref)
-        acc = DensifyState(**self._densify_acc)
-        acc.accumulate(grad_norm, out.radii)
-        self._densify_acc = vars(acc)
-        metrics = {
-            "loss": loss.detach(),
-            "psnr": psnr(out.colors_rgb_2d.detach(), target),
-            "tile_point_total": out.tile_point_total,
-        }
+        self._prepare()
+        info = self._step_info()
+        metrics = self._step(Camera.from_view(view, device=self.device), self._target(target),
+                             view.image_width, view.image_height)
         self.step_count += 1
-        self._entry_watermark = torch.maximum(self._entry_watermark, out.tile_point_total)
         stats = self._host_events()
-        return {**metrics, **stats} if stats else metrics
+        return {**metrics, **info, **stats}
 
     def train_step_batch(self, views, targets) -> dict:
         """One optimization step from the mean loss over a view batch (the
@@ -180,7 +219,8 @@ class Trainer:
         ``step_count`` advances by the batch size. As in the JAX package,
         no host event runs here."""
         views = list(views)
-        ref = self._prepare()
+        self._prepare()
+        ref = self._ref()
         targets = [self._target(t) for t in targets]
         options = self._options()
         outs = [render(self.scene, v, options, ref) for v in views]
@@ -224,6 +264,86 @@ class Trainer:
             for h in history
         ]
 
+    def fit_scan(self, views, targets, iterations: Optional[int] = None,
+                 max_chunk: int = 200) -> list:
+        """Like :meth:`fit`, in chunks of at most ``max_chunk`` steps that
+        break at every host event, so the result follows the schedule of
+        per-step :meth:`fit`; returns one ``{loss, psnr, tile_point_total}``
+        per step, read from the device once at the end.
+
+        The views (all of the trainer's size) are stacked once and the
+        step picks view ``step % V`` on the device. On a CUDA scene each
+        chunk replays one captured step (:class:`.step_graph.StepGraph`),
+        recaptured after a host event that replaces the step's tensors; on
+        a CPU scene the same step runs eagerly, step by step.
+        """
+        iterations = iterations or self.config.iterations
+        end = self.step_count + iterations
+        scan = self._scan_inputs(views, targets, max_chunk)
+        chunks = []
+        while self.step_count < end:
+            self._prepare()
+            k = min(next_host_event(self.config, self.step_count, end) - self.step_count,
+                    max_chunk)
+            info = self._step_info()
+            scan.step.fill_(self.step_count)
+            scan.slot.zero_()
+            self._graph.run(lambda: self._scan_step(scan), self._static_key(),
+                            self._step_tensors(scan), k)
+            chunks.append((scan.values[:k].clone(), scan.totals[:k].clone(), info))
+            self.step_count += k
+            self._host_events()
+        values = torch.cat([c[0] for c in chunks]).tolist()
+        totals = torch.cat([c[1] for c in chunks]).tolist()
+        infos = [c[2] for c in chunks for _ in range(c[0].shape[0])]
+        return [{"loss": loss, "psnr": p, "tile_point_total": float(total), **info}
+                for (loss, p), total, info in zip(values, totals, infos)]
+
+    def _scan_inputs(self, views, targets, max_chunk: int) -> "_ScanInputs":
+        """fit_scan's device-side inputs, written into the last call's
+        tensors where the shapes allow, so the captured step survives."""
+        from ..parallel.render import stack_cameras
+
+        views = list(views)
+        for v in views:
+            if (v.image_width, v.image_height) != (self.image_width, self.image_height):
+                raise ValueError(f"fit_scan renders {self.image_width}x{self.image_height}; "
+                                 f"a view is {v.image_width}x{v.image_height}")
+        cameras = stack_cameras(views, device=self.device)
+        stacked = torch.stack([self._target(t) for t in targets])
+        scan = self._scan
+        if scan is None or scan.targets.shape != stacked.shape or scan.values.shape[0] != max_chunk:
+            scan = self._scan = _ScanInputs(cameras, stacked, max_chunk)
+        else:
+            for f in _CAMERA_FIELDS:
+                getattr(scan.cameras, f).copy_(getattr(cameras, f))
+            scan.targets.copy_(stacked)
+        return scan
+
+    def _scan_step(self, scan: "_ScanInputs") -> None:
+        """The step of fit_scan: view ``scan.step % V``, its metrics into
+        row ``scan.slot``, both counters advanced, all on the device."""
+        index = torch.remainder(scan.step, scan.targets.shape[0]).view(1)
+        camera = Camera(**{f: getattr(scan.cameras, f).index_select(0, index)[0]
+                           for f in _CAMERA_FIELDS})
+        target = scan.targets.index_select(0, index)[0]
+        m = self._step(camera, target, self.image_width, self.image_height)
+        slot = scan.slot.view(1)
+        scan.values.index_copy_(0, slot, torch.stack([m["loss"], m["psnr"]])[None])
+        scan.totals.index_copy_(0, slot, m["tile_point_total"].view(1))
+        scan.step.add_(1)
+        scan.slot.add_(1)
+
+    def _static_key(self) -> tuple:
+        """What shapes the step besides its tensors."""
+        return (self._options(), self.config.ssim_weight, self.image_width, self.image_height)
+
+    def _step_tensors(self, scan: "_ScanInputs") -> list:
+        """Every tensor the step of fit_scan reads or writes and keeps."""
+        adam = [t for f in FIELDS for t in self._opt_state["adam"][f]]
+        return [*scene_params(self.scene), *adam, self._opt_state["count"],
+                *self._densify_acc.values(), self._entry_watermark, *scan.tensors()]
+
     def _host_events(self) -> dict:
         """Host interventions after the step at ``step_count``: densify,
         opacity reset, and the overflow watch at its cadence. Returns the
@@ -250,5 +370,31 @@ class Trainer:
                 b = c.render.block_size
                 new_cap = int(total * c.capacity_grow_factor)
                 self._entry_capacity = max((new_cap + b - 1) // b * b, self._entry_capacity)
-            self._entry_watermark = torch.zeros((), dtype=torch.int32, device=self.device)
+            self._entry_watermark.zero_()
         return stats
+
+
+#: The fields of a stacked camera that fit_scan picks from.
+_CAMERA_FIELDS = ("focal_length", "image_size_half", "view_bound", "view_position",
+                  "view_rotation", "view_translation")
+
+
+class _ScanInputs:
+    """fit_scan's inputs on the device, at addresses that persist from call
+    to call: the stacked cameras and targets ``[V, ...]``, the global step
+    that picks the view, the chunk's slot, and the metrics buffers
+    (``values`` ``[max_chunk, 2]``: loss and PSNR; ``totals``
+    ``[max_chunk]``: the entry totals)."""
+
+    def __init__(self, cameras: Camera, targets: torch.Tensor, max_chunk: int):
+        device = targets.device
+        self.cameras = cameras
+        self.targets = targets
+        self.step = torch.zeros((), dtype=torch.int64, device=device)
+        self.slot = torch.zeros((), dtype=torch.int64, device=device)
+        self.values = torch.zeros((max_chunk, 2), dtype=torch.float32, device=device)
+        self.totals = torch.zeros((max_chunk,), dtype=torch.int32, device=device)
+
+    def tensors(self) -> list:
+        return [*(getattr(self.cameras, f) for f in _CAMERA_FIELDS), self.targets, self.step,
+                self.slot, self.values, self.totals]

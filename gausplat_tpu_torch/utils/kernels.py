@@ -16,6 +16,7 @@ to a plain version: a kernel that does not build, load or launch raises
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,6 +26,7 @@ import subprocess
 import tempfile
 import threading
 import time
+import weakref
 from typing import Sequence
 
 import torch
@@ -74,7 +76,10 @@ class CudaKernel:
 
     ``launches`` goes up by one for each successful call of the entry
     point, and nowhere else, so a caller can zero it, run a path, and see
-    whether the path went through this kernel. Entry points of one library
+    whether the path went through this kernel. A CUDA graph that holds the
+    launch replays it without a call: :func:`captured_launches` takes the
+    capture's calls off the counts and :func:`count_replay` adds them back
+    at each replay. Entry points of one library
     built with the same flags share one build and one loaded library.
     ``info_entry`` names the library's launch-facts function for this entry
     point (see :meth:`launch_info`).
@@ -99,6 +104,7 @@ class CudaKernel:
         self._lib = None
         self._fn = None
         self._error_string = None
+        _KERNELS.add(self)
 
     def with_flags(self, flags: Sequence[str]) -> "CudaKernel":
         """The same entry point built with other nvcc flags (its own count)."""
@@ -150,6 +156,35 @@ class CudaKernel:
             raise KernelError(f"{self.info_entry} of {self.source.name}: CUDA error {code} "
                               f"({self._error_string(code).decode()})")
         return {name: v.value for name, v in zip(names, values)}
+
+
+#: Every kernel made, so that a captured graph can count its launches.
+_KERNELS: "weakref.WeakSet[CudaKernel]" = weakref.WeakSet()
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around the capture of a CUDA graph: yields a dict that holds, after
+    the block, the launches of each kernel recorded into the graph. A
+    capture runs nothing, so the block leaves every count as it was; pass
+    the dict to :func:`count_replay` at each replay of the graph."""
+    before = {k: k.launches for k in list(_KERNELS)}
+    recorded = {}
+    try:
+        yield recorded
+    finally:
+        for k in list(_KERNELS):
+            n = k.launches - before.get(k, 0)
+            if n:
+                recorded[k] = n
+                k.launches -= n
+
+
+def count_replay(recorded: dict) -> None:
+    """Count one replay of a graph whose launches :func:`captured_launches`
+    recorded."""
+    for k, n in recorded.items():
+        k.launches += n
 
 
 #: Loaded libraries by path, with their build logs, and a lock per path so

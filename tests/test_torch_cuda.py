@@ -22,7 +22,15 @@ The packed (bf16-pair) entry points take the same inputs packed: the
 forward within the same tolerances; the backward's packed rows decoded,
 the position rows (f32 bits) within 1e-3 scaled and the bf16 rows within
 1e-3 scaled plus one bf16 ulp of each element (an f32 difference of one
-ulp can flip a bf16 rounding)."""
+ulp can flip a bf16 rounding).
+
+``Trainer.fit_scan`` replays the training step as a CUDA graph: on the
+schedule of the CPU trainer tests (densify, split and clone, an opacity
+reset with the point count unchanged, SH warm-up, overflow checks) with
+cuDNN held deterministic, it equals ``Trainer.fit`` bit for bit (the
+parameters, the Adam state, the densify accumulators and the history),
+A, B and C count the same launches, and a replay reads nothing back
+(``torch.cuda.set_sync_debug_mode("error")``)."""
 
 import numpy as np
 import pytest
@@ -45,7 +53,8 @@ from gausplat_tpu_torch.testing import adversarial_entries
 # By module name (pytest puts tests/ on the path), as test_rasterize.py
 # imports ``oracle``: a machine may have another top-level ``tests``.
 from torch_helpers import (  # noqa: F401  (cuda_device is a fixture)
-    EXPAND_WORKLOADS, MEDIUM, SMALL, cuda_device, port_view, scene_arrays,
+    DENSIFY, EXPAND_WORKLOADS, MEDIUM, SMALL, TRAIN_SCHEDULE, cuda_device, port_view,
+    scene_arrays, train_arrays,
 )
 
 pytestmark = pytest.mark.cuda
@@ -427,3 +436,77 @@ def test_train_convergence_launches_every_kernel(cuda_device):
     assert all(result["launches"][k.entry] >= 20 for k in kernels)  # the fit's alone
     assert np.isfinite([h["loss"] for h in result["history"]]).all()
     assert len(result["history"]) == 20 and len(result["curve"]) == 5
+
+
+def _fit_scan_setup(device):
+    from gausplat_tpu_torch import train as TT
+
+    size = 48
+    pairs = [port_view(size, size), port_view(size, size, position=(0.3, 0.1, -4.0))]
+    options = T.RenderOptions(tile_entry_capacity=2048, block_size=64)
+    target = T.GaussianScene.from_numpy(**train_arrays(25, 5), device=device)
+    with torch.no_grad():
+        targets = [T.render(target, v, options).colors_rgb_2d for v in pairs]
+    config = TT.TrainConfig(render=options, densify=TT.DensifyConfig(**DENSIFY),
+                            **TRAIN_SCHEDULE)
+
+    def trainer():
+        scene = T.GaussianScene.from_numpy(**train_arrays(25, 9), device=device)
+        return TT.Trainer(scene, size, size, config)
+
+    return trainer, pairs, targets
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = before
+
+
+def _counted(fn):
+    kernels = (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)
+    before = [k.launches for k in kernels]
+    result = fn()
+    torch.cuda.synchronize()
+    return result, [k.launches - b for k, b in zip(kernels, before)]
+
+
+def test_fit_scan_matches_fit(cuda_device, deterministic_cudnn):
+    make, pairs, targets = _fit_scan_setup(cuda_device)
+    eager, scan = make(), make()
+    want, eager_launches = _counted(lambda: eager.fit(pairs, targets, 13))
+    got, scan_launches = _counted(lambda: scan.fit_scan(pairs, targets, 13, max_chunk=4))
+    assert scan._graph.captures >= 2 and scan._graph.replays >= 5
+    assert scan_launches == eager_launches == [13, 13, 13]
+    assert scan.scene.point_count == eager.scene.point_count > 25
+    for key in ("loss", "psnr", "tile_point_total"):
+        assert [h[key] for h in got] == [h[key] for h in want], key
+    for f in ("colors_sh", "opacities", "positions", "rotations", "scalings"):
+        assert torch.equal(getattr(scan.scene, f), getattr(eager.scene, f)), f
+        for a, b in zip(scan._opt_state["adam"][f], eager._opt_state["adam"][f]):
+            assert torch.equal(a, b), f
+    for k, v in eager._densify_acc.items():
+        assert torch.equal(scan._densify_acc[k], v), k
+
+
+def test_fit_scan_replay_reads_nothing_back(cuda_device):
+    make, pairs, targets = _fit_scan_setup(cuda_device)
+    trainer = make()
+    trainer.fit_scan(pairs, targets, 3)
+    graph = trainer._graph
+    assert graph.graph is not None
+    positions = trainer.scene.positions.detach().clone()
+    _, launches = _counted(lambda: _replay_strict(graph))
+    assert launches == [1, 1, 1]
+    assert not torch.equal(trainer.scene.positions.detach(), positions)
+
+
+def _replay_strict(graph):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -10,9 +10,13 @@
   exactly, parameters atol 1e-6.
 - ``Trainer`` against the JAX ``Trainer`` over 13 steps with densify,
   SH warm-up, an opacity reset and overflow checks (the schedule of
-  tests/test_train.py::test_fit_scan_matches_fit): point counts exactly,
-  losses rtol 1e-4, positions atol 5e-4 (measured: losses within 7e-7
-  relative, positions within 1e-7).
+  tests/test_train.py::test_fit_scan_matches_fit): point counts and entry
+  totals exactly, losses rtol 1e-4, positions atol 5e-4 (measured: losses
+  within 7e-7 relative, positions within 1e-7); the JAX fit runs once per
+  module. ``Trainer.fit_scan`` (chunks of at most 4) against the same JAX
+  history with the same tolerances, against the port's ``fit`` bit for
+  bit (parameters, Adam state, densify accumulators, history), and its
+  chunks against the JAX package's ``next_host_event``.
 - ``train_step_batch``'s loss is the mean of the per-view losses, and a
   checkpoint round-trips and refuses a state of another layout.
 """
@@ -30,24 +34,10 @@ from gausplat_tpu.train import losses as jlosses
 from gausplat_tpu.train import optimizer as jopt
 from gausplat_tpu_torch import train as TT
 
-from tests.torch_helpers import views
+from tests.torch_helpers import DENSIFY, TRAIN_SCHEDULE, train_arrays, views
 
 PARAMS = ("colors_sh", "opacities", "positions", "rotations", "scalings")
 W = H = 48
-
-
-def train_arrays(p, seed):
-    """An anisotropic scene (isotropic scales would leave the rotation
-    gradients at rounding noise, which Adam's 1e-15 eps turns into full
-    steps of either sign)."""
-    rng = np.random.default_rng(seed)
-    return dict(
-        colors_sh=(rng.standard_normal((p, 48)) * 0.3).astype(np.float32),
-        opacities=np.full((p, 1), np.log(0.7 / 0.3), np.float32),
-        positions=(rng.standard_normal((p, 3)) * 0.6).astype(np.float32),
-        rotations=rng.standard_normal((p, 4)).astype(np.float32),
-        scalings=np.log(0.08 + 0.15 * rng.random((p, 3))).astype(np.float32),
-    )
 
 
 def jax_scene(a):
@@ -207,40 +197,65 @@ def test_next_host_event_matches_jax():
             assert TT.next_host_event(tc, now, now + 10_000) == jax_next(jc, now, now + 10_000)
 
 
-#: tests/test_train.py::test_fit_scan_matches_fit's schedule, with an opacity
-#: reset inside the densify window and a densify threshold that splits and
-#: clones (the statistics keep at least 2% from it).
-TRAIN_SCHEDULE = dict(densify_from=4, densify_until=11, densify_interval=5,
-                      sh_warmup_interval=6, opacity_reset_interval=8,
-                      overflow_check_interval=7)
-DENSIFY = dict(grad_threshold=0.014, percent_dense=0.2)
-
-
-def _trainers():
-    jopts = G.RenderOptions(backend="xla", tile_entry_capacity=2048, block_size=64)
+def _port_trainer(cls=None):
     topts = T.RenderOptions(tile_entry_capacity=2048, block_size=64)
+    return (cls or TT.Trainer)(port_scene(train_arrays(25, 9)), W, H, TT.TrainConfig(
+        render=topts, densify=TT.DensifyConfig(**DENSIFY), **TRAIN_SCHEDULE))
+
+
+@pytest.fixture(scope="module")
+def jax_fit():
+    """The JAX ``Trainer``'s 13-step ``fit`` on ``TRAIN_SCHEDULE``, run once
+    for the tests that hold the port to it: the view pairs, the targets, the
+    history and the final trainer."""
+    jopts = G.RenderOptions(backend="xla", tile_entry_capacity=2048, block_size=64)
     pairs = [views(W, H), views(W, H, position=(0.3, 0.1, -4.0))]
     target = jax_scene(train_arrays(25, 5))
     targets = [np.array(G.render(target, j, jopts).colors_rgb_2d) for j, _ in pairs]
     jtr = GT.Trainer(jax_scene(train_arrays(25, 9)), W, H, GT.TrainConfig(
         render=jopts, densify=GT.DensifyConfig(**DENSIFY), **TRAIN_SCHEDULE))
-    ttr = TT.Trainer(port_scene(train_arrays(25, 9)), W, H, TT.TrainConfig(
-        render=topts, densify=TT.DensifyConfig(**DENSIFY), **TRAIN_SCHEDULE))
-    return jtr, ttr, pairs, targets
+    history = jtr.fit([j for j, _ in pairs], targets, 13)
+    return dict(pairs=pairs, targets=targets, history=history, trainer=jtr)
 
 
-def test_trainer_matches_jax():
-    jtr, ttr, pairs, targets = _trainers()
-    jh = jtr.fit([j for j, _ in pairs], targets, 13)
-    th = ttr.fit([t for _, t in pairs], [torch.as_tensor(x) for x in targets], 13)
+def _port_fit_inputs(jax_fit):
+    return ([t for _, t in jax_fit["pairs"]],
+            [torch.as_tensor(x) for x in jax_fit["targets"]])
+
+
+class _ChunkRecorder:
+    """Wraps a trainer's ``StepGraph.run`` to record each chunk's length."""
+
+    def __init__(self, trainer, run_steps=True):
+        self.lengths = []
+        run = trainer._graph.run
+
+        def record(step, static_key, tensors, steps):
+            self.lengths.append(steps)
+            if run_steps:
+                run(step, static_key, tensors, steps)
+
+        trainer._graph.run = record
+
+
+@pytest.fixture(scope="module")
+def port_scan(jax_fit):
+    """The port's ``fit_scan(..., 13, max_chunk=4)`` on the CPU, with its
+    chunk lengths."""
+    trainer = _port_trainer()
+    recorder = _ChunkRecorder(trainer)
+    history = trainer.fit_scan(*_port_fit_inputs(jax_fit), 13, max_chunk=4)
+    return dict(trainer=trainer, history=history, chunks=recorder.lengths)
+
+
+def _assert_matches_jax(ttr, th, jax_fit):
+    jtr, jh = jax_fit["trainer"], jax_fit["history"]
     assert jtr.step_count == ttr.step_count == 13
-    assert [h.get("point_count") for h in th] == [h.get("point_count") for h in jh]
     assert ttr.scene.point_count == jtr.scene.point_count > 25
-    assert any(h.get("split") for h in th) and any(h.get("cloned") for h in th)
     np.testing.assert_allclose([h["loss"] for h in th], [h["loss"] for h in jh],
                                rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose([h["tile_point_total"] for h in th],
-                               [h["tile_point_total"] for h in jh])
+    np.testing.assert_array_equal([h["tile_point_total"] for h in th],
+                                  [h["tile_point_total"] for h in jh])
     for f in PARAMS:
         atol = 5e-4 if f == "positions" else 1e-3
         np.testing.assert_allclose(getattr(ttr.scene, f).detach().numpy(),
@@ -248,10 +263,74 @@ def test_trainer_matches_jax():
     assert ttr._sh_degree() == jtr._sh_degree() == 2
 
 
-def test_train_step_batch_loss_is_mean_of_views():
-    _, ttr, pairs, targets = _trainers()
-    tviews = [t for _, t in pairs]
-    ttargets = [torch.as_tensor(x) for x in targets]
+def test_trainer_matches_jax(jax_fit):
+    ttr = _port_trainer()
+    th = ttr.fit(*_port_fit_inputs(jax_fit), 13)
+    jh = jax_fit["history"]
+    assert [h.get("point_count") for h in th] == [h.get("point_count") for h in jh]
+    assert any(h.get("split") for h in th) and any(h.get("cloned") for h in th)
+    _assert_matches_jax(ttr, th, jax_fit)
+
+
+def test_fit_scan_matches_jax(jax_fit, port_scan):
+    """``fit_scan`` in chunks of at most 4 against the JAX ``fit``: the
+    tolerances of JAX's own tests/test_train.py::test_fit_scan_matches_fit."""
+    _assert_matches_jax(port_scan["trainer"], port_scan["history"], jax_fit)
+    assert set(port_scan["history"][0]) == {"loss", "psnr", "tile_point_total"}
+
+
+def test_fit_scan_matches_fit(jax_fit, port_scan):
+    """On the CPU ``fit_scan`` runs the step of ``fit`` eagerly, step by step,
+    with the camera and target picked from stacks: the parameters, the Adam
+    state, the densify accumulators and the history bit for bit."""
+    ttr = _port_trainer()
+    th = ttr.fit(*_port_fit_inputs(jax_fit), 13)
+    str_, sh = port_scan["trainer"], port_scan["history"]
+    assert str_.step_count == ttr.step_count
+    for key in ("loss", "psnr", "tile_point_total"):
+        assert [h[key] for h in sh] == [h[key] for h in th], key
+    for f in PARAMS:
+        assert torch.equal(getattr(str_.scene, f), getattr(ttr.scene, f)), f
+        for got, want in zip(str_._opt_state["adam"][f], ttr._opt_state["adam"][f]):
+            assert torch.equal(got, want), f
+    assert torch.equal(str_._opt_state["count"], ttr._opt_state["count"])
+    for k, v in ttr._densify_acc.items():
+        assert torch.equal(str_._densify_acc[k], v), k
+    assert int(str_._entry_watermark) == int(ttr._entry_watermark)
+    assert str_._entry_capacity == ttr._entry_capacity
+
+
+def _jax_chunks(config, now, iterations, max_chunk):
+    from gausplat_tpu.train.trainer import next_host_event as jax_next
+
+    end, lengths = now + iterations, []
+    while now < end:
+        k = min(jax_next(config, now, end) - now, max_chunk)
+        lengths.append(k)
+        now += k
+    return lengths
+
+
+def test_fit_scan_chunks_follow_jax_schedule(port_scan):
+    """The chunks break where the JAX package's ``next_host_event`` puts the
+    host events: on the 13-step fit above, and (steps not run, host events
+    skipped) on the default 3DGS schedule with its defaults."""
+    jc = GT.TrainConfig(**TRAIN_SCHEDULE)
+    assert port_scan["chunks"] == _jax_chunks(jc, 0, 13, 4)
+    assert port_scan["chunks"] == [4, 1, 1, 1, 1, 2, 2, 1]
+    trainer = TT.Trainer(port_scene(train_arrays(5, 1)), W, H)
+    recorder = _ChunkRecorder(trainer, run_steps=False)
+    trainer._host_events = dict
+    trainer.step_count = 2_990
+    pair = views(W, H)[1]
+    history = trainer.fit_scan([pair], [np.zeros((H, W, 3), np.float32)], 1_210)
+    assert len(history) == 1_210
+    assert recorder.lengths == _jax_chunks(GT.TrainConfig(), 2_990, 1_210, 200)
+
+
+def test_train_step_batch_loss_is_mean_of_views(jax_fit):
+    ttr = _port_trainer()
+    tviews, ttargets = _port_fit_inputs(jax_fit)
     scene = ttr.scene
     opts = ttr._options()
     with torch.no_grad():
@@ -290,3 +369,18 @@ def test_checkpoint_round_trip(tmp_path):
     TT.save_training_state(path, scene, bad, step=1)
     with pytest.raises(ValueError, match="structure"):
         TT.load_training_state(path, optim.init(scene), device="cpu")
+
+
+def test_captured_launches_count_at_replay():
+    """A graph's capture runs nothing, so its kernel calls leave the counts
+    as they were; each replay adds the captured launches."""
+    from gausplat_tpu_torch.utils.kernels import CudaKernel, captured_launches, count_replay
+
+    kernel, idle = CudaKernel("expand.cu", "gs_test_entry", []), CudaKernel("expand.cu", "x", [])
+    kernel.launches = 5
+    with captured_launches() as recorded:
+        kernel.launches += 3  # what three launches of the wrapper do
+    assert kernel.launches == 5 and recorded == {kernel: 3} and idle not in recorded
+    for _ in range(2):
+        count_replay(recorded)
+    assert kernel.launches == 11 and idle.launches == 0

@@ -32,6 +32,29 @@ def scene_arrays(p, seed=3):
                 rotations=rotations, scalings=scalings)
 
 
+def train_arrays(p, seed):
+    """An anisotropic scene (isotropic scales would leave the rotation
+    gradients at rounding noise, which Adam's 1e-15 eps turns into full
+    steps of either sign)."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        colors_sh=(rng.standard_normal((p, 48)) * 0.3).astype(np.float32),
+        opacities=np.full((p, 1), np.log(0.7 / 0.3), np.float32),
+        positions=(rng.standard_normal((p, 3)) * 0.6).astype(np.float32),
+        rotations=rng.standard_normal((p, 4)).astype(np.float32),
+        scalings=np.log(0.08 + 0.15 * rng.random((p, 3))).astype(np.float32),
+    )
+
+
+#: tests/test_train.py::test_fit_scan_matches_fit's schedule, with an opacity
+#: reset inside the densify window and a densify threshold that splits and
+#: clones (the statistics keep at least 2% from it).
+TRAIN_SCHEDULE = dict(densify_from=4, densify_until=11, densify_interval=5,
+                      sh_warmup_interval=6, opacity_reset_interval=8,
+                      overflow_check_interval=7)
+DENSIFY = dict(grad_threshold=0.014, percent_dense=0.2)
+
+
 def views(width, height, position=(0.0, 0.0, -4.0), rotation=None):
     """The same camera as a (JAX View, port View) pair. ``rotation`` is the
     world-to-view rotation (default identity), looking along its +z."""
