@@ -2,7 +2,8 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase on card 0
+    python3 chip_smoke.py --cards 4  # the parallel path, one NCCL rank per card
 
 It imports torch, numpy and ``gausplat_tpu_torch`` only (no JAX, and
 nothing of ``tests/``), builds the three hand-written kernel libraries from
@@ -152,7 +153,32 @@ printing one JSON line:
    timed; (c) phase 12's lego prefix, which ran through ``fit_scan``: its
    points (PR 8's eager prefix's 4,114, exactly where (a)'s spread is 0)
    and PSNR beside PR 8's, its ms a step, and the steady state at its
-   shapes as in (b).
+   shapes as in (b); (d) ``ShardedTrainer`` on a (1, 1) ("data",
+   "tiles") mesh over one NCCL rank in this process, the 4 orbit views at
+   1920x1080 from phase 9's start: ``fit`` twice and ``fit_scan`` once, 10
+   steps across a densify event (chunks of 4, 1, 3 and 2 steps), the
+   sharded step captured with its NCCL collectives inside: the point
+   counts equal, the parameters within the spread, the captures, the
+   replays and A, B and C at 40 launches each (replays counted); then the
+   steady state at those shapes as in (b) (3 timings each).
+
+With ``--cards 4`` (a machine with four cards; it exits non-zero before
+any work where fewer are visible, and never runs on fewer ranks or over
+gloo) it runs env, then one phase, nccl_cards: the single 4K render and
+the (2, 2) step's single-device reference on card 0, then four ranks
+spawned over NCCL, rank r on card r, each printing (rank 0) a JSON line
+before each part: (a) the 4K frame of phase 11 (b) in 4 slabs of 544
+rows, against the single render (phase 11's gates), with each rank's ms
+(median of 5, CUDA events) beside the single render's; (b) the (2, 2)
+step against the single-device loss (2e-4) and gradients (1e-3 scaled);
+(c) ``ShardedTrainer`` ``fit`` twice and ``fit_scan`` once from one start,
+10 steps across a densify event: the ranks' scene digests equal, the
+point counts equal, and bit for bit, or else (the first step and fields
+that differ printed) losses within 1e-5 relative and parameters within
+1e-4; (d) the steady state on each rank as in phase 14 (b). Then A, B and
+C on rank 0's slab 0 of (b) against their plain versions
+(``<kernel>@nccl_slab0``, launches summed over the ranks). Its last line's
+``count`` is the cards it drove.
 
 Then it prints the card's name and power limit, one JSON line of
 per-kernel results, every number of which comes from a training path
@@ -167,7 +193,7 @@ its 2,000 steps', phase 13 for A, B and C at each script's shapes,
 ``@mesh_scale_slab0`` and ``@pad_slab`` (``mesh_scale``'s step at 8 ranks
 on the ranks of that slab), phase 14 for A, B and C at the captured
 step's shapes, ``<kernel>@fit_scan``, whose launches are (a)'s fit_scan's,
-replays included: their
+replays included (with ``--cards 4``: only ``<kernel>@nccl_slab0``): their
 launches, and the error, time (``ms``, CUDA events around the wrapper;
 ``device_ms``, its kernels' device time), plain time and bound at the
 step's shapes;
@@ -273,7 +299,12 @@ def profile_device_time(fn, reps: int = 3, top: int = 12) -> dict:
     CUPTI), the device-busy time per call against the host clock, the idle
     share of the window, the kernels the card ran per call and the host's
     calls that put work on the card per call (``host_launches``: kernel
-    and graph launches, memsets and copies; by name in ``host_calls``)."""
+    and graph launches, memsets and copies; by name in ``host_calls``).
+    NCCL's kernels (``collective_ms``) run on their own stream beside the
+    compute and spin while a peer rank is late, so their time can overlap
+    the rest and exceed the work: ``compute_idle_share`` is the share of
+    the window in which no other kernel ran. The profiler's ``nccl:*``
+    ranges, which span those kernels again, are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -290,6 +321,8 @@ def profile_device_time(fn, reps: int = 3, top: int = 12) -> dict:
             if event.key.startswith(HOST_LAUNCH_CALLS):
                 host[event.key] = event.count / reps
             continue
+        if event.key.startswith("nccl:"):
+            continue
         device_us = getattr(event, "device_time_total", None)
         if device_us is None:
             device_us = event.cuda_time_total
@@ -299,8 +332,11 @@ def profile_device_time(fn, reps: int = 3, top: int = 12) -> dict:
     if busy_ms == 0.0:
         return dict(device_busy_ms="not measured (the profiler saw no device time)",
                     wall_ms=wall_ms)
+    collective_ms = sum(k[0] for k in kernels if k[2].startswith("ncclDevKernel"))
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
+        collective_ms=collective_ms,
+        compute_idle_share=1.0 - (busy_ms - collective_ms) / wall_ms,
         kernel_launches=sum(k[1] for k in kernels), host_launches=sum(host.values()),
         host_calls=host,
         top=[dict(ms=ms, calls=n, name=name) for ms, n, name in kernels[:top]],
@@ -729,11 +765,13 @@ def all_kernels():
 
 
 def fit_ten_steps(trainer, views, targets, method="fit") -> tuple[list, list, dict, float]:
-    """The training path: ``Trainer.fit`` (or ``method``, e.g. ``fit_scan``)
-    for 10 steps, in three calls (4, 4 and 2 steps) so that every step's
-    entry total is checked against the capacity it ran with. Every kernel's
-    count is set to 0 just before and read just after. Returns the history,
-    the segments, the launches and the seconds."""
+    """The training path: ``Trainer.fit`` (or ``method``, e.g.
+    ``fit_scan``; or a ``ShardedTrainer``'s, ``views`` then stacked cameras
+    and ``targets`` a stack) for 10 steps, in three calls (4, 4 and 2
+    steps) so that every step's entry total is checked against the capacity
+    it ran with. Every kernel's count is set to 0 just before and read just
+    after. Returns the history, the segments, the launches and the
+    seconds."""
     kernels = all_kernels()
     torch.cuda.synchronize()
     for kernel in kernels:
@@ -741,7 +779,10 @@ def fit_ten_steps(trainer, views, targets, method="fit") -> tuple[list, list, di
     start_time = time.perf_counter()
     history, segments = [], []
     for steps in (4, 4, 2):
-        capacity, points = trainer._entry_capacity, trainer.scene.point_count
+        # A sharded trainer's totals are a slab's, held to the slab's capacity.
+        capacity = (trainer._get_step().capacity if hasattr(trainer, "mesh")
+                    else trainer._entry_capacity)
+        points = trainer.scene.point_count
         part = getattr(trainer, method)(views, targets, steps)
         segments.append(dict(steps=steps, capacity=capacity, points_before=points,
                              points_after=trainer.scene.point_count,
@@ -1589,11 +1630,12 @@ def step_train_config(options, views):
         densify=TT.DensifyConfig(scene_extent=extent))
 
 
-def params_digest(scene) -> str:
+def params_digest(params) -> str:
+    """SHA-256 of a scene's parameter tensors, in order."""
     import hashlib
 
     digest = hashlib.sha256()
-    for p in scene.parameters():
+    for p in params:
         digest.update(p.detach().cpu().numpy().tobytes())
     return digest.hexdigest()
 
@@ -1633,6 +1675,63 @@ def slab_bins(scene, view, index, device) -> dict:
     return dict(points_binned_differently=int(differ.sum()),
                 entries_slab=int(slab.tile_counts.to(torch.int64).sum()),
                 entries_frame_rows=int(torch.where(full_in, (hi - lo) * width, 0).sum()))
+
+
+def mesh4k_record(out, single) -> dict:
+    """The 4K frame put together from its slabs (``out``) against the
+    single-device render (``single``), with the gates of the parallel
+    phase's part (b): finite, the radii equal, at most
+    ``MESH4K_PIXEL_SHARE`` of the pixels beyond 1e-4, the frame's entries
+    within the capacity."""
+    diff = (out.colors_rgb_2d - single.colors_rgb_2d).abs().amax(dim=-1)
+    m = dict(
+        image=[MESH4K_WIDTH, MESH4K_HEIGHT], points=MESH4K_POINTS, slabs=MESH4K_SLABS,
+        visible_points=int((single.radii > 0).sum()),
+        total_entries=int(single.tile_point_total), capacity=MESH4K_CAPACITY,
+        max_abs_diff=float(diff.max()), share_beyond_1e4=float((diff > 1e-4).double().mean()),
+        pixels_differing=int((diff > 0).sum()),
+        transmittance_max_abs=max_abs(out.transmittances, single.transmittances),
+        count_mismatches=int((out.point_rendered_counts != single.point_rendered_counts).sum()),
+        radii_equal=bool(torch.equal(out.radii, single.radii)),
+        finite=bool(torch.isfinite(out.colors_rgb_2d).all()),
+        image_mean=float(out.colors_rgb_2d.mean()))
+    check(m["finite"] and m["radii_equal"] and m["share_beyond_1e4"] <= MESH4K_PIXEL_SHARE
+          and m["total_entries"] <= MESH4K_CAPACITY,
+          f"the 4K slabs differ from the single-device render: {m}")
+    return m
+
+
+def step_reference(T, scene, views, targets) -> tuple[dict, int]:
+    """The single-device reference of the (2, 2) step: the loss and the
+    gradients of the views' mean photometric loss on the card (on the host,
+    to be saved), and the step's capacity: twice the calibrated budget, so
+    that each of the two slabs gets it whole."""
+    from gausplat_tpu_torch import train as TT
+
+    single_options = T.calibrate_options(scene, views)
+    ref = torch.zeros(scene.point_count, device=scene.device, requires_grad=True)
+    loss = sum(TT.photometric_loss(T.render(scene, v, single_options, ref).colors_rgb_2d, t)
+               for v, t in zip(views, targets)) / len(views)
+    params = list(scene.named_parameters())
+    *grads, grad_norm = torch.autograd.grad(loss, [p for _, p in params] + [ref])
+    reference = dict(loss=float(loss.detach()), grad_norm=grad_norm.cpu(),
+                     grads={n: g.cpu() for (n, _), g in zip(params, grads)})
+    return reference, 2 * single_options.tile_entry_capacity
+
+
+def step_record(got, want, h_pad) -> dict:
+    """The (2, 2) step's loss and gradients (``loss_and_grads``) against
+    the single-device ``want`` of :func:`step_reference`: the loss within
+    2e-4 relative, every gradient within ``GRAD_SCALED_ATOL`` scaled."""
+    dev = got["loss"].device
+    errors = {f: scaled_err(g, want["grads"][f].to(dev)) for f, g in got["grads"].items()}
+    errors["grad_norm_sum"] = scaled_err(got["grad_norm"], want["grad_norm"].to(dev))
+    rec = dict(loss=float(got["loss"]), loss_single=want["loss"],
+               loss_rel_err=abs(float(got["loss"]) - want["loss"]) / want["loss"],
+               scaled_err=errors, h_pad=h_pad)
+    check(rec["loss_rel_err"] <= 2e-4 and max(errors.values()) <= GRAD_SCALED_ATOL,
+          f"the sharded step differs from the single-device one: {rec}")
+    return rec
 
 
 def parallel_worker(rank, out_dir, spec):
@@ -1681,24 +1780,8 @@ def parallel_worker(rank, out_dir, spec):
     if rank == 0:
         with torch.no_grad():
             single = T.render(scene, view, options)
-        diff = (out.colors_rgb_2d - single.colors_rgb_2d).abs().amax(dim=-1)
-        rec["mesh4k"] = dict(
-            image=[MESH4K_WIDTH, MESH4K_HEIGHT], points=MESH4K_POINTS, slabs=MESH4K_SLABS,
-            visible_points=int((single.radii > 0).sum()),
-            total_entries=int(single.tile_point_total), capacity=MESH4K_CAPACITY,
-            max_abs_diff=float(diff.max()), share_beyond_1e4=float((diff > 1e-4).double().mean()),
-            pixels_differing=int((diff > 0).sum()),
-            transmittance_max_abs=max_abs(out.transmittances, single.transmittances),
-            count_mismatches=int((out.point_rendered_counts
-                                  != single.point_rendered_counts).sum()),
-            radii_equal=bool(torch.equal(out.radii, single.radii)),
-            finite=bool(torch.isfinite(out.colors_rgb_2d).all()),
-            image_mean=float(out.colors_rgb_2d.mean()))
-        m = rec["mesh4k"]
-        check(m["finite"] and m["radii_equal"] and m["share_beyond_1e4"] <= MESH4K_PIXEL_SHARE
-              and int(single.tile_point_total) <= MESH4K_CAPACITY,
-              f"the 4K slabs differ from the single-device render: {m}")
-        del single, diff
+        rec["mesh4k"] = mesh4k_record(out, single)
+        del single
     del scene, out
     torch.cuda.empty_cache()
 
@@ -1732,14 +1815,8 @@ def parallel_worker(rank, out_dir, spec):
     check(int(got["max_total"]) < step.capacity,
           f"a slab of the step overflowed: {int(got['max_total'])} >= {step.capacity}")
     if rank == 0:
-        want = torch.load(out_dir / "reference.pt", weights_only=True)
-        errors = {f: scaled_err(g, want["grads"][f].to(dev)) for f, g in got["grads"].items()}
-        errors["grad_norm_sum"] = scaled_err(got["grad_norm"], want["grad_norm"].to(dev))
-        rec["step"] = dict(loss=float(got["loss"]), loss_single=want["loss"],
-                           loss_rel_err=abs(float(got["loss"]) - want["loss"]) / want["loss"],
-                           scaled_err=errors, h_pad=h_pad)
-        check(rec["step"]["loss_rel_err"] <= 2e-4 and max(errors.values()) <= GRAD_SCALED_ATOL,
-              f"the sharded step differs from the single-device one: {rec['step']}")
+        rec["step"] = step_record(got, torch.load(out_dir / "reference.pt", weights_only=True),
+                                  h_pad)
     del got
 
     trainer = ShardedTrainer(scene, grid, width, height, config)
@@ -1752,7 +1829,8 @@ def parallel_worker(rank, out_dir, spec):
                       densify=[{k: h[k] for k in ("cloned", "split", "pruned", "point_count")}
                                for h in history if "point_count" in h],
                       tile_point_total=[int(h["tile_point_total"]) for h in history],
-                      points=trainer.scene.point_count, digest=params_digest(trainer.scene))
+                      points=trainer.scene.point_count,
+                      digest=params_digest(trainer.scene.parameters()))
     check(all(math.isfinite(x) for x in rec["fit"]["losses"]) and rec["fit"]["densify"],
           f"the sharded fit failed or ran no densify: {rec['fit']}")
     rec["launches"] = {k.entry: launches[k.entry] + k.launches for k in kernels}
@@ -1848,7 +1926,6 @@ def phase_parallel(ctx):
     import torch.distributed as dist
 
     import gausplat_tpu_torch as T
-    from gausplat_tpu_torch import train as TT
     from gausplat_tpu_torch.parallel import make_mesh, render_tile_sharded
     from gausplat_tpu_torch.parallel.render import _shard_capacity, slab_rows
     from gausplat_tpu_torch.testing import free_port, spawn_ranks
@@ -1894,17 +1971,7 @@ def phase_parallel(ctx):
     views = ctx["views"][1:]
     targets = ctx["targets"][1:]
     scene = T.GaussianScene.from_numpy(**train_start_arrays(arrays), device=dev)
-    single_options = T.calibrate_options(scene, views)
-    # Twice the calibrated budget, so that each of the two slabs gets it whole.
-    step_capacity = 2 * single_options.tile_entry_capacity
-    ref = torch.zeros(scene.point_count, device=dev, requires_grad=True)
-    loss = sum(TT.photometric_loss(T.render(scene, v, single_options, ref).colors_rgb_2d, t)
-               for v, t in zip(views, targets)) / len(views)
-    params = list(scene.named_parameters())
-    *grads, grad_norm = torch.autograd.grad(loss, [p for _, p in params] + [ref])
-    reference = dict(loss=float(loss.detach()), grad_norm=grad_norm.cpu(),
-                     grads={n: g.cpu() for (n, _), g in zip(params, grads)})
-    del loss, grads, grad_norm, ref
+    reference, step_capacity = step_reference(T, scene, views, targets)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -2324,14 +2391,19 @@ def params_max_diff(a, b) -> float:
     return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
 
 
-def steady_state(trainer, views, targets) -> dict:
+def steady_state(trainer, views, targets, reps: int = REPS, profile_steps: int = STEADY_STEPS,
+                 profile_reps: int = 2) -> dict:
     """``STEADY_STEPS`` steps with no host event, eager ``fit`` against
     ``fit_scan`` (the captured step; captured here where the key missed):
-    ms a step (median of 5 CUDA-event timings of the whole call, the
+    ms a step (median of ``reps`` CUDA-event timings of the whole call, the
     history's read included), the profiler's device-busy ms, idle share,
-    kernels and host launches a step, the peak memory of each, and the
-    memory the graph's pool keeps. Then one replay with the host's sync
-    checks set to raise."""
+    kernels and host launches a step (over ``profile_reps`` calls of
+    ``profile_steps`` steps: the profiler's own processing grows with the
+    kernels it saw), the peak memory of each, and the memory the graph's
+    pool keeps. Then one replay with the host's sync checks set to raise.
+    ``trainer`` is a ``Trainer`` (``views`` a list) or a ``ShardedTrainer``
+    (``views`` stacked cameras); every rank of a sharded trainer makes the
+    same calls in the same order."""
     import dataclasses
     import gc
 
@@ -2355,15 +2427,21 @@ def steady_state(trainer, views, targets) -> dict:
     for name in ("fit", "fit_scan"):
         run = lambda: getattr(trainer, name)(views, targets, n)  # noqa: E731
         torch.cuda.reset_peak_memory_stats()
-        ms, ms_all = cuda_ms(run)
+        ms, ms_all = cuda_ms(run, reps)
         try:
-            prof = profile_device_time(run, reps=2)
+            prof = profile_device_time(
+                lambda: getattr(trainer, name)(views, targets, profile_steps),
+                reps=profile_reps)
         except RuntimeError as e:  # the profiler is a measurement, not the path
             prof = dict(device_busy_ms=f"not measured ({e})")
-        per_step = {k: (v / n if isinstance(v, (int, float)) else v) for k, v in prof.items()
-                    if k in ("wall_ms", "device_busy_ms", "kernel_launches", "host_launches")}
+        per_step = {k: (v / profile_steps if isinstance(v, (int, float)) else v)
+                    for k, v in prof.items()
+                    if k in ("wall_ms", "device_busy_ms", "collective_ms", "kernel_launches",
+                             "host_launches")}
         out[name] = dict(ms_per_step=ms / n, ms_all=ms_all, per_step=per_step,
+                         profile_steps=profile_steps,
                          device_idle_share=prof.get("device_idle_share"),
+                         compute_idle_share=prof.get("compute_idle_share"),
                          host_calls=prof.get("host_calls"), top=prof.get("top"),
                          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     graph = trainer._graph
@@ -2386,7 +2464,9 @@ def phase_fit_scan(ctx):
     spread; A, B and C at the captured shapes against their plain versions
     (``<kernel>@fit_scan``); (b) the steady state at those shapes, eager
     against the graph; (c) the tools phase's lego prefix, which ran through
-    ``fit_scan``, beside PR 8's eager prefix, and its steady state."""
+    ``fit_scan``, beside the eager prefix's record (``LEGO_EAGER_POINTS``),
+    and its steady state; (d) ``ShardedTrainer.fit_scan`` on one NCCL rank
+    (:func:`sharded_nccl_fit_scan`)."""
     import gc
 
     import gausplat_tpu_torch as T
@@ -2458,12 +2538,409 @@ def phase_fit_scan(ctx):
         median_ms_per_step=statistics.median(record["ms_per_step"]),
         seconds=record["seconds"], launches=record["launches"])
     out["lego_steady"] = steady_state(lego["trainer"], lego["views"], lego["targets"])
+    del lego, ctx["lego"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) ShardedTrainer.fit_scan on a (1, 1) mesh over one NCCL rank: the
+    # sharded step captured with its collectives inside.
+    out["sharded_nccl"] = sharded_nccl_fit_scan(ctx)
     return dict(card=ctx["card"], **out)
 
 
-def main() -> int:
+#: The sharded steady states' profiled window: one call of this many steps
+#: (a sharded step launches about 1,460 kernels a view).
+SHARDED_PROFILE_STEPS = 5
+
+
+def sharded_fit_config(options, views):
+    """The sharded fits' 10-step schedule: SH degrees 0-2 (warm-up every 4
+    steps), a densify after step 5, an overflow check every 5 steps, so
+    ``fit_scan`` runs chunks of 4, 1, 3 and 2 steps (the one-step chunk
+    eager, the others captured and replayed)."""
+    from gausplat_tpu_torch import train as TT
+
+    extent = TT.camera_extent(views)
+    return TT.TrainConfig(
+        sh_warmup_interval=4, densify_from=5, densify_interval=5, densify_until=6,
+        opacity_reset_interval=10**9, overflow_check_interval=5, render=options,
+        optimizer=TT.OptimizerConfig(scene_extent=extent),
+        densify=TT.DensifyConfig(scene_extent=extent))
+
+
+def sharded_fits(make, cameras, targets) -> dict:
+    """``fit`` twice and ``fit_scan`` once, 10 steps each, from one start
+    (``make()`` builds the trainer), in the segments of
+    :func:`fit_ten_steps` (every count set to 0 before each run): the
+    card's spread (the two fits' largest parameter difference),
+    ``fit_scan``'s difference from the first fit, the first step and the
+    fields where they differ, the point counts, the launches and the
+    graph's captures and replays. Returns the record and the fit_scan
+    trainer."""
+    import gc
+
+    runs = []
+    for method in ("fit", "fit", "fit_scan"):
+        trainer = make()
+        history, segments, launches, seconds = fit_ten_steps(trainer, cameras, targets, method)
+        runs.append(dict(trainer=trainer, history=history, segments=segments,
+                         launches=launches, seconds=seconds, params=params_of(trainer.scene),
+                         points=trainer.scene.point_count))
+        if method == "fit":
+            del trainer, runs[-1]["trainer"]
+            gc.collect()
+    first, second, scan = runs
+    fields = [name for name, _ in scan["trainer"].scene.named_parameters()]
+    differ = [f for f, a, b in zip(fields, scan["params"], first["params"])
+              if not torch.equal(a, b)]
+    steps = [i for i, (a, b) in enumerate(zip(scan["history"], first["history"]))
+             if (a["loss"], a["tile_point_total"]) != (b["loss"], b["tile_point_total"])]
+    graph = scan["trainer"]._graph
+    return dict(
+        record=dict(
+            points=[r["points"] for r in runs],
+            spread=params_max_diff(first["params"], second["params"]),
+            max_abs_diff_from_fit=params_max_diff(scan["params"], first["params"]),
+            bit_for_bit=not differ and not steps, first_differing_step=steps[0] if steps else None,
+            differing_fields=differ,
+            losses=[h["loss"] for h in scan["history"]],
+            fit_losses=[h["loss"] for h in first["history"]],
+            loss_max_rel_diff=max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                                  for a, b in zip(scan["history"], first["history"])),
+            tile_point_total=[int(h["tile_point_total"]) for h in scan["history"]],
+            segments=scan["segments"], launches=scan["launches"],
+            fit_launches=first["launches"], launches_by_run=[r["launches"] for r in runs],
+            graph=dict(captures=graph.captures, replays=graph.replays),
+            fit_seconds=[first["seconds"], second["seconds"]], scan_seconds=scan["seconds"],
+            digest=params_digest(scan["params"]), fit_digest=params_digest(first["params"])),
+        trainer=scan["trainer"])
+
+
+#: fit_scan against fit where the two are not bit for bit: the CPU tests'
+#: bounds of the sharded fit (tests/test_torch_sharded_train.py).
+FIT_LOSS_RTOL, FIT_PARAMS_ATOL = 1e-5, 1e-4
+
+
+def check_sharded_fits(rec, views_a_step, tag, within_spread: bool = True) -> None:
+    """The gates of a fit_scan against its fits: the same point counts; the
+    parameters within the card's spread (0 where the fits agree bit for
+    bit), or, with ``within_spread`` false, bit for bit or else within the
+    CPU tests' bounds (losses ``FIT_LOSS_RTOL``, parameters
+    ``FIT_PARAMS_ATOL``); every step's entries within its slab capacity;
+    the path's kernels launched once a view a step; replays by the graph."""
+    check(len(set(rec["points"])) == 1, f"{tag}: the point counts differ: {rec['points']}")
+    close = (rec["max_abs_diff_from_fit"] <= rec["spread"] if within_spread else
+             rec["bit_for_bit"] or (rec["loss_max_rel_diff"] <= FIT_LOSS_RTOL
+                                    and rec["max_abs_diff_from_fit"] <= FIT_PARAMS_ATOL))
+    check(close, f"{tag}: fit_scan differs from fit by {rec['max_abs_diff_from_fit']} (spread "
+          f"{rec['spread']}; losses {rec['loss_max_rel_diff']} relative; first step "
+          f"{rec['first_differing_step']}, fields {rec['differing_fields']})")
+    check(all(seg["max_total"] <= seg["capacity"] for seg in rec["segments"]),
+          f"{tag}: entry overflow: {rec['segments']}")
+    check(all(math.isfinite(x) for x in rec["losses"]), f"{tag}: a non-finite loss")
+    check(all(rec["launches"][k] == 10 * views_a_step for k in PATH)
+          and rec["launches"] == rec["fit_launches"],
+          f"{tag}: launches {rec['launches']} (fit: {rec['fit_launches']})")
+    check(rec["graph"]["captures"] >= 1 and rec["graph"]["replays"] > 0,
+          f"{tag}: fit_scan replayed no captured step: {rec['graph']}")
+
+
+def sharded_nccl_fit_scan(ctx) -> dict:
+    """fit_scan (d): ``ShardedTrainer`` on a (1, 1) ("data", "tiles") mesh
+    over one NCCL rank in this process, on the bench scene's 4 orbit views
+    at 1920x1080 from the train phase's start: ``fit`` twice and
+    ``fit_scan`` once across a densify event (:func:`sharded_fits`), then
+    the steady state, eager against the graph, with one replay under
+    ``set_sync_debug_mode("error")``."""
+    import torch.distributed as dist
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch.parallel import make_mesh, stack_cameras
+    from gausplat_tpu_torch.parallel.train_step import ShardedTrainer
+    from gausplat_tpu_torch.testing import free_port
+
+    dev = ctx["device"]
+    views, targets = ctx["views"][1:], torch.stack(ctx["targets"][1:])
+    start = train_start_arrays(ctx["arrays"])
+    width, height = views[0].image_width, views[0].image_height
+    cameras = stack_cameras(views, device=dev)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "tiles"))
+        scene = T.GaussianScene.from_numpy(**start, device=dev)
+        config = sharded_fit_config(T.calibrate_options(scene, views), views)
+        del scene
+
+        def make():
+            return ShardedTrainer(T.GaussianScene.from_numpy(**start, device=dev), mesh,
+                                  width, height, config)
+
+        fits = sharded_fits(make, cameras, targets)
+        rec = fits["record"]
+        check_sharded_fits(rec, len(views), "sharded (1, 1) NCCL")
+        steady = steady_state(fits["trainer"], cameras, targets, reps=3,
+                              profile_steps=SHARDED_PROFILE_STEPS, profile_reps=1)
+        backend = mesh.backend
+    finally:
+        dist.destroy_process_group()
+    return dict(mesh=[1, 1], backend=backend, views=len(views), image=[width, height],
+                **rec, steady=steady)
+
+
+# --- the four-card mode: one NCCL rank per card -----------------------------------
+
+#: Ranks of the four-card mode, one per card.
+CARDS = 4
+
+
+def nccl_cards_worker(rank, out_dir, spec):
+    """One of the ranks of ``--cards 4``, on its own card (``cuda:rank``,
+    made current by ``spawn_ranks`` before the NCCL group), printing a JSON
+    line (rank 0) before each part: (a) the 4K frame of ``mesh4k_scene`` in
+    4 slabs of 544 rows, rank 0 against the single render the parent saved
+    (``single4k.pt``), and the render's ms (median of 5, CUDA events);
+    (b) the (2, 2) step on the bench scene's 4 orbit views, rank 0 against
+    ``reference.pt``; (c) ``ShardedTrainer`` ``fit`` twice and
+    ``fit_scan`` once, 10 steps from one start across a densify event;
+    (d) the steady state, eager ``fit`` against ``fit_scan``. Writes
+    ``rank{rank}.json``: its device and backend, times, checks, digests and
+    the path's launches ((a)-(c), the targets' renders and the timings
+    left out)."""
+    import torch.distributed as dist
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch.parallel import make_mesh, render_tile_sharded, stack_cameras
+    from gausplat_tpu_torch.parallel.train_step import ShardedTrainer, make_sharded_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out_dir = pathlib.Path(out_dir)
+    kernels = all_kernels()
+    rec = dict(rank=rank, backend=dist.get_backend(), device=str(dev),
+               current_device=torch.cuda.current_device(),
+               device_name=torch.cuda.get_device_name(dev))
+    check(rec["backend"] == "nccl" and dev.index == rank,
+          f"rank {rank} is not on its own card over NCCL: {rec}")
+    launches = {k.entry: 0 for k in kernels}
+
+    def part(name, what):
+        if rank == 0:
+            print(json.dumps({"phase": "nccl_cards", "part": name, "what": what}), flush=True)
+
+    def zero():
+        for kernel in kernels:
+            kernel.launches = 0
+
+    def take(counts):
+        for entry, n in counts.items():
+            launches[entry] += n
+
+    # (a) The 4K frame in 4 slabs, one card each.
+    part("a", "the 4K frame (2M points, 3840x2176) in 4 slabs of 544 rows, a card each")
+    scene = mesh4k_scene(T, dev)
+    view = mesh4k_view(T)
+    options = T.RenderOptions(tile_entry_capacity=MESH4K_CAPACITY, block_size=128)
+    mesh = make_mesh((MESH4K_SLABS,), ("tiles",))
+
+    def render_4k():
+        with torch.no_grad():
+            return render_tile_sharded(scene, view, mesh, "tiles", options)
+
+    zero()
+    torch.cuda.synchronize()
+    dist.barrier(device_ids=[rank])
+    out = render_4k()
+    torch.cuda.synchronize()
+    take({k.entry: k.launches for k in kernels})
+    rec["render_4k_ms"], rec["render_4k_ms_all"] = cuda_ms(render_4k)
+    slab_capacity = MESH4K_CAPACITY // MESH4K_SLABS
+    rec["slab_watermark"], rec["slab_capacity"] = int(out.tile_point_total), slab_capacity
+    check(int(out.tile_point_total) < slab_capacity,
+          f"a slab overflowed: {int(out.tile_point_total)} >= {slab_capacity}")
+    if rank == 0:
+        want = torch.load(out_dir / "single4k.pt", weights_only=True)
+        single = type(out)(**{f: want[f].to(dev) for f in out._fields})
+        rec["mesh4k"] = mesh4k_record(out, single)
+        del single, want
+    del scene, out
+    torch.cuda.empty_cache()
+
+    # (b) The (2, 2) sharded step against the single-device reference.
+    part("b", "the (2, 2) (data, tiles) step on the bench scene's 4 orbit views at 1920x1080")
+    arrays = bench_scene_arrays()
+    views = bench_views(T)[1:]
+    with torch.no_grad():
+        bench = T.GaussianScene.from_numpy(**arrays, device=dev)
+        targets = torch.stack([
+            T.render(bench, v, T.RenderOptions(tile_entry_capacity=spec["bench_capacity"])
+                     ).colors_rgb_2d for v in views])
+        del bench
+    start = train_start_arrays(arrays)
+    scene = T.GaussianScene.from_numpy(**start, device=dev)
+    grid = make_mesh(STEP_MESH, ("data", "tiles"))
+    config = sharded_fit_config(T.RenderOptions(tile_entry_capacity=spec["step_capacity"]),
+                                views)
+    width, height = views[0].image_width, views[0].image_height
+    step, _, h_pad = make_sharded_train_step(grid, width, height, scene.point_count,
+                                             config.render, config.optimizer)
+    cams = stack_cameras(views, device=dev)
+    padded = torch.nn.functional.pad(targets, (0, 0, 0, 0, 0, h_pad - height))
+    zero()
+    torch.cuda.synchronize()
+    dist.barrier(device_ids=[rank])
+    got = step.loss_and_grads(scene, cams, padded)
+    torch.cuda.synchronize()
+    take({k.entry: k.launches for k in kernels})
+    rec["step_watermark"], rec["step_slab_capacity"] = int(got["max_total"]), step.capacity
+    check(int(got["max_total"]) < step.capacity,
+          f"a slab of the step overflowed: {int(got['max_total'])} >= {step.capacity}")
+    if rank == 0:
+        rec["step"] = step_record(got, torch.load(out_dir / "reference.pt", weights_only=True),
+                                  h_pad)
+    del got, scene, step
+
+    # (c) ShardedTrainer: fit twice and fit_scan once from one start.
+    part("c", "ShardedTrainer: fit twice and fit_scan once, 10 steps across a densify event")
+    fits = sharded_fits(lambda: ShardedTrainer(T.GaussianScene.from_numpy(**start, device=dev),
+                                               grid, width, height, config), cams, targets)
+    rec["fits"] = fits["record"]
+    for counts in rec["fits"]["launches_by_run"]:
+        take(counts)
+    check_sharded_fits(rec["fits"], len(views) // STEP_MESH[0], f"rank {rank}",
+                       within_spread=False)
+    rec["launches"] = launches
+
+    # (d) The steady state on each rank.
+    part("d", f"the steady state: {STEADY_STEPS} steps with no host event, fit against fit_scan")
+    rec["steady"] = steady_state(fits["trainer"], cams, targets, reps=3,
+                                 profile_steps=SHARDED_PROFILE_STEPS, profile_reps=1)
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def phase_nccl_cards(ctx):
+    """The parallel path with one card per rank: the single 4K render and
+    the (2, 2) step's single-device reference on card 0, then four NCCL
+    ranks on cards 0-3 (:func:`nccl_cards_worker`); then A, B and C on rank
+    0's slab 0 of the step against their plain versions
+    (``<kernel>@nccl_slab0``, the launches summed over the ranks)."""
+    import tempfile
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch.parallel.render import _shard_capacity, slab_rows
+    from gausplat_tpu_torch.testing import spawn_ranks
+
+    dev = ctx["device"]
+    kernels = all_kernels()
+    ctx.setdefault("kernels", [])
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # The single 4K render on card 0, and its time.
+        scene = mesh4k_scene(T, dev)
+        view = mesh4k_view(T)
+        options = T.RenderOptions(tile_entry_capacity=MESH4K_CAPACITY, block_size=128)
+
+        def render_4k():
+            with torch.no_grad():
+                return T.render(scene, view, options)
+
+        single = render_4k()
+        torch.save({f: v.cpu() for f, v in single._asdict().items()}, tmp / "single4k.pt")
+        single_ms, single_ms_all = cuda_ms(render_4k)
+        del scene, single
+        # The (2, 2) step's single-device reference.
+        arrays = bench_scene_arrays()
+        all_views = bench_views(T)
+        with torch.no_grad():
+            bench = T.GaussianScene.from_numpy(**arrays, device=dev)
+            bench_capacity = T.calibrate_options(bench, all_views).tile_entry_capacity
+            views = all_views[1:]
+            targets = [T.render(bench, v, T.RenderOptions(tile_entry_capacity=bench_capacity)
+                                ).colors_rgb_2d for v in views]
+            del bench
+        scene = T.GaussianScene.from_numpy(**train_start_arrays(arrays), device=dev)
+        reference, step_capacity = step_reference(T, scene, views, targets)
+        torch.save(reference, tmp / "reference.pt")
+        del reference, targets
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        emit("nccl_cards_ranks_start", 0.0, ranks=CARDS, backend="nccl",
+             devices=[f"cuda:{r}" for r in range(CARDS)])
+        start = time.perf_counter()
+        spawn_ranks(nccl_cards_worker, CARDS, str(tmp),
+                    dict(bench_capacity=bench_capacity, step_capacity=step_capacity),
+                    backend="nccl", timeout_s=600.0)
+        spawn_seconds = time.perf_counter() - start
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(CARDS)]
+
+    check([(r["backend"], r["device"], r["current_device"]) for r in ranks]
+          == [("nccl", f"cuda:{r}", r) for r in range(CARDS)],
+          f"the ranks are not one NCCL rank per card: "
+          f"{[(r['backend'], r['device']) for r in ranks]}")
+    for key in ("digest", "fit_digest"):
+        digests = {r["fits"][key] for r in ranks}
+        check(len(digests) == 1, f"the ranks' scenes differ ({key}): {digests}")
+    launches = {k.entry: sum(r["launches"][k.entry] for r in ranks) for k in kernels}
+    check(all(launches[k] > 0 for k in PATH), f"a kernel of the path never ran: {launches}")
+
+    # A, B and C on rank 0's slab 0 of the step (view 0, rows 0-543), here
+    # on card 0, from the same start.
+    h_local, h_pad = slab_rows(views[0].image_height, STEP_MESH[1])
+    capacity = _shard_capacity(step_capacity, STEP_MESH[1], 256)
+    rec, timings = slab_kernel_records(scene, views[0], (0, h_local), capacity, dev,
+                                       "nccl_slab0")
+    check_live(rec, "nccl_slab0")
+    add_kernel_rows(ctx, timings, "nccl_slab0",
+                    f"nccl_cards: slab 0 (0-{h_local - 1} of {h_pad} rows) of the (2, 2) step "
+                    f"on {CARDS} cards over NCCL, 1920 x {h_local}", launches)
+    rank0 = ranks[0]
+    steady = {name: [{k: r["steady"][name][k] for k in (
+        "ms_per_step", "per_step", "device_idle_share", "compute_idle_share")}
+        for r in ranks] for name in ("fit", "fit_scan")}
+    return dict(
+        cards=nvidia_smi_all("name,power.limit"), backend="nccl",
+        devices=[dict(rank=r["rank"], device=r["device"], name=r["device_name"])
+                 for r in ranks],
+        mesh4k=rank0["mesh4k"], render_4k_single_ms=single_ms,
+        render_4k_single_ms_all=single_ms_all,
+        rank_render_4k_ms=[r["render_4k_ms"] for r in ranks],
+        rank_render_4k_ms_all=[r["render_4k_ms_all"] for r in ranks],
+        slab_watermarks=[r["slab_watermark"] for r in ranks], slab_capacity=rank0["slab_capacity"],
+        step=rank0["step"], step_watermarks=[r["step_watermark"] for r in ranks],
+        step_slab_capacity=rank0["step_slab_capacity"],
+        fits={k: v for k, v in rank0["fits"].items() if k != "launches_by_run"},
+        rank_fits_bit_for_bit=[r["fits"]["bit_for_bit"] for r in ranks],
+        steady=steady, steady_rank0=rank0["steady"], launches=launches,
+        rank_launches=[r["launches"] for r in ranks], spawn_seconds=spawn_seconds,
+        slab0=rec)
+
+
+def nvidia_smi_all(query: str) -> list:
+    """``nvidia-smi --query-gpu`` for every card, one line each."""
+    done = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return done.stdout.strip().splitlines()
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive the port on the card(s).")
+    parser.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
+                        help=f"1: every phase on card 0 (the default); {CARDS}: the parallel "
+                             f"path with one NCCL rank per card (phases env, nccl_cards)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    if torch.cuda.device_count() < args.cards:
+        print(f"chip_smoke: --cards {args.cards} needs {args.cards} cards, "
+              f"{torch.cuda.device_count()} visible; nothing was run", file=sys.stderr)
         return 1
     import gausplat_tpu_torch as T
 
@@ -2479,6 +2956,8 @@ def main() -> int:
               ("train", phase_train), ("colmap_bf16", phase_colmap_bf16),
               ("parallel", phase_parallel), ("tools", phase_tools),
               ("scripts", phase_scripts), ("fit_scan", phase_fit_scan)]
+    if args.cards == CARDS:
+        phases = [("env", phase_env), ("nccl_cards", phase_nccl_cards)]
     for name, phase in phases:
         start = time.perf_counter()
         if name == "expand":
@@ -2496,11 +2975,12 @@ def main() -> int:
             return 1
         emit(name, time.perf_counter() - start, ok=True, **record)
 
-    print(nvidia_smi("name,power.limit"), flush=True)
+    for line in nvidia_smi_all("name,power.limit")[:args.cards]:
+        print(line, flush=True)
     print(json.dumps({"kernels": ctx["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": args.cards if args.cards > 1 else torch.cuda.device_count()}}), flush=True)
     return 0
 
 

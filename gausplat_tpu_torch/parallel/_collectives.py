@@ -11,14 +11,23 @@ them: what ``shard_map``'s transpose does in the JAX package.
 - ``psum`` / ``pmax``: :func:`all_reduce` (no gradient).
 
 The backend is the caller's choice, made when the process group was
-initialised: NCCL for CUDA tensors, gloo for CPU tensors. Several ranks on
-one card cannot use NCCL (it refuses two ranks on one GPU), so they use
-gloo. Everything here is an all-reduce or an all-gather, which gloo takes
-on CUDA tensors as well (it stages them through host memory itself); its
-point-to-point ``send`` / ``recv`` of a CUDA tensor aborts the process,
-which is why the halo exchange is an all-gather of the slabs' edge rows.
-The kernels run on the card in every rank either way. A collective that
-fails raises.
+initialised: NCCL for CUDA tensors, one card per rank, gloo for CPU
+tensors. Several ranks on one card cannot use NCCL (it refuses two ranks
+on one GPU), so they use gloo. Everything here is an all-reduce or an
+all-gather, which gloo takes on CUDA tensors as well (it stages them
+through host memory itself); its point-to-point ``send`` / ``recv`` of a
+CUDA tensor aborts the process, which is why the halo exchange is an
+all-gather of the slabs' edge rows. The kernels run on the card in every
+rank either way. A collective that fails raises.
+
+Only NCCL's collectives can be captured in a CUDA graph: the process
+group runs each on its own stream, after the work queued on the caller's
+current stream and before what the caller queues next there (the capture
+stream in the forward; in the backward, autograd's thread runs on the
+stream of the matching forward op), so under capture the collective
+joins the graph and a replay runs it. gloo's copy through the host cannot be
+captured, so a step over gloo runs eagerly. A group's NCCL communicator is
+made at its first collective, which must run eagerly, before any capture.
 """
 
 from __future__ import annotations

@@ -19,6 +19,14 @@ targets:
 - the densify statistics accumulate as the single-device ``Trainer``'s do,
   and the step returns the entry total's high-water mark over views and
   slabs, so the host can grow the per-slab capacity at its own cadence.
+
+The step copies nothing from the host once its cameras and targets are on
+the device, and writes its state in place, so
+:meth:`ShardedTrainer.fit_scan` captures it on each rank as a CUDA graph
+with its NCCL collectives inside (:class:`..train.step_graph.StepGraph`)
+and replays it for each step of a chunk between host events, the
+counterpart of the JAX package's ``lax.scan`` chunks of the shard_map'd
+step.
 """
 
 from __future__ import annotations
@@ -26,13 +34,17 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from ..constants import SH_DEGREE_MAX
+from ..ops.projection import Camera
 from ..render.pipeline import RenderOptions, _capacity, _render_core, _use_kernels
 from ..scene.gaussian_3d import PARAM_DIMS, GaussianScene
 from ..train.densify import DensifyState, densify_and_prune, reset_opacity, zero_densify_acc
 from ..train.losses import ssim_map
 from ..train.optimizer import OptimizerConfig, make_optimizer, seed_count
+from ..train.step_graph import StepGraph
+from ..train.trainer import _CAMERA_FIELDS, TrainConfig, next_host_event
 from ._collectives import MAX, all_reduce, all_reduce_each, halo_extend
 from .mesh import Mesh
 from .render import _shard_capacity, camera_at, camera_count, slab_rows
@@ -56,6 +68,24 @@ class ShardedStep:
         self.h_local, self.h_pad = slab_rows(image_height, mesh.shape[tile_axis])
         self.capacity = _shard_capacity(_capacity(point_count, options),
                                         mesh.shape[tile_axis], options.block_size)
+        self._constants = {}
+
+    def constants(self, device) -> tuple:
+        """``(shift [2], row_valid [1, h_local, 1, 1], half [2])`` on
+        ``device``, made there once: the slab's screen shift, its rows that
+        exist in the true image (the slab padding off) as 1.0 / 0.0, and
+        the whole frame's half-size for the densification norm."""
+        device = torch.device(device)
+        if device not in self._constants:
+            y0 = self.mesh.coords[self.tile_axis] * self.h_local
+            rows = torch.arange(self.h_local, device=device)
+            self._constants[device] = (
+                torch.tensor([0.0, float(y0)], device=device),
+                (y0 + rows < self.height).to(torch.float32)[None, :, None, None],
+                torch.tensor([self.width / 2.0, self.height / 2.0], dtype=torch.float32,
+                             device=device),
+            )
+        return self._constants[device]
 
     def loss_and_grads(self, scene: GaussianScene, cameras, targets) -> dict:
         """The step without its update: ``loss`` (the whole batch's), the
@@ -73,10 +103,8 @@ class ShardedStep:
             raise ValueError(f"{camera_count(cameras)} views do not split over {d_data} ranks")
         v_local = camera_count(cameras) // d_data
         first = mesh.coords[self.data_axis] * v_local
-        shift = torch.tensor([0.0, float(y0)], device=device)
-        # Rows that exist in the true image (the slab padding off).
-        row_valid = (y0 + torch.arange(h_local, device=device) < self.height).to(
-            torch.float32)[None, :, None, None]
+        shift, row_valid, half = self.constants(device)
+        # A no-op for targets already on the device (ShardedTrainer.pad_targets).
         tgt = torch.as_tensor(targets, dtype=torch.float32, device=device)
         tgt = tgt[first:first + v_local, y0:y0 + h_local] * row_valid
 
@@ -87,8 +115,7 @@ class ShardedStep:
         outs = [
             _render_core(params, ref, camera_at(cameras, first + i, shift), self.width,
                          h_local, self.capacity, self.options, use_kernels,
-                         grad_norm_half=(self.width / 2.0, self.height / 2.0),
-                         sum_over_tiles=lambda x: all_reduce(x, tiles))
+                         grad_norm_half=half, sum_over_tiles=lambda x: all_reduce(x, tiles))
             for i in range(v_local)
         ]
         rendered = torch.stack([o.colors_rgb_2d for o in outs]) * row_valid
@@ -131,11 +158,9 @@ class ShardedStep:
         radii = r["radii"]
         visible = all_reduce((radii > 0).sum(0, dtype=torch.int32), data)
         max_radii = all_reduce(radii.amax(0), data, MAX)
-        densify_acc = {
-            "grad_norm_sum": densify_acc["grad_norm_sum"] + r["grad_norm"],
-            "visible_count": densify_acc["visible_count"] + visible,
-            "max_radii": torch.maximum(densify_acc["max_radii"], max_radii),
-        }
+        densify_acc["grad_norm_sum"].add_(r["grad_norm"])
+        densify_acc["visible_count"].add_(visible)
+        torch.maximum(densify_acc["max_radii"], max_radii, out=densify_acc["max_radii"])
         return scene, opt_state, densify_acc, {"loss": r["loss"],
                                                "tile_point_total": r["max_total"]}
 
@@ -157,9 +182,10 @@ def make_sharded_train_step(
     (``stack_cameras``; V a multiple of the data axis' size) and
     ``targets`` ``[V, h_pad, W, 3]`` (rows padded to whole slabs; the pad
     rows' values are ignored), the same on every rank. The scene's
-    parameters are updated in place and the scene returned. ``metrics``:
-    ``{"loss", "tile_point_total"}`` as 0-d tensors. ``densify_acc``
-    accumulates as the single-device ``Trainer``'s, summed over the views.
+    parameters, the optimizer state and ``densify_acc`` are updated in
+    place and returned. ``metrics``: ``{"loss", "tile_point_total"}`` as
+    0-d tensors. ``densify_acc`` accumulates as the single-device
+    ``Trainer``'s, summed over the views.
     ``step.loss_and_grads`` is the step without its update
     (:meth:`ShardedStep.loss_and_grads`).
     """
@@ -190,8 +216,6 @@ class ShardedTrainer:
         data_axis: str = "data",
         tile_axis: str = "tiles",
     ):
-        from ..train.trainer import TrainConfig
-
         self.scene = scene
         self.mesh = mesh
         self.config = config if config is not None else TrainConfig()
@@ -208,24 +232,45 @@ class ShardedTrainer:
         # Running on-device max of tile_point_total since the last check.
         self._entry_watermark = torch.zeros((), dtype=torch.int32, device=self.device)
         self.h_pad = slab_rows(image_height, mesh.shape[tile_axis])[1]
+        # The step of the current options and point count, kept so that its
+        # device constants and its optimizer's keep their addresses.
+        self._step, self._step_key = None, None
+        # fit_scan's captured step and its device-side inputs.
+        self._graph = StepGraph()
+        self._scan = None
 
     def _sh_degree(self) -> int:
         """SH warm-up schedule, as ``Trainer._sh_degree``."""
         warm = self.step_count // max(self.config.sh_warmup_interval, 1)
         return min(min(warm, SH_DEGREE_MAX), self.config.render.colors_sh_degree_max)
 
-    def _get_step(self):
-        options = dataclasses.replace(
+    def _options(self) -> RenderOptions:
+        return dataclasses.replace(
             self.config.render,
             tile_entry_capacity=self._entry_capacity,
             colors_sh_degree_max=self._sh_degree(),
         )
-        step, optimizer, _ = make_sharded_train_step(
-            self.mesh, self.image_width, self.image_height, self.scene.point_count,
-            options, self.config.optimizer, self.data_axis, self.tile_axis,
-            self.config.ssim_weight,
-        )
-        return step, optimizer
+
+    def _get_step(self) -> ShardedStep:
+        c = self.config
+        key = (self._options(), self.scene.point_count, c.optimizer, c.ssim_weight)
+        if key != self._step_key:
+            self._step, _, _ = make_sharded_train_step(
+                self.mesh, self.image_width, self.image_height, self.scene.point_count,
+                key[0], c.optimizer, self.data_axis, self.tile_axis, c.ssim_weight,
+            )
+            self._step_key = key
+        return self._step
+
+    def _prepare(self) -> ShardedStep:
+        """The step at ``step_count``, with a fresh optimizer state and
+        statistics after a reshape."""
+        step = self._get_step()
+        if self._opt_point_count != self.scene.point_count:
+            self._opt_state = seed_count(step.optimizer.init(self.scene), self.step_count)
+            self._opt_point_count = self.scene.point_count
+            self._densify_acc = zero_densify_acc(self.scene.point_count, self.device)
+        return step
 
     def pad_targets(self, targets) -> torch.Tensor:
         """``[V, H, W, 3]`` -> ``[V, h_pad, W, 3]`` on the scene's device
@@ -237,16 +282,12 @@ class ShardedTrainer:
         """One optimisation step on the view batch. Returns the metrics as
         0-d tensors (no wait for the device), with the densify stats where
         a densify ran."""
-        step, optimizer = self._get_step()
-        if self._opt_point_count != self.scene.point_count:
-            self._opt_state = seed_count(optimizer.init(self.scene), self.step_count)
-            self._opt_point_count = self.scene.point_count
-            self._densify_acc = zero_densify_acc(self.scene.point_count, self.device)
-        self.scene, self._opt_state, self._densify_acc, metrics = step(
-            self.scene, self._opt_state, self._densify_acc, cameras, targets_padded)
+        step = self._prepare()
+        _, _, _, metrics = step(self.scene, self._opt_state, self._densify_acc, cameras,
+                                targets_padded)
         self.step_count += 1
-        self._entry_watermark = torch.maximum(self._entry_watermark,
-                                              metrics["tile_point_total"])
+        torch.maximum(self._entry_watermark, metrics["tile_point_total"],
+                      out=self._entry_watermark)
         stats = self._host_events()
         return {**metrics, **stats} if stats else metrics
 
@@ -277,7 +318,7 @@ class ShardedTrainer:
                 b = c.render.block_size
                 new_cap = int(total * c.capacity_grow_factor)
                 self._entry_capacity = max((new_cap + b - 1) // b * b, self._entry_capacity)
-            self._entry_watermark = torch.zeros((), dtype=torch.int32, device=self.device)
+            self._entry_watermark.zero_()
         return stats
 
     def fit(self, cameras, targets, iterations: int) -> list:
@@ -287,3 +328,109 @@ class ShardedTrainer:
         history = [self.train_step(cameras, padded) for _ in range(iterations)]
         return [{k: (float(v) if isinstance(v, torch.Tensor) and v.dim() == 0 else v)
                  for k, v in h.items()} for h in history]
+
+    def fit_scan(self, cameras, targets, iterations: int, max_chunk: int = 100) -> list:
+        """Like :meth:`fit`, in chunks of at most ``max_chunk`` steps that
+        break at every host event (``next_host_event``), so the result
+        follows the schedule of per-step :meth:`fit`; returns one
+        ``{loss, tile_point_total}`` per step, read from the device once at
+        the end.
+
+        On a mesh over NCCL each chunk replays the step captured as one
+        CUDA graph on each rank, its collectives inside
+        (:class:`..train.step_graph.StepGraph`), recaptured by every rank
+        together after a host event that replaces the step's tensors; an
+        error in capture or replay raises. gloo cannot be captured (it
+        copies CUDA tensors through the host), so on a mesh over gloo (CPU
+        ranks, or ranks that share one card) the same step runs eagerly,
+        step by step, on the same schedule, and gives :meth:`fit`'s
+        answers.
+        """
+        end = self.step_count + iterations
+        scan = self._scan_inputs(cameras, self.pad_targets(targets), max_chunk)
+        capture = self.mesh.backend == "nccl"
+        chunks = []
+        while self.step_count < end:
+            step = self._prepare()
+            k = min(next_host_event(self.config, self.step_count, end) - self.step_count,
+                    max_chunk)
+            scan.slot.zero_()
+            self._graph.run(lambda: self._scan_step(step, scan), self._static_key(),
+                            self._step_tensors(step, scan), k, capture=capture,
+                            any_miss=self._any_rank_missed)
+            chunks.append((scan.losses[:k].clone(), scan.totals[:k].clone()))
+            self.step_count += k
+            self._host_events()
+        losses = torch.cat([c[0] for c in chunks]).tolist()
+        totals = torch.cat([c[1] for c in chunks]).tolist()
+        return [{"loss": loss, "tile_point_total": float(total)}
+                for loss, total in zip(losses, totals)]
+
+    def _scan_inputs(self, cameras, padded: torch.Tensor, max_chunk: int) -> "_ScanInputs":
+        """fit_scan's device-side inputs, written into the last call's
+        tensors where the shapes allow, so the captured step survives."""
+        scan = self._scan
+        if (scan is None or scan.targets.shape != padded.shape
+                or scan.cameras.focal_length.shape != cameras.focal_length.shape
+                or scan.losses.shape[0] != max_chunk):
+            cameras = Camera(**{f: getattr(cameras, f).to(self.device, copy=True)
+                                for f in _CAMERA_FIELDS})
+            scan = self._scan = _ScanInputs(cameras, padded, max_chunk)
+        else:
+            for f in _CAMERA_FIELDS:
+                getattr(scan.cameras, f).copy_(getattr(cameras, f))
+            scan.targets.copy_(padded)
+        return scan
+
+    def _scan_step(self, step: ShardedStep, scan: "_ScanInputs") -> None:
+        """The step of fit_scan: the whole view batch, its metrics into row
+        ``scan.slot``, the watermark and the slot advanced, on the device."""
+        _, _, _, m = step(self.scene, self._opt_state, self._densify_acc, scan.cameras,
+                          scan.targets)
+        torch.maximum(self._entry_watermark, m["tile_point_total"], out=self._entry_watermark)
+        slot = scan.slot.view(1)
+        scan.losses.index_copy_(0, slot, m["loss"].view(1))
+        scan.totals.index_copy_(0, slot, m["tile_point_total"].view(1))
+        scan.slot.add_(1)
+
+    def _static_key(self) -> tuple:
+        """What shapes the step besides its tensors: the mesh, the options
+        (the capacity and the SH degree among them), the optimizer's
+        settings, the loss's weight and the sizes."""
+        mesh, c = self.mesh, self.config
+        return (mesh.axis_names, tuple(mesh.shape.items()), tuple(mesh.coords.items()),
+                self._options(), c.optimizer, c.ssim_weight, self.image_width,
+                self.image_height, self.scene.point_count, self.data_axis, self.tile_axis)
+
+    def _step_tensors(self, step: ShardedStep, scan: "_ScanInputs") -> list:
+        """Every tensor the step of fit_scan reads or writes and keeps."""
+        adam = [t for f in FIELDS for t in self._opt_state["adam"][f]]
+        return [*(getattr(self.scene, f) for f in FIELDS), *adam, self._opt_state["count"],
+                *self._densify_acc.values(), self._entry_watermark, *scan.tensors(),
+                *step.constants(self.device)]
+
+    def _any_rank_missed(self, missed: bool) -> bool:
+        """Whether any rank of the mesh missed its graph's key: the ranks
+        then recapture together (a max over the mesh's group)."""
+        flag = torch.tensor([int(missed)], dtype=torch.int32, device=self.device)
+        dist.all_reduce(flag, op=MAX, group=self.mesh.group)
+        return bool(flag.item())
+
+
+class _ScanInputs:
+    """fit_scan's inputs on the device, at addresses that persist from call
+    to call: the stacked cameras and the padded targets ``[V, ...]``, the
+    chunk's slot, and the metrics buffers (``losses`` and ``totals``
+    ``[max_chunk]``)."""
+
+    def __init__(self, cameras: Camera, targets: torch.Tensor, max_chunk: int):
+        device = targets.device
+        self.cameras = cameras
+        self.targets = targets
+        self.slot = torch.zeros((), dtype=torch.int64, device=device)
+        self.losses = torch.zeros((max_chunk,), dtype=torch.float32, device=device)
+        self.totals = torch.zeros((max_chunk,), dtype=torch.int32, device=device)
+
+    def tensors(self) -> list:
+        return [*(getattr(self.cameras, f) for f in _CAMERA_FIELDS), self.targets, self.slot,
+                self.losses, self.totals]

@@ -293,7 +293,7 @@ def _render_core(
     capacity: int,
     options: RenderOptions,
     use_kernels: bool,
-    grad_norm_half: Optional[tuple] = None,
+    grad_norm_half=None,
     sum_over_tiles: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> RenderOutput:
     """One differentiable render of a ``width`` x ``height`` frame, the
@@ -303,7 +303,9 @@ def _render_core(
     ``params``: the five inner parameters in ``PARAM_DIMS`` order.
     ``capacity``: the entry buffer's size. ``grad_norm_half``: the
     (half width, half height) of the densification norm, where the frame
-    is a slab of a larger one (default: the camera's). ``sum_over_tiles``:
+    is a slab of a larger one (default: the camera's), as a tuple or as a
+    ``[2]`` f32 tensor on the device (which a captured step needs: it
+    copies nothing from the host). ``sum_over_tiles``:
     see :class:`_Frame`.
     """
     colors_sh, opacities, positions, rotations, scalings = params
@@ -333,7 +335,7 @@ def _render_core(
         expand=fused_point_orders if use_kernels else make_point_orders,
     )
     point_rows = pack_point_data(proj, torch.sigmoid(opacities[:, 0]))
-    half = camera.image_size_half if grad_norm_half is None else torch.tensor(
+    half = camera.image_size_half if grad_norm_half is None else torch.as_tensor(
         grad_norm_half, dtype=torch.float32, device=positions.device)
     frame = _Frame(tile_count_x, tile_count_y, width, height, capacity, options.block_size,
                    use_kernels, options.entry_dtype == "bf16", sum_over_tiles)

@@ -50,10 +50,21 @@ def ring_views(count: int, width: int, height: int, *, fov_y: float = 1.0,
     return views
 
 
-def rank_device(device):
-    """The ``torch.device`` a script's ranks run on: ``"cuda"`` means card 0,
-    which every rank of a one-card run shares."""
+def rank_device(device, rank: int = 0, backend: str = "gloo", card_count=None):
+    """The ``torch.device`` that rank ``rank`` of a run over ``backend``
+    runs on. ``"cuda"`` with no index: under NCCL each rank has a card of
+    its own, rank ``r`` on ``cuda:r`` (``ValueError`` where the host has
+    fewer cards; ``card_count`` defaults to ``torch.cuda.device_count()``),
+    and under gloo every rank shares card 0, as on a one-card machine. A
+    device with an index, and the CPU, are kept."""
     import torch
 
     device = torch.device(device)
-    return torch.device("cuda", 0) if device.type == "cuda" and device.index is None else device
+    if device.type != "cuda" or device.index is not None:
+        return device
+    if backend != "nccl":
+        return torch.device("cuda", 0)
+    count = torch.cuda.device_count() if card_count is None else card_count
+    if rank >= count:
+        raise ValueError(f"NCCL rank {rank} needs a card of its own; the host has {count}")
+    return torch.device("cuda", rank)

@@ -242,8 +242,15 @@ def free_port() -> int:
 def _rank_main(rank, world_size, port, backend, timeout_s, worker, args):
     import datetime
 
+    import torch
     import torch.distributed as dist
 
+    if backend == "nccl":
+        # A card per rank, made current before the group exists: NCCL binds
+        # it, and the kernels launch on the current device's stream.
+        from .scripts import rank_device
+
+        torch.cuda.set_device(rank_device("cuda", rank, backend))
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=world_size, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
@@ -257,11 +264,13 @@ def spawn_ranks(worker, world_size: int, *args, backend: str = "gloo",
                 timeout_s: float = 300.0) -> None:
     """Run ``worker(rank, *args)`` in ``world_size`` spawned processes that
     share one default process group (``backend``, over
-    ``tcp://localhost``). ``worker`` must be importable by name, as a
-    spawned child imports it afresh. A rank that raises ends the others,
-    and the exception is raised here (``torch.multiprocessing``'s
-    ``ProcessRaisedException``); a collective that waits longer than
-    ``timeout_s`` fails."""
+    ``tcp://localhost``). Under NCCL rank ``r`` runs on card ``r``
+    (``scripts.rank_device``), made its current device before the group
+    is initialised; under gloo no device is set. ``worker`` must be
+    importable by name, as a spawned child imports it afresh. A rank that
+    raises ends the others, and the exception is raised here
+    (``torch.multiprocessing``'s ``ProcessRaisedException``); a collective
+    that waits longer than ``timeout_s`` fails."""
     import torch.multiprocessing as mp
 
     mp.spawn(_rank_main, args=(world_size, free_port(), backend, timeout_s, worker, args),
@@ -344,7 +353,9 @@ def sharded_train_worker(rank, out_dir, arrays, views_by_height, targets_by_heig
     scene ``arrays`` and a fresh Adam state (targets ``[V, H, W, 3]``
     padded with 7.7, which the step must mask), then
     ``ShardedTrainer.fit`` with ``fit = (arrays, height, config,
-    iterations)``. Writes ``out_dir/rank{rank}.npz``."""
+    iterations, max_chunk)``, and ``ShardedTrainer.fit_scan`` from the same
+    start with ``max_chunk``, with its chunks as ``(first step, steps,
+    points)``. Writes ``out_dir/rank{rank}.npz``."""
     import pathlib
 
     import torch
@@ -372,15 +383,38 @@ def sharded_train_worker(rank, out_dir, arrays, views_by_height, targets_by_heig
         out.update({f"{name}/{k}": _numpy(v) for k, v in {**metrics, **acc}.items()})
         out.update({f"{name}/{k}": _numpy(p) for k, p in scene.named_parameters()})
 
-    fit_arrays, height, config, iterations = fit
+    fit_arrays, height, config, iterations, max_chunk = fit
     views = views_by_height[height]
+    for method in ("fit", "fit_scan"):
+        trainer = ShardedTrainer(GaussianScene.from_numpy(**fit_arrays, device="cpu"), mesh,
+                                 views[0].image_width, height, config)
+        chunks, run = [], trainer._graph.run
+
+        def recorded(step, key, tensors, steps, **kw):
+            chunks.append((trainer.step_count, steps, trainer.scene.point_count))
+            return run(step, key, tensors, steps, **kw)
+
+        trainer._graph.run = recorded
+        cameras, targets = stack_cameras(views, device="cpu"), targets_by_height[height]
+        history = (trainer.fit(cameras, targets, iterations) if method == "fit"
+                   else trainer.fit_scan(cameras, targets, iterations, max_chunk=max_chunk))
+        out[f"{method}/loss"] = np.array([h["loss"] for h in history])
+        out[f"{method}/tile_point_total"] = np.array([h["tile_point_total"] for h in history])
+        out[f"{method}/point_count"] = np.array([h.get("point_count", -1) for h in history])
+        out[f"{method}/chunks"] = np.array(chunks, dtype=np.int64).reshape(-1, 3)
+        out[f"{method}/points"] = np.array(trainer.scene.point_count)
+        out.update({f"{method}/{k}": _numpy(p) for k, p in trainer.scene.named_parameters()})
+
+    # fit_scan's chunks on the default schedule from step 2,990, the steps
+    # not run and the host events skipped.
     trainer = ShardedTrainer(GaussianScene.from_numpy(**fit_arrays, device="cpu"), mesh,
-                             views[0].image_width, height, config)
-    history = trainer.fit(stack_cameras(views, device="cpu"), targets_by_height[height],
-                          iterations)
-    out["fit/loss"] = np.array([h["loss"] for h in history])
-    out["fit/point_count"] = np.array([h.get("point_count", -1) for h in history])
-    out.update({f"fit/{k}": _numpy(p) for k, p in trainer.scene.named_parameters()})
+                             views[0].image_width, height)
+    lengths = []
+    trainer._graph.run = lambda step, key, tensors, steps, **kw: lengths.append(steps)
+    trainer._host_events = dict
+    trainer.step_count = 2_990
+    trainer.fit_scan(cameras, targets, 1_210)
+    out["fit_scan/default_chunks"] = np.array(lengths)
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
 
 

@@ -20,12 +20,21 @@ kernels' first use), and the step is captured for the replays that follow.
 
 On a CPU scene the same step runs eagerly, step by step: that is the
 graph's plain version. On the card nothing here falls back to it: an
-error in capture or replay raises.
+error in capture or replay raises. A caller whose step cannot be captured
+on the card (a sharded step whose collectives go through gloo, which
+copies through the host) asks for the eager steps itself.
+
+Where several processes each capture a step that holds collectives (one
+rank per card over NCCL), every rank must capture and replay the same
+collectives in the same order: a rank that recaptures while another
+replays waits for it forever. The key's addresses are each process's own,
+so such a caller passes ``any_miss``, which makes the miss the ranks'
+common decision.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -49,22 +58,29 @@ class StepGraph:
         self.key, self.graph, self.launches, self._held = None, None, {}, ()
 
     def run(self, step: Callable[[], None], static_key, tensors: Sequence[torch.Tensor],
-            steps: int) -> None:
+            steps: int, capture: bool = True,
+            any_miss: Optional[Callable[[bool], bool]] = None) -> None:
         """Run ``step`` ``steps`` times. ``step`` reads and writes only
         ``tensors`` (and what it allocates itself), and ``static_key`` holds
-        everything else that shapes it. On a CPU device each step runs
-        eagerly; on a CUDA device the graph of ``step`` is replayed, after
-        a miss of the key an eager step on a side stream and a capture."""
+        everything else that shapes it. On a CPU device, or with
+        ``capture`` false, each step runs eagerly; on a CUDA device the
+        graph of ``step`` is replayed, after a miss of the key an eager step
+        on a side stream and a capture. ``any_miss(missed)``, where given,
+        turns this process's miss into the decision of all the processes
+        that capture together (true where any of them missed)."""
         if steps <= 0:
             return
         device = tensors[0].device
-        if device.type != "cuda":
+        if device.type != "cuda" or not capture:
             for _ in range(steps):
                 step()
             return
         # What a graph replays: each tensor's address, shape and type.
         key = (static_key, tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors))
-        if key != self.key:
+        missed = key != self.key
+        if any_miss is not None:
+            missed = any_miss(missed)
+        if missed:
             self.invalidate()
             self._warm_up(step, device)
             self.key, self._held = key, tuple(tensors)

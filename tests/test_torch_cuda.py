@@ -30,7 +30,10 @@ reset with the point count unchanged, SH warm-up, overflow checks) with
 cuDNN held deterministic, it equals ``Trainer.fit`` bit for bit (the
 parameters, the Adam state, the densify accumulators and the history),
 A, B and C count the same launches, and a replay reads nothing back
-(``torch.cuda.set_sync_debug_mode("error")``)."""
+(``torch.cuda.set_sync_debug_mode("error")``). ``ShardedTrainer.fit_scan``
+on a (1, 1) ``("data", "tiles")`` mesh over one NCCL rank captures the
+sharded step with its collectives inside and holds to the same three
+checks against ``ShardedTrainer.fit``."""
 
 import numpy as np
 import pytest
@@ -510,3 +513,65 @@ def _replay_strict(graph):
         graph.replay()
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """A (1, 1) ("data", "tiles") mesh over a default group of one NCCL
+    rank on ``cuda_device``."""
+    import torch.distributed as dist
+
+    from gausplat_tpu_torch.parallel import make_mesh
+    from gausplat_tpu_torch.testing import free_port
+
+    torch.cuda.set_device(cuda_device)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        yield make_mesh((1, 1), ("data", "tiles"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_fit_scan_setup(device, mesh):
+    from gausplat_tpu_torch.parallel import stack_cameras
+    from gausplat_tpu_torch.parallel.train_step import ShardedTrainer
+
+    make, pairs, targets = _fit_scan_setup(device)
+
+    def trainer():
+        t = make()
+        return ShardedTrainer(t.scene, mesh, t.image_width, t.image_height, t.config)
+
+    return trainer, stack_cameras(pairs, device=device), torch.stack(targets)
+
+
+def test_sharded_fit_scan_matches_fit_on_nccl(nccl_mesh, cuda_device, deterministic_cudnn):
+    make, cameras, targets = _sharded_fit_scan_setup(cuda_device, nccl_mesh)
+    eager, scan = make(), make()
+    want, eager_launches = _counted(lambda: eager.fit(cameras, targets, 13))
+    got, scan_launches = _counted(lambda: scan.fit_scan(cameras, targets, 13, max_chunk=4))
+    assert nccl_mesh.backend == "nccl"
+    assert scan._graph.captures >= 2 and scan._graph.replays >= 5
+    assert scan_launches == eager_launches == [26, 26, 26]  # both views, every step
+    assert scan.scene.point_count == eager.scene.point_count > 25
+    for key in ("loss", "tile_point_total"):
+        assert [h[key] for h in got] == [h[key] for h in want], key
+    for f in ("colors_sh", "opacities", "positions", "rotations", "scalings"):
+        assert torch.equal(getattr(scan.scene, f), getattr(eager.scene, f)), f
+        for a, b in zip(scan._opt_state["adam"][f], eager._opt_state["adam"][f]):
+            assert torch.equal(a, b), f
+    for k, v in eager._densify_acc.items():
+        assert torch.equal(scan._densify_acc[k], v), k
+
+
+def test_sharded_fit_scan_replay_reads_nothing_back_on_nccl(nccl_mesh, cuda_device):
+    make, cameras, targets = _sharded_fit_scan_setup(cuda_device, nccl_mesh)
+    trainer = make()
+    trainer.fit_scan(cameras, targets, 3)
+    graph = trainer._graph
+    assert graph.graph is not None and graph.captures == 1 and graph.replays == 2
+    positions = trainer.scene.positions.detach().clone()
+    _, launches = _counted(lambda: _replay_strict(graph))
+    assert launches == [2, 2, 2]
+    assert not torch.equal(trainer.scene.positions.detach(), positions)

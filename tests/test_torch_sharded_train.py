@@ -19,6 +19,12 @@ the same statistics).
 - ``ShardedTrainer.fit`` over 4 steps with densify events after steps 2
   and 4: the same point counts, losses within 1e-5 relative, and the final
   parameters within 1e-4.
+- ``ShardedTrainer.fit_scan`` from the same start (``max_chunk=3``): on
+  gloo it steps eagerly, so its history, point counts and parameters are
+  ``fit``'s bit for bit; it is held to the JAX ``fit`` within the bounds
+  above; its chunks break where the JAX package's ``next_host_event``
+  puts the host events (the schedule alone, no JAX compile), on the fit's
+  schedule and on the default 3DGS schedule from step 2,990.
 - The stored answers are current: the JAX step of the ``l1`` case, run
   again here on the virtual mesh (its program compiles in about 15 s),
   gives the stored loss within rtol 1e-6, the stored parameters within
@@ -32,11 +38,13 @@ import gausplat_tpu_torch as T
 from gausplat_tpu_torch import train as TT
 from gausplat_tpu_torch.testing import sharded_train_worker, spawn_ranks
 
+from gausplat_tpu.train import TrainConfig as JaxTrainConfig
 from tests import torch_parallel_fixture as fx
-from tests.torch_helpers import assert_scaled_close
+from tests.torch_helpers import assert_scaled_close, jax_chunks
 
 STORED = dict(np.load(fx.PATH))
 CASE_IDS = [c[0] for c in fx.STEP_CASES]
+FIT_SCAN_MAX_CHUNK = 3
 
 
 def _arrays(name):
@@ -52,7 +60,7 @@ def ranks(tmp_path_factory):
     targets = {h: STORED[f"targets/{h}"] for h in fx.TRAIN_HEIGHTS}
     spawn_ranks(sharded_train_worker, 4, str(out), _arrays("train"), views, targets,
                 T.RenderOptions(**fx.TRAIN_RENDER), fx.STEP_CASES,
-                (_arrays("fit"), 64, config, fx.FIT_STEPS))
+                (_arrays("fit"), 64, config, fx.FIT_STEPS, FIT_SCAN_MAX_CHUNK))
     return [dict(np.load(out / f"rank{r}.npz")) for r in range(4)]
 
 
@@ -86,6 +94,48 @@ def test_sharded_fit_with_densify_event_matches_jax(ranks):
     for f in fx.FIELDS:
         np.testing.assert_allclose(got[f"fit/{f}"], STORED[f"fit/{f}"], atol=1e-4, rtol=0,
                                    err_msg=f)
+
+
+def _counts_before_each_step(point_count, start: int) -> np.ndarray:
+    """The point count each step of a fit starts with, from its history's
+    ``point_count`` (the count after a densify event, -1 elsewhere)."""
+    counts, now = [], start
+    for c in point_count:
+        counts.append(now)
+        now = int(c) if c >= 0 else now
+    return np.array(counts + [now])
+
+
+def test_sharded_fit_scan_matches_fit_bit_for_bit(ranks):
+    got = ranks[0]
+    for key in ("loss", "tile_point_total", "points", *fx.FIELDS):
+        np.testing.assert_array_equal(got[f"fit_scan/{key}"], got[f"fit/{key}"], err_msg=key)
+    chunks = got["fit_scan/chunks"]
+    before = _counts_before_each_step(got["fit/point_count"], _arrays("fit")["positions"].shape[0])
+    np.testing.assert_array_equal(chunks[:, 2], before[chunks[:, 0]])
+    assert len(chunks) > 1 and chunks[:, 1].sum() == fx.FIT_STEPS
+
+
+def test_sharded_fit_scan_matches_jax(ranks):
+    got = ranks[0]
+    counts = STORED["fit/point_count"]
+    chunks = got["fit_scan/chunks"]
+    before = _counts_before_each_step(counts, _arrays("fit")["positions"].shape[0])
+    np.testing.assert_array_equal(chunks[:, 2], before[chunks[:, 0]])
+    assert int(got["fit_scan/points"]) == before[-1] == STORED["fit/positions"].shape[0]
+    np.testing.assert_allclose(got["fit_scan/loss"], STORED["fit/loss"], rtol=1e-5)
+    for f in fx.FIELDS:
+        np.testing.assert_allclose(got[f"fit_scan/{f}"], STORED[f"fit/{f}"], atol=1e-4, rtol=0,
+                                   err_msg=f)
+
+
+def test_sharded_fit_scan_chunks_follow_jax_schedule(ranks):
+    got = ranks[0]
+    fit_config = JaxTrainConfig(**fx.FIT_CONFIG)
+    assert list(got["fit_scan/chunks"][:, 1]) == jax_chunks(fit_config, 0, fx.FIT_STEPS,
+                                                            FIT_SCAN_MAX_CHUNK)
+    assert list(got["fit_scan/default_chunks"]) == jax_chunks(JaxTrainConfig(), 2_990,
+                                                              1_210, 100)
 
 
 def test_stored_step_answers_are_current():

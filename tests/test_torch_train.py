@@ -34,7 +34,7 @@ from gausplat_tpu.train import losses as jlosses
 from gausplat_tpu.train import optimizer as jopt
 from gausplat_tpu_torch import train as TT
 
-from tests.torch_helpers import DENSIFY, TRAIN_SCHEDULE, train_arrays, views
+from tests.torch_helpers import DENSIFY, TRAIN_SCHEDULE, jax_chunks, train_arrays, views
 
 PARAMS = ("colors_sh", "opacities", "positions", "rotations", "scalings")
 W = H = 48
@@ -300,23 +300,12 @@ def test_fit_scan_matches_fit(jax_fit, port_scan):
     assert str_._entry_capacity == ttr._entry_capacity
 
 
-def _jax_chunks(config, now, iterations, max_chunk):
-    from gausplat_tpu.train.trainer import next_host_event as jax_next
-
-    end, lengths = now + iterations, []
-    while now < end:
-        k = min(jax_next(config, now, end) - now, max_chunk)
-        lengths.append(k)
-        now += k
-    return lengths
-
-
 def test_fit_scan_chunks_follow_jax_schedule(port_scan):
     """The chunks break where the JAX package's ``next_host_event`` puts the
     host events: on the 13-step fit above, and (steps not run, host events
     skipped) on the default 3DGS schedule with its defaults."""
     jc = GT.TrainConfig(**TRAIN_SCHEDULE)
-    assert port_scan["chunks"] == _jax_chunks(jc, 0, 13, 4)
+    assert port_scan["chunks"] == jax_chunks(jc, 0, 13, 4)
     assert port_scan["chunks"] == [4, 1, 1, 1, 1, 2, 2, 1]
     trainer = TT.Trainer(port_scene(train_arrays(5, 1)), W, H)
     recorder = _ChunkRecorder(trainer, run_steps=False)
@@ -325,7 +314,7 @@ def test_fit_scan_chunks_follow_jax_schedule(port_scan):
     pair = views(W, H)[1]
     history = trainer.fit_scan([pair], [np.zeros((H, W, 3), np.float32)], 1_210)
     assert len(history) == 1_210
-    assert recorder.lengths == _jax_chunks(GT.TrainConfig(), 2_990, 1_210, 200)
+    assert recorder.lengths == jax_chunks(GT.TrainConfig(), 2_990, 1_210, 200)
 
 
 def test_train_step_batch_loss_is_mean_of_views(jax_fit):

@@ -86,6 +86,20 @@ def scenes(arrays):
     return jscene, T.GaussianScene.from_arrays(jscene, device="cpu")
 
 
+def jax_chunks(config, now, iterations, max_chunk) -> list:
+    """The chunk lengths of a ``fit_scan`` of ``iterations`` steps from step
+    ``now`` on the JAX package's ``next_host_event`` schedule (plain
+    Python: nothing is compiled)."""
+    from gausplat_tpu.train.trainer import next_host_event as jax_next
+
+    end, lengths = now + iterations, []
+    while now < end:
+        k = min(jax_next(config, now, end) - now, max_chunk)
+        lengths.append(k)
+        now += k
+    return lengths
+
+
 #: Gradients against ``jax.grad``: each field scaled by its largest magnitude.
 SCALED_ATOL = 1e-4
 
