@@ -36,7 +36,14 @@ printing one JSON line:
    device time (profiler, by kernel name), the share of (entry, warp)
    pairs that the rasterizers' footprint keeps, ``torch.sort`` on B's
    int32 keys in turns with the same keys as int64, ``bin_gaussians`` as a
-   whole, and a torch.profiler breakdown of the render;
+   whole, and a torch.profiler breakdown of the render; then the slice's
+   main path, ``render_views`` through its CUDA graph at the 5 views in
+   both modes (the warm-up, the capture and a replay, each bit for bit the
+   5 renders in all five fields; A's and B's launches, by replay too; the
+   static buffers and each mode's pool) and the eager loop against the
+   graph at 1 and 5 views a call (ms a view, busy ms, idle share, host
+   launches; a steady-state call makes one graph launch and no kernel
+   launch from the host);
 6. rasterize_backward: the backward kernel against its plain version on
    the small scene (tight culling on and off) and at full size on the
    bench view with a seeded cotangent, per gradient row within 1e-3
@@ -82,7 +89,11 @@ printing one JSON line:
    turns.
 11. parallel: multi-device render and training on ``torch.distributed``:
    (a) one NCCL rank (world size 1) renders the bench view through
-   ``render_tile_sharded``, bit for bit ``render``, gradients too; then four
+   ``render_tile_sharded``, bit for bit ``render``, gradients too, and
+   serves through the graphs of ``render_data_parallel`` (the 4 orbit
+   views) and ``render_tile_sharded`` (the bench view), each bit for bit
+   its eager call over three calls (warm-up, capture, replay) and timed
+   beside it; then four
    ranks spawned on this card over gloo (NCCL refuses two ranks on one
    GPU; the backend is printed) run (b) BASELINE.json's fifth
    configuration as ``scripts/mesh_4k.py`` makes it, 2,000,000 points at
@@ -169,7 +180,11 @@ the (2, 2) step's single-device reference on card 0, then four ranks
 spawned over NCCL, rank r on card r, each printing (rank 0) a JSON line
 before each part: (a) the 4K frame of phase 11 (b) in 4 slabs of 544
 rows, against the single render (phase 11's gates), with each rank's ms
-(median of 5, CUDA events) beside the single render's; (b) the (2, 2)
+(median of 5, CUDA events) beside the single render's, then the same
+frame through ``render_tile_sharded``'s graph, bit for bit the eager slabs
+on every rank, and 8 orbit views of the bench scene through
+``render_data_parallel``'s graph, 2 a rank, bit for bit its eager call,
+both timed beside the eager calls; (b) the (2, 2)
 step against the single-device loss (2e-4) and gradients (1e-3 scaled);
 (c) ``ShardedTrainer`` ``fit`` twice and ``fit_scan`` once from one start,
 10 steps across a densify event: the ranks' scene digests equal, the
@@ -181,7 +196,10 @@ C on rank 0's slab 0 of (b) against their plain versions
 ``count`` is the cards it drove.
 
 Then it prints the card's name and power limit, one JSON line of
-per-kernel results, every number of which comes from a training path
+per-kernel results: phase 5 for A and B at the serving shapes,
+``<kernel>@render_views_graph``, whose launches are those of
+``render_views`` through its graph (replays counted, and
+``launches_by_replay``), and a training path for the rest
 (phase 9 for the f32 entry points of A, B and C, phase 10 for the packed
 ``rasterize_forward_bf16`` and ``rasterize_backward_bf16``, phase 11 for
 A, B and C on the slabs, ``<kernel>@slab0`` and ``@last_slab``, whose
@@ -885,7 +903,7 @@ def phase_expand(ctx):
     out["full_size"] = same = full["bit_identical"]
     out["full_size_max_abs_diff"] = full["max_abs"]
     check(all(same), f"expansion kernel differs from its plain version at full size: {same}")
-    ctx["proj"], ctx["tcx"], ctx["tcy"] = proj, tcx, tcy
+    ctx["proj"], ctx["tcx"], ctx["tcy"], ctx["expand_full"] = proj, tcx, tcy, full
     return dict(bit_identical=out, capacity=capacity,
                 cuda_vs_cpu_projection_int_flips=flips,
                 cuda_vs_cpu_projection_max_abs=float_err)
@@ -925,7 +943,7 @@ def phase_rasterize(ctx):
             count_mismatches=int((contracted[2] != got[2]).sum()),
             image_max_abs=max_abs(contracted[0], got[0]),
         )
-    ctx["raster_inputs"] = (rows, ids, ranges, tcx)
+    ctx["raster_inputs"], ctx["raster_full"] = (rows, ids, ranges, tcx), full
     ctx["raster_pairs"] = int(got[2].to(torch.int64).sum())
     ctx["raster_blended"] = blended_pairs(rows, ids, ranges, got[2], tcx)
     return results
@@ -980,6 +998,99 @@ def phase_fixture(ctx):
               and rec["total"] == rec["jax_total"]
               and max(grad_err.values()) <= GRAD_SCALED_ATOL,
               f"CUDA render differs from the JAX fixture on {case}: {rec}")
+    return out
+
+
+#: Views a call in the serving comparisons: one, and the five bench views.
+SERVING_VIEW_COUNTS = (1, 5)
+
+
+def serving_graph(ctx, outs) -> dict:
+    """``render_views`` through the graph, the slice's main path: the five
+    bench views in both modes, three calls each (the warm-up, the capture
+    and a replay), every call bit for bit the eager ``render`` outputs
+    ``outs`` in all five fields, one capture and two replays, A's and B's
+    launches (``launches``; ``by_replay`` of them), and the memory each
+    mode keeps: ``static_bytes`` (the camera buffer, the ref and the static
+    outputs, made by the warm-up) and ``graph_pool_bytes`` (what the
+    capture adds to ``torch.cuda.memory_reserved`` after ``empty_cache``).
+    Then the eager loop against the graph at 1 and 5 views a call: ms a
+    view (median of 5 CUDA-event timings of a call), and the
+    profiler's wall and device-busy ms a call, idle share, kernels and host
+    launches a call; a steady-state call must make one graph launch and
+    launch no kernel from the host."""
+    import gc
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch.ops.expand import EXPAND
+    from gausplat_tpu_torch.ops.rasterize import RASTERIZE_FORWARD
+    from gausplat_tpu_torch.render.pipeline import _render_views_eager
+    from gausplat_tpu_torch.render.views_graph import views_graph
+
+    scene, views, options, dev = ctx["scene"], ctx["views"], ctx["options"], ctx["device"]
+    kernels = (EXPAND, RASTERIZE_FORWARD)
+    graph = views_graph("render_views", dev)
+    want = [torch.stack([getattr(o, f) for o in outs]) for f in T.RenderOutput._fields]
+
+    def settle() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
+    out = dict(launches={k.entry: 0 for k in kernels}, by_replay={k.entry: 0 for k in kernels})
+    for mode in ("vmap", "map"):
+        graph.release()
+        reserved = [settle()]
+        for kernel in kernels:
+            kernel.launches = 0
+        for call in ("warm_up", "capture", "replay"):
+            got = T.render_views(scene, views, options, mode=mode)
+            same = {f: bool(torch.equal(a, b)) for f, a, b in zip(got._fields, got, want)}
+            check(all(same.values()), f"render_views ({mode}, {call}) through the graph "
+                  f"differs from render: {same}")
+            del got
+            reserved.append(settle())
+        for kernel in kernels:
+            out["launches"][kernel.entry] += kernel.launches
+            out["by_replay"][kernel.entry] += graph.graph.replays * graph.graph.launches[kernel]
+        counts = (graph.graph.captures, graph.graph.replays)
+        check(counts == (1, 2), f"render_views ({mode}): captures and replays {counts}")
+        out[mode] = dict(bit_for_bit=True, captures=counts[0], replays=counts[1],
+                         static_bytes=nbytes(graph.rows, graph.ref, *graph.outputs),
+                         warm_up_reserved_bytes=reserved[1] - reserved[0],
+                         graph_pool_bytes=reserved[2] - reserved[1],
+                         replay_reserved_bytes=reserved[3] - reserved[2])
+    check(all(out["by_replay"][k.entry] == 2 * 2 * len(views) for k in kernels),
+          f"A and B by replay: {out['by_replay']}")
+
+    # The eager loop against the graph, at 1 and 5 views a call.
+    timing = {}
+    for count in SERVING_VIEW_COUNTS:
+        some = views[:count]
+        runs = {"eager": lambda: _render_views_eager(scene, some, options, "vmap", None)}
+        for mode in ("vmap", "map") if count > 1 else ("vmap",):
+            runs[f"graph_{mode}"] = (
+                lambda mode=mode: T.render_views(scene, some, options, mode=mode))
+        for name, run in runs.items():
+            run()
+            run()  # a graph's key changed with the count: the warm-up, then the capture
+            ms, ms_all = cuda_ms(run)
+            try:
+                prof = profile_device_time(run)
+            except RuntimeError as e:  # the profiler is a measurement, not the path
+                prof = dict(device_busy_ms=f"not measured ({e})")
+            rec = dict(ms_per_view=ms / count, ms_all=ms_all, **{
+                k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                         "kernel_launches", "host_launches", "host_calls")})
+            timing[f"{name}_{count}_views"] = rec
+            if name.startswith("graph") and "host_calls" in prof:
+                calls = prof["host_calls"]
+                graphs = sum(n for k, n in calls.items() if "GraphLaunch" in k)
+                kernel_calls = sum(n for k, n in calls.items() if "LaunchKernel" in k)
+                check(graphs == 1 and kernel_calls == 0,
+                      f"a steady-state {name} call of {count} views: {calls}")
+    out["timing"] = timing
     return out
 
 
@@ -1052,8 +1163,29 @@ def phase_main_path(ctx):
     a_bound["blended_pairs"] = ctx["raster_blended"]
     a_bound["warp_keep_share"] = warp_keep_share(rows, ids, ranges, tcx)
     b_bound = bound(nbytes(*b_args) + nbytes(*fused_point_orders(*b_args, **kw)), 0.0)
+
+    # The main path: render_views through the graph, its counts zeroed in
+    # serving_graph. A and B join the kernels line at the serving shapes,
+    # held to their plain versions on the bench view by phases 2 and 3.
+    serving = serving_graph(ctx, outs)
+    for name, kernel, ms, plain, device, bnd, err in (
+            ("rasterize_forward", RASTERIZE_FORWARD, a_ms, a_plain_ms, a_device, a_bound,
+             max(ctx["raster_full"]["image_max_abs"],
+                 ctx["raster_full"]["transmittance_max_abs"])),
+            ("expand_point_orders", EXPAND, b_ms, b_plain_ms, b_device, b_bound,
+             ctx["expand_full"]["max_abs"])):
+        ctx["kernels"].append(dict(
+            name=f"{name}@render_views_graph", route="cuda",
+            source=f"gausplat_tpu_torch/csrc/{kernel.source.name}", replaces=REPLACES[name],
+            path=f"main_path: render_views through the graph, {len(views)} views of the "
+                 f"serving scene at 1920 x 1080, both modes, 3 calls each",
+            launches=serving["launches"][kernel.entry],
+            launches_by_replay=serving["by_replay"][kernel.entry], max_abs_err=err, ms=ms,
+            plain_ms=plain, device_ms=device["device_ms"], bound_ms=bnd["bound_ms"],
+            bound_by=bnd["bound_by"], library_ms=None))
     return dict(
         card=ctx["card"], views=len(views), capacity=capacity, launches=launches,
+        render_views_graph=serving,
         tile_point_total=totals,
         bench_view_total=totals[0], jax_recorded_total=JAX_RECORDED_ENTRIES,
         bench_view_total_minus_jax=totals[0] - JAX_RECORDED_ENTRIES,
@@ -1294,7 +1426,7 @@ def phase_train(ctx):
         ("expand_point_orders", "expand.cu", "gausplat_tpu/ops/expand.py:121"),
         ("rasterize_backward", "rasterize_backward.cu", "gausplat_tpu/ops/rasterize.py:604"),
     )
-    ctx["kernels"] = [
+    ctx["kernels"] += [
         dict(name=name, route="cuda", source=f"gausplat_tpu_torch/csrc/{source}",
              replaces=replaces, launches=launches[source], max_abs_err=errors[name],
              ms=times[name][0][0], plain_ms=times[name][1][0],
@@ -1746,7 +1878,10 @@ def parallel_worker(rank, out_dir, spec):
     import torch.distributed as dist
 
     import gausplat_tpu_torch as T
-    from gausplat_tpu_torch.parallel import make_mesh, render_tile_sharded, stack_cameras
+    from gausplat_tpu_torch.parallel import (
+        make_mesh, render_data_parallel, render_tile_sharded, stack_cameras,
+    )
+    from gausplat_tpu_torch.parallel.render import _data_parallel_eager, _tile_sharded_eager
     from gausplat_tpu_torch.parallel.train_step import ShardedTrainer, make_sharded_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1917,6 +2052,45 @@ def check_live(rec, tag) -> None:
           f"blended pairs {rec['blended_pairs']}")
 
 
+def graph_against_eager(name, graph_call, eager_call, reps: int = REPS) -> dict:
+    """A sharded serving call through its graph (``graph_call``: the public
+    entry point under no grad, views_graph ``name``) against the same call's
+    eager form (``eager_call``) on this rank: three graph calls (the
+    warm-up, the capture, a replay), each bit for bit the eager outputs in
+    all five fields, one capture and two replays, A's and B's launches of
+    those calls, then both timed (median of ``reps`` CUDA-event timings of
+    a call). Every rank of the mesh makes the same calls in the same order.
+    Returns the record and the eager outputs."""
+    from gausplat_tpu_torch.render.views_graph import views_graph
+
+    kernels = all_kernels()
+    graph = views_graph(name, torch.device("cuda", torch.cuda.current_device()))
+    graph.release()
+    with torch.no_grad():
+        want = eager_call()
+        for kernel in kernels:
+            kernel.launches = 0
+        same = []
+        for _ in range(3):
+            got = graph_call()
+            same.append({f: bool(torch.equal(a, b)) for f, a, b in zip(got._fields, got, want)})
+        torch.cuda.synchronize()
+        launches = {k.entry: k.launches for k in kernels}
+        counts = (graph.graph.captures, graph.graph.replays)
+        check(all(all(x.values()) for x in same),
+              f"{name} through its graph differs from the eager call: {same}")
+        check(counts == (1, 2), f"{name}: captures and replays {counts}")
+        check(all(launches[k] > 0 for k in PATH[:2]), f"{name}: A or B never ran: {launches}")
+        by_replay = {k.entry: 2 * graph.graph.launches.get(k, 0) for k in kernels}
+        eager_ms, eager_all = cuda_ms(eager_call, reps)
+        graph_ms, graph_all = cuda_ms(graph_call, reps)
+    graph.release()  # before its process group goes
+    return dict(bit_for_bit=True, captures=counts[0], replays=counts[1], launches=launches,
+                launches_by_replay=by_replay,
+                eager_ms=eager_ms, eager_ms_all=eager_all, graph_ms=graph_ms,
+                graph_ms_all=graph_all), want
+
+
 def phase_parallel(ctx):
     """Multi-device render and training on torch.distributed: (a) one NCCL
     rank, (b) the 4K frame in 4 gloo slabs, (c) the (2, 2) sharded step and
@@ -1926,8 +2100,12 @@ def phase_parallel(ctx):
     import torch.distributed as dist
 
     import gausplat_tpu_torch as T
-    from gausplat_tpu_torch.parallel import make_mesh, render_tile_sharded
-    from gausplat_tpu_torch.parallel.render import _shard_capacity, slab_rows
+    from gausplat_tpu_torch.parallel import (
+        make_mesh, render_data_parallel, render_tile_sharded, stack_cameras,
+    )
+    from gausplat_tpu_torch.parallel.render import (
+        _data_parallel_eager, _shard_capacity, _tile_sharded_eager, slab_rows,
+    )
     from gausplat_tpu_torch.testing import free_port, spawn_ranks
 
     dev, arrays = ctx["device"], ctx["arrays"]
@@ -1963,6 +2141,24 @@ def phase_parallel(ctx):
         check(all(same.values()), f"one NCCL rank differs from render: {same}")
         check(all(grads_same.values()), f"one NCCL rank's gradients differ: {grads_same}")
         del runs, got, want, got_grads, want_grads, got_norm, want_norm, out, scene, ref
+
+        # Serving on the NCCL rank: render_data_parallel of the 4 orbit views
+        # and render_tile_sharded of the bench view, each captured with its
+        # collectives, bit for bit the eager call.
+        grid = make_mesh((1, 1), ("data", "tiles"))
+        scene, options = ctx["scene"], ctx["options"]
+        cams = stack_cameras(ctx["views"][1:], device=dev)
+        w, h = view.image_width, view.image_height
+        result["nccl_world_1_graph"] = {
+            "render_data_parallel": graph_against_eager(
+                "parallel.render_data_parallel",
+                lambda: render_data_parallel(scene, cams, w, h, grid, "data", options),
+                lambda: _data_parallel_eager(scene, cams, w, h, grid, "data", options, None))[0],
+            "render_tile_sharded": graph_against_eager(
+                "parallel.render_tile_sharded",
+                lambda: render_tile_sharded(scene, view, grid, "tiles", options),
+                lambda: _tile_sharded_eager(scene, view, grid, "tiles", options, None))[0],
+        }
     finally:
         dist.destroy_process_group()
 
@@ -2693,6 +2889,9 @@ def sharded_nccl_fit_scan(ctx) -> dict:
 
 #: Ranks of the four-card mode, one per card.
 CARDS = 4
+#: The yaws (rad) of the four-card mode's served orbit views of the bench
+#: scene: 8 views, 2 a rank.
+SERVE_YAWS = (-0.2, -0.15, -0.1, -0.05, 0.0, 0.05, 0.1, 0.15)
 
 
 def nccl_cards_worker(rank, out_dir, spec):
@@ -2711,7 +2910,10 @@ def nccl_cards_worker(rank, out_dir, spec):
     import torch.distributed as dist
 
     import gausplat_tpu_torch as T
-    from gausplat_tpu_torch.parallel import make_mesh, render_tile_sharded, stack_cameras
+    from gausplat_tpu_torch.parallel import (
+        make_mesh, render_data_parallel, render_tile_sharded, stack_cameras,
+    )
+    from gausplat_tpu_torch.parallel.render import _data_parallel_eager, _tile_sharded_eager
     from gausplat_tpu_torch.parallel.train_step import ShardedTrainer, make_sharded_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2745,9 +2947,9 @@ def nccl_cards_worker(rank, out_dir, spec):
     options = T.RenderOptions(tile_entry_capacity=MESH4K_CAPACITY, block_size=128)
     mesh = make_mesh((MESH4K_SLABS,), ("tiles",))
 
-    def render_4k():
+    def render_4k():  # the eager slabs
         with torch.no_grad():
-            return render_tile_sharded(scene, view, mesh, "tiles", options)
+            return _tile_sharded_eager(scene, view, mesh, "tiles", options, None)
 
     zero()
     torch.cuda.synchronize()
@@ -2760,12 +2962,42 @@ def nccl_cards_worker(rank, out_dir, spec):
     rec["slab_watermark"], rec["slab_capacity"] = int(out.tile_point_total), slab_capacity
     check(int(out.tile_point_total) < slab_capacity,
           f"a slab overflowed: {int(out.tile_point_total)} >= {slab_capacity}")
+    # (a') The same frame through the captured render_tile_sharded: bit for
+    # bit the eager slabs on every rank.
+    part("a'", "the 4K frame through render_tile_sharded's graph against the eager slabs")
+    rec["render_4k_graph"], _ = graph_against_eager(
+        "parallel.render_tile_sharded",
+        lambda: render_tile_sharded(scene, view, mesh, "tiles", options), render_4k)
+    take(rec["render_4k_graph"]["launches"])
     if rank == 0:
         want = torch.load(out_dir / "single4k.pt", weights_only=True)
         single = type(out)(**{f: want[f].to(dev) for f in out._fields})
         rec["mesh4k"] = mesh4k_record(out, single)
         del single, want
     del scene, out
+    torch.cuda.empty_cache()
+
+    # (a'') 8 orbit views of the bench scene through the captured
+    # render_data_parallel, 2 a rank, bit for bit the eager call.
+    part("a''", f"render_data_parallel's graph: {len(SERVE_YAWS)} orbit views, "
+                f"{len(SERVE_YAWS) // CARDS} a rank")
+    with torch.no_grad():
+        bench = T.GaussianScene.from_numpy(**bench_scene_arrays(), device=dev)
+    serve_views = [orbit_view(T, yaw, 0.0) for yaw in SERVE_YAWS]
+    serve_cams = stack_cameras(serve_views, device=dev)
+    serve_options = T.RenderOptions(tile_entry_capacity=spec["serve_capacity"])
+    data_mesh = make_mesh((CARDS,), ("data",))
+    w, h = serve_views[0].image_width, serve_views[0].image_height
+    rec["serve_data_parallel"], served = graph_against_eager(
+        "parallel.render_data_parallel",
+        lambda: render_data_parallel(bench, serve_cams, w, h, data_mesh, "data", serve_options),
+        lambda: _data_parallel_eager(bench, serve_cams, w, h, data_mesh, "data", serve_options,
+                                     None))
+    take(rec["serve_data_parallel"]["launches"])
+    totals = [int(t) for t in served.tile_point_total]
+    rec["serve_data_parallel"]["tile_point_total"] = totals
+    check(max(totals) <= spec["serve_capacity"], f"entry overflow: {totals}")
+    del bench, served, serve_cams
     torch.cuda.empty_cache()
 
     # (b) The (2, 2) sharded step against the single-device reference.
@@ -2856,6 +3088,8 @@ def phase_nccl_cards(ctx):
         with torch.no_grad():
             bench = T.GaussianScene.from_numpy(**arrays, device=dev)
             bench_capacity = T.calibrate_options(bench, all_views).tile_entry_capacity
+            serve_capacity = T.calibrate_options(
+                bench, [orbit_view(T, yaw, 0.0) for yaw in SERVE_YAWS]).tile_entry_capacity
             views = all_views[1:]
             targets = [T.render(bench, v, T.RenderOptions(tile_entry_capacity=bench_capacity)
                                 ).colors_rgb_2d for v in views]
@@ -2871,7 +3105,8 @@ def phase_nccl_cards(ctx):
              devices=[f"cuda:{r}" for r in range(CARDS)])
         start = time.perf_counter()
         spawn_ranks(nccl_cards_worker, CARDS, str(tmp),
-                    dict(bench_capacity=bench_capacity, step_capacity=step_capacity),
+                    dict(bench_capacity=bench_capacity, step_capacity=step_capacity,
+                         serve_capacity=serve_capacity),
                     backend="nccl", timeout_s=600.0)
         spawn_seconds = time.perf_counter() - start
         ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(CARDS)]
@@ -2908,6 +3143,8 @@ def phase_nccl_cards(ctx):
         render_4k_single_ms_all=single_ms_all,
         rank_render_4k_ms=[r["render_4k_ms"] for r in ranks],
         rank_render_4k_ms_all=[r["render_4k_ms_all"] for r in ranks],
+        rank_render_4k_graph=[r["render_4k_graph"] for r in ranks],
+        rank_serve_data_parallel=[r["serve_data_parallel"] for r in ranks],
         slab_watermarks=[r["slab_watermark"] for r in ranks], slab_capacity=rank0["slab_capacity"],
         step=rank0["step"], step_watermarks=[r["step_watermark"] for r in ranks],
         step_slab_capacity=rank0["step_slab_capacity"],
@@ -2947,7 +3184,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
-    ctx = dict(device=device, card=nvidia_smi("name,power.limit"))
+    ctx = dict(device=device, card=nvidia_smi("name,power.limit"), kernels=[])
 
     phases = [("env", phase_env), ("expand", phase_expand), ("rasterize", phase_rasterize),
               ("fixture", phase_fixture), ("main_path", phase_main_path),

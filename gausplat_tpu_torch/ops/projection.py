@@ -61,27 +61,26 @@ class Camera:
     #: move borderline Gaussians across tiles.
     pos2d_shift: Optional[torch.Tensor] = None
 
-    @classmethod
-    def from_view(cls, view, *, device) -> "Camera":
+    @staticmethod
+    def host_fields(view) -> dict:
+        """The fields of :meth:`from_view` as float32 numpy arrays, computed
+        on the host in float64 and rounded once."""
         tan_x = np.tan(view.field_of_view_x / 2.0)
         tan_y = np.tan(view.field_of_view_y / 2.0)
-        focal = [view.image_width / tan_x / 2.0, view.image_height / tan_y / 2.0]
-        half = [view.image_width / 2.0, view.image_height / 2.0]
-        bound = [tan_x * (FILTER_LOW_PASS + 1.0), tan_y * (FILTER_LOW_PASS + 1.0)]
-
-        def f32(x):
-            return torch.as_tensor(
-                np.asarray(x, np.float32), dtype=torch.float32, device=device
-            )
-
-        return cls(
-            focal_length=f32(focal),
-            image_size_half=f32(half),
-            view_bound=f32(bound),
-            view_position=f32(view.view_position),
-            view_rotation=f32(view.view_rotation()),
-            view_translation=f32(view.view_translation()),
+        fields = dict(
+            focal_length=[view.image_width / tan_x / 2.0, view.image_height / tan_y / 2.0],
+            image_size_half=[view.image_width / 2.0, view.image_height / 2.0],
+            view_bound=[tan_x * (FILTER_LOW_PASS + 1.0), tan_y * (FILTER_LOW_PASS + 1.0)],
+            view_position=view.view_position,
+            view_rotation=view.view_rotation(),
+            view_translation=view.view_translation(),
         )
+        return {name: np.asarray(x, np.float32) for name, x in fields.items()}
+
+    @classmethod
+    def from_view(cls, view, *, device) -> "Camera":
+        return cls(**{name: torch.as_tensor(x, dtype=torch.float32, device=device)
+                      for name, x in cls.host_fields(view).items()})
 
 
 class ProjectionOutput(NamedTuple):

@@ -55,6 +55,15 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim)
 
 
+def any_rank(flag: bool, group, device) -> bool:
+    """Whether ``flag`` holds on any rank of the group (a max over it, read
+    back on the host): how ranks that capture together decide a miss of
+    their graphs' keys as one."""
+    flags = torch.tensor([int(flag)], dtype=torch.int32, device=device)
+    dist.all_reduce(flags, op=MAX, group=group)
+    return bool(flags.item())
+
+
 def all_reduce_each(tensors, group) -> list:
     """Each of ``tensors`` (one dtype) summed over the group's ranks, in one
     all-reduce of them flattened together."""

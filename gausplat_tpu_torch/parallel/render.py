@@ -19,6 +19,17 @@ holds the whole gradient, as ``jax.grad`` through the JAX function gives it.
   cropped. The densification signal sums the slabs' screen-position
   gradients before the norm, against the whole frame's half-size, so it
   equals the single-device value.
+
+Serving (no grad needed) is one CUDA graph replay a call, as the JAX
+package's jitted vmap and ``shard_map`` are one dispatch
+(:mod:`gausplat_tpu_torch.render.views_graph`): :func:`render_views` on
+any CUDA device, :func:`render_data_parallel` and
+:func:`render_tile_sharded` where the mesh is on NCCL, each rank capturing
+its renders with the collectives inside. The ranks decide a miss of the
+graph's key together (a max over the mesh), so every rank captures and
+replays the same collectives in the same order. Over gloo, which copies
+through the host and cannot be captured, where grad is needed, and inside
+the caller's own capture, they run eagerly.
 """
 
 from __future__ import annotations
@@ -37,10 +48,19 @@ from ..render.pipeline import (
     _render_core,
     _use_kernels,
     scene_params,
+    serve_views,
 )
 from ..render.view import View
+from ..render.views_graph import (
+    camera_at,
+    output_specs,
+    pack_cameras,
+    rows_of,
+    runs_eagerly,
+    views_graph,
+)
 from ..scene.gaussian_3d import GaussianScene
-from ._collectives import MAX, all_gather, all_reduce, gather, replicate
+from ._collectives import MAX, all_gather, all_reduce, any_rank, gather, replicate
 from .mesh import Mesh
 
 
@@ -71,13 +91,6 @@ def camera_count(cameras: Camera) -> int:
     return cameras.focal_length.shape[0]
 
 
-def camera_at(cameras: Camera, i: int, pos2d_shift: Optional[torch.Tensor] = None) -> Camera:
-    """View ``i`` of a stacked :class:`Camera`, with ``pos2d_shift``."""
-    fields = {f.name: getattr(cameras, f.name)[i] for f in dataclasses.fields(Camera)
-              if f.name != "pos2d_shift"}
-    return Camera(**fields, pos2d_shift=pos2d_shift)
-
-
 def _stack(outs: Sequence[RenderOutput]) -> RenderOutput:
     return RenderOutput(*(torch.stack(field) for field in zip(*outs)))
 
@@ -90,16 +103,46 @@ def render_views(
     options: RenderOptions = RenderOptions(),
 ) -> RenderOutput:
     """Render a batch of cameras (:func:`stack_cameras`) on this rank's
-    device, one after another; outputs carry a leading view axis."""
-    device = scene.device
-    p = scene.point_count
-    params, use_kernels = scene_params(scene), _use_kernels(options, device)
+    device, one after another; outputs carry a leading view axis. With no
+    grad needed, one graph replay a call on a CUDA device
+    (``render/pipeline.py::serve_views``)."""
+    device, p = scene.device, scene.point_count
+    params = scene_params(scene)
+    if not runs_eagerly(params):
+        return serve_views(scene, rows_of(cameras), image_width, image_height, options, "map",
+                           "parallel.render_views", device)
+    capacity, use_kernels = _capacity(p, options), _use_kernels(options, device)
     ref = torch.zeros((p,), dtype=torch.float32, device=device)
     return _stack([
         _render_core(params, ref, camera_at(cameras, i), image_width, image_height,
-                     _capacity(p, options), options, use_kernels)
+                     capacity, options, use_kernels)
         for i in range(camera_count(cameras))
     ])
+
+
+def _mesh_key(mesh: Mesh, axis: str) -> tuple:
+    """What a sharded graph is keyed on of its mesh: the layout, this rank's
+    place, and the process groups its collectives run in (a graph captured
+    in a group is never replayed in a later one)."""
+    return (mesh.axis_names, tuple(mesh.shape.items()), tuple(mesh.coords.items()), axis,
+            mesh.groups[axis], mesh.group)
+
+
+def _any_miss(mesh: Mesh, device):
+    """The ranks' common decision on a miss of their graphs' keys."""
+    return lambda missed: any_rank(missed, mesh.group, device)
+
+
+def _write_all(outputs, out: RenderOutput) -> None:
+    for dst, src in zip(outputs, out):
+        dst.copy_(src)
+
+
+def _serves_from_graph(mesh: Mesh, scene: GaussianScene, ref) -> bool:
+    """Whether a sharded call is one graph replay: on NCCL, with no grad
+    needed of the scene or of a given ref."""
+    given = () if ref is None else (ref,)
+    return mesh.backend == "nccl" and not runs_eagerly([*scene_params(scene), *given])
 
 
 def render_data_parallel(
@@ -115,20 +158,35 @@ def render_data_parallel(
     """Render a camera batch split over ``mesh``'s ``axis``: V views (a
     multiple of the axis size D), ``V / D`` on each rank. Returns every
     view's outputs on every rank. Differentiable: the scene's and the
-    ref's gradients are summed over the axis."""
-    d, index, group = mesh.shape[axis], mesh.coords[axis], mesh.groups[axis]
+    ref's gradients are summed over the axis. With no grad needed on
+    NCCL, one graph replay a call on every rank, the gathers inside (the
+    ref, which only a backward reads, is then not used)."""
+    d = mesh.shape[axis]
     v = camera_count(cameras)
     if v % d:
         raise ValueError(f"{v} views do not split over {d} ranks")
+    if not _serves_from_graph(mesh, scene, positions_2d_grad_norm_ref):
+        return _data_parallel_eager(scene, cameras, image_width, image_height, mesh, axis,
+                                    options, positions_2d_grad_norm_ref)
     device, p = scene.device, scene.point_count
-    if positions_2d_grad_norm_ref is None:
-        positions_2d_grad_norm_ref = torch.zeros((p,), dtype=torch.float32, device=device)
-    *params, ref = replicate([*scene_params(scene), positions_2d_grad_norm_ref], group)
-    use_kernels = _use_kernels(options, device)
-    local = v // d
+    params = scene_params(scene)
+    return RenderOutput(*views_graph("parallel.render_data_parallel", device).run(
+        scene, params, rows_of(cameras), output_specs(v, image_width, image_height, p),
+        (*_mesh_key(mesh, axis), image_width, image_height, options),
+        lambda cams, outputs, ref: _write_all(outputs, _data_parallel_local(
+            params, ref, cams, image_width, image_height, mesh, axis, options)),
+        any_miss=_any_miss(mesh, device)))
+
+
+def _data_parallel_local(params, ref, cameras, width, height, mesh, axis, options):
+    """This rank's share of the views rendered, then every rank's gathered."""
+    d, index, group = mesh.shape[axis], mesh.coords[axis], mesh.groups[axis]
+    local = camera_count(cameras) // d
+    device, p = params[0].device, params[0].shape[0]
+    capacity, use_kernels = _capacity(p, options), _use_kernels(options, device)
     out = _stack([
-        _render_core(params, ref, camera_at(cameras, i), image_width, image_height,
-                     _capacity(p, options), options, use_kernels)
+        _render_core(params, ref, camera_at(cameras, i), width, height, capacity, options,
+                     use_kernels)
         for i in range(index * local, (index + 1) * local)
     ])
     return RenderOutput(
@@ -138,6 +196,14 @@ def render_data_parallel(
         transmittances=all_gather(out.transmittances, group),
         point_rendered_counts=all_gather(out.point_rendered_counts, group),
     )
+
+
+def _data_parallel_eager(scene, cameras, width, height, mesh, axis, options, ref):
+    """:func:`render_data_parallel` as a loop of renders, differentiable."""
+    if ref is None:
+        ref = torch.zeros((scene.point_count,), dtype=torch.float32, device=scene.device)
+    *params, ref = replicate([*scene_params(scene), ref], mesh.groups[axis])
+    return _data_parallel_local(params, ref, cameras, width, height, mesh, axis, options)
 
 
 def render_tile_sharded(
@@ -155,28 +221,60 @@ def render_tile_sharded(
     capacity divided by D (each slab bins only its own tiles). Every rank
     gets the whole frame, the radii and the entry total maxed over the
     slabs. Differentiable: the scene's gradients are summed over the axis,
-    and the ref's gradient is the whole frame's densification signal."""
-    d, index, group = mesh.shape[axis], mesh.coords[axis], mesh.groups[axis]
+    and the ref's gradient is the whole frame's densification signal. With
+    no grad needed on NCCL, one graph replay a call on every rank, the
+    gathers and maxima inside, the slab's shift a constant made once."""
+    if not _serves_from_graph(mesh, scene, positions_2d_grad_norm_ref):
+        return _tile_sharded_eager(scene, view, mesh, axis, options,
+                                   positions_2d_grad_norm_ref)
     device, p = scene.device, scene.point_count
     w, h = view.image_width, view.image_height
-    h_local, _ = slab_rows(h, d)
+    y0 = mesh.coords[axis] * slab_rows(h, mesh.shape[axis])[0]
+    params = scene_params(scene)
+    graph = views_graph("parallel.render_tile_sharded", device)
+    shift = graph.constant(("pos2d_shift", y0), lambda: torch.tensor(
+        [0.0, float(y0)], device=device))
+    # The whole view's camera: its half-size is the frame's, the
+    # densification norm's (which only a backward reads).
+    return RenderOutput(*graph.run(
+        scene, params, pack_cameras([view]), output_specs(None, w, h, p),
+        (*_mesh_key(mesh, axis), w, h, options),
+        lambda cams, outputs, ref: _write_all(outputs, _tile_slab(
+            params, ref, camera_at(cams, 0, shift), w, h, mesh, axis, options, None)),
+        constants=(shift,), any_miss=_any_miss(mesh, device)))
+
+
+def _tile_slab(params, ref, camera, width, height, mesh, axis, options, grad_norm_half):
+    """This rank's slab rendered (``camera`` shifted to it), then the slabs
+    joined on every rank: the frame's rows, the radii and totals maxed."""
+    d, group = mesh.shape[axis], mesh.groups[axis]
+    device, p = params[0].device, params[0].shape[0]
     capacity = _shard_capacity(_capacity(p, options), d, options.block_size)
-    camera = Camera.from_view(view, device=device)
-    camera.pos2d_shift = torch.tensor([0.0, float(index * h_local)], device=device)
-    if positions_2d_grad_norm_ref is None:
-        positions_2d_grad_norm_ref = torch.zeros((p,), dtype=torch.float32, device=device)
-    # The ref is not replicated: each slab's backward already sums the
-    # position gradients over the slabs, so every rank's norm is whole.
-    params = replicate(scene_params(scene), group)
     out = _render_core(
-        params, positions_2d_grad_norm_ref, camera, w, h_local, capacity, options,
-        _use_kernels(options, device), grad_norm_half=(w / 2.0, h / 2.0),
+        params, ref, camera, width, slab_rows(height, d)[0], capacity, options,
+        _use_kernels(options, device), grad_norm_half=grad_norm_half,
         sum_over_tiles=lambda x: all_reduce(x, group),
     )
     return RenderOutput(
-        colors_rgb_2d=gather(out.colors_rgb_2d, group)[:h],
+        colors_rgb_2d=gather(out.colors_rgb_2d, group)[:height],
         radii=all_reduce(out.radii, group, MAX),
         tile_point_total=all_reduce(out.tile_point_total, group, MAX),
-        transmittances=all_gather(out.transmittances, group)[:h],
-        point_rendered_counts=all_gather(out.point_rendered_counts, group)[:h],
+        transmittances=all_gather(out.transmittances, group)[:height],
+        point_rendered_counts=all_gather(out.point_rendered_counts, group)[:height],
     )
+
+
+def _tile_sharded_eager(scene, view, mesh, axis, options, ref):
+    """:func:`render_tile_sharded` with the camera made per call,
+    differentiable."""
+    device = scene.device
+    w, h = view.image_width, view.image_height
+    camera = Camera.from_view(view, device=device)
+    y0 = mesh.coords[axis] * slab_rows(h, mesh.shape[axis])[0]
+    camera.pos2d_shift = torch.tensor([0.0, float(y0)], device=device)
+    if ref is None:
+        ref = torch.zeros((scene.point_count,), dtype=torch.float32, device=device)
+    # The ref is not replicated: each slab's backward already sums the
+    # position gradients over the slabs, so every rank's norm is whole.
+    params = replicate(scene_params(scene), mesh.groups[axis])
+    return _tile_slab(params, ref, camera, w, h, mesh, axis, options, (w / 2.0, h / 2.0))

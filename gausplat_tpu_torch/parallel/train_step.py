@@ -23,7 +23,7 @@ targets:
 The step copies nothing from the host once its cameras and targets are on
 the device, and writes its state in place, so
 :meth:`ShardedTrainer.fit_scan` captures it on each rank as a CUDA graph
-with its NCCL collectives inside (:class:`..train.step_graph.StepGraph`)
+with its NCCL collectives inside (:class:`..utils.step_graph.StepGraph`)
 and replays it for each step of a chunk between host events, the
 counterpart of the JAX package's ``lax.scan`` chunks of the shard_map'd
 step.
@@ -34,7 +34,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.distributed as dist
 
 from ..constants import SH_DEGREE_MAX
 from ..ops.projection import Camera
@@ -43,9 +42,9 @@ from ..scene.gaussian_3d import PARAM_DIMS, GaussianScene
 from ..train.densify import DensifyState, densify_and_prune, reset_opacity, zero_densify_acc
 from ..train.losses import ssim_map
 from ..train.optimizer import OptimizerConfig, make_optimizer, seed_count
-from ..train.step_graph import StepGraph
 from ..train.trainer import _CAMERA_FIELDS, TrainConfig, next_host_event
-from ._collectives import MAX, all_reduce, all_reduce_each, halo_extend
+from ..utils.step_graph import StepGraph
+from ._collectives import MAX, all_reduce, all_reduce_each, any_rank, halo_extend
 from .mesh import Mesh
 from .render import _shard_capacity, camera_at, camera_count, slab_rows
 
@@ -338,7 +337,7 @@ class ShardedTrainer:
 
         On a mesh over NCCL each chunk replays the step captured as one
         CUDA graph on each rank, its collectives inside
-        (:class:`..train.step_graph.StepGraph`), recaptured by every rank
+        (:class:`..utils.step_graph.StepGraph`), recaptured by every rank
         together after a host event that replaces the step's tensors; an
         error in capture or replay raises. gloo cannot be captured (it
         copies CUDA tensors through the host), so on a mesh over gloo (CPU
@@ -412,9 +411,7 @@ class ShardedTrainer:
     def _any_rank_missed(self, missed: bool) -> bool:
         """Whether any rank of the mesh missed its graph's key: the ranks
         then recapture together (a max over the mesh's group)."""
-        flag = torch.tensor([int(missed)], dtype=torch.int32, device=self.device)
-        dist.all_reduce(flag, op=MAX, group=self.mesh.group)
-        return bool(flag.item())
+        return any_rank(missed, self.mesh.group, self.device)
 
 
 class _ScanInputs:

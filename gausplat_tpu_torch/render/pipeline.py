@@ -63,6 +63,7 @@ from ..ops.rasterize import (
 )
 from ..scene.gaussian_3d import PARAM_DIMS, GaussianScene
 from .view import View
+from .views_graph import camera_at, output_specs, pack_cameras, runs_eagerly, views_graph
 
 BACKENDS = ("cuda", "torch", "auto")
 
@@ -400,12 +401,24 @@ def render_views(
     """Render one scene from same-resolution views. Returns a
     :class:`RenderOutput` whose fields carry a leading view axis ``[V, ...]``.
 
+    Serving (no grad needed) on the card is one dispatch a call, as the JAX
+    package's jitted batch is: the views' renders are captured once as a
+    CUDA graph and each call copies its cameras in, replays the graph and
+    copies the outputs out (:mod:`.views_graph`, which says what the graph
+    is keyed on, when it is captured and when it is freed; the first call
+    for a scene runs eagerly, the second captures). On a CPU device the
+    same step runs eagerly. Where grad is enabled and a scene parameter
+    requires it, or inside the caller's own capture, the views are
+    rendered one by one through :func:`render`, differentiably.
+
     ``mode``, as the JAX package's:
-    - ``"vmap"``: every view's outputs stay in flight until all are
-      stacked;
-    - ``"map"``: one view at a time, each copied into the stacked outputs
-      as it finishes, so one view's outputs live beside the stack.
-    Both give the same values, and both are differentiable.
+    - ``"vmap"``: every view in flight at once (in the graph each view on
+      its own stream, every view's buffers live together; in the loop each
+      view's outputs kept until all are stacked);
+    - ``"map"``: one view after another (in the graph each view's buffers
+      freed before the next view's are made; in the loop each view copied
+      into the stacked outputs as it finishes).
+    Both give the same values, bit for bit those of :func:`render`.
     """
     views = list(views)
     if not views:
@@ -417,6 +430,14 @@ def render_views(
             raise InvalidPixelCountError(v.image_width * v.image_height)
     if mode not in ("vmap", "map"):
         raise ValueError(f"mode must be 'vmap' or 'map', got {mode!r}")
+    if runs_eagerly(scene_params(scene)):
+        return _render_views_eager(scene, views, options, mode, device)
+    return serve_views(scene, pack_cameras(views), w, h, options, mode, "render_views",
+                       _scene_device(scene, device))
+
+
+def _render_views_eager(scene, views, options, mode, device) -> RenderOutput:
+    """:func:`render_views` as a loop of :func:`render` calls."""
     if mode == "vmap":
         outs = [render(scene, v, options, device=device) for v in views]
         return RenderOutput(*(torch.stack(field) for field in zip(*outs)))
@@ -428,6 +449,31 @@ def render_views(
         for dst, src in zip(stacked, out):
             dst[i] = src
     return stacked
+
+
+def serve_views(scene: GaussianScene, rows, width: int, height: int, options: RenderOptions,
+                mode: str, name: str, device: torch.device) -> RenderOutput:
+    """Render the V views of the packed camera ``rows`` (numpy, or on the
+    device; :mod:`.views_graph`) as one replay of entry point ``name``'s
+    graph (its step run eagerly on a CPU device), ``mode`` as
+    :func:`render_views`'. Returns outputs with a leading view axis."""
+    point_count = _validate(scene, width, height, options)
+    capacity = _capacity(point_count, options)
+    use_kernels = _use_kernels(options, device)
+    params, count = scene_params(scene), rows.shape[0]
+    graph = views_graph(name, device)
+
+    def one(cameras, outputs, ref, i):
+        out = _render_core(params, ref, camera_at(cameras, i), width, height, capacity,
+                           options, use_kernels)
+        for dst, src in zip(outputs, out):
+            dst[i].copy_(src)
+
+    return RenderOutput(*graph.run(
+        scene, params, rows, output_specs(count, width, height, point_count),
+        (mode, width, height, options),
+        lambda cameras, outputs, ref: graph.each_view(
+            count, lambda i: one(cameras, outputs, ref, i), concurrent=mode == "vmap")))
 
 
 @torch.no_grad()

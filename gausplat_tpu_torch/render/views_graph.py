@@ -1,0 +1,230 @@
+"""Batched serving as one CUDA graph replay a call.
+
+The card's counterpart of the JAX package's one-dispatch batched renders:
+``render/pipeline.py::_make_render_views_fn`` (``jax.jit`` of a ``vmap`` or
+a ``lax.map`` over the views) and, in ``parallel/render.py``, the jitted
+vmap of ``render_views``, the ``shard_map`` of ``render_data_parallel`` and
+that of ``render_tile_sharded``. Each is one dispatch a call there; here
+the same no-grad render (``_render_core`` per view, the collectives where
+the entry point has them) is captured once through
+:class:`~gausplat_tpu_torch.utils.step_graph.StepGraph` and each later
+call is one host-to-device copy of its cameras into a static buffer, one
+graph launch, and one copy of the static outputs into fresh tensors (so
+that a returned tensor never aliases the graph's memory and the next call
+leaves it as it was).
+
+**Cameras.** A view's camera is packed on the host into one float32 row of
+:data:`CAMERA_FLOATS` (focal length, half size, bound, position, the
+row-major 3x3 rotation and the translation, with ``Camera.host_fields``'
+arithmetic), and the ``[V, 21]`` rows go to the card in one copy; the
+stacked :class:`Camera` the step reads is column views of that buffer
+(:func:`stacked_camera`), bit for bit ``stack_cameras`` of
+``Camera.from_view`` (six copies a view).
+
+**The key.** :class:`ViewsGraph` keys its graph on what the caller says
+shapes the render (sizes, options, capacity, mode, mesh) and on the
+address, shape and dtype of the scene's five parameters, the camera
+buffer, the static outputs, the ref and any per-rank constant, and holds
+those tensors while the graph lives. A parameter updated in place is read
+by the next replay; a scene from a setter or ``from_numpy`` holds new
+tensors, so it misses: the old graph and its pool are dropped (their
+memory goes back to the caching allocator), the call runs eagerly on a
+side stream (the warm-up), and the next call captures.
+
+**Memory.** One graph is kept per entry point and device
+(:func:`views_graph`): a server that renders several scenes in turn keeps
+one pool, and recaptures at each change of scene. The graph holds the
+scene's tensors, not the scene; when the scene is collected, a finalizer
+drops the graph, its pool, its buffers and the tensors it held.
+
+**When it runs eagerly** (the documented modes; on the card nothing else
+falls back to them, and an error in capture or replay raises): where grad
+is enabled and a scene parameter (or a given ref) requires it, and where
+the current stream is already capturing (the caller's own graph then
+records the eager loop), the entry points run their eager loops,
+differentiable; on a CPU device the step below runs eagerly, its plain
+version; a render whose collectives go through gloo stays eager.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..ops.projection import Camera
+from ..utils.step_graph import StepGraph
+
+#: Each packed camera field: its name, first column and shape.
+CAMERA_LAYOUT = (
+    ("focal_length", 0, (2,)),
+    ("image_size_half", 2, (2,)),
+    ("view_bound", 4, (2,)),
+    ("view_position", 6, (3,)),
+    ("view_rotation", 9, (3, 3)),
+    ("view_translation", 18, (3,)),
+)
+#: Floats of one packed camera row.
+CAMERA_FLOATS = 21
+
+
+def pack_cameras(views) -> np.ndarray:
+    """The views' cameras as float32 rows ``[V, CAMERA_FLOATS]``."""
+    rows = np.empty((len(views), CAMERA_FLOATS), np.float32)
+    for i, view in enumerate(views):
+        fields = Camera.host_fields(view)
+        rows[i] = np.concatenate([fields[name].reshape(-1) for name, _, _ in CAMERA_LAYOUT])
+    return rows
+
+
+def rows_of(cameras: Camera) -> torch.Tensor:
+    """A stacked :class:`Camera`'s fields as packed rows ``[V, 21]`` on its
+    device (one concatenation, no host copy)."""
+    v = cameras.focal_length.shape[0]
+    return torch.cat([getattr(cameras, name).reshape(v, -1) for name, _, _ in CAMERA_LAYOUT], 1)
+
+
+def stacked_camera(rows: torch.Tensor) -> Camera:
+    """The :class:`Camera` whose fields, with a leading view axis, are
+    column views of the packed ``rows`` ``[V, 21]``."""
+    v = rows.shape[0]
+    return Camera(**{name: rows[:, start:start + int(np.prod(shape))].view(v, *shape)
+                     for name, start, shape in CAMERA_LAYOUT})
+
+
+def camera_at(cameras: Camera, i: int, pos2d_shift: Optional[torch.Tensor] = None) -> Camera:
+    """View ``i`` of a stacked :class:`Camera` (views of its fields), with
+    ``pos2d_shift``."""
+    fields = {f.name: getattr(cameras, f.name)[i] for f in dataclasses.fields(Camera)
+              if f.name != "pos2d_shift"}
+    return Camera(**fields, pos2d_shift=pos2d_shift)
+
+
+def runs_eagerly(tensors: Sequence[torch.Tensor]) -> bool:
+    """Whether a serving call on ``tensors`` (the scene's parameters and any
+    ref) takes its eager loop: grad is enabled and one of them requires it,
+    or the current stream is already capturing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return True
+    device = tensors[0].device
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def output_specs(views: Optional[int], width: int, height: int, points: int) -> tuple:
+    """The ``(shape, dtype)`` of each :class:`RenderOutput` field, with a
+    leading axis of ``views`` (none where ``views`` is None)."""
+    lead = () if views is None else (views,)
+    return ((lead + (height, width, 3), torch.float32), (lead + (points,), torch.int32),
+            (lead, torch.int32), (lead + (height, width), torch.float32),
+            (lead + (height, width), torch.int32))
+
+
+class ViewsGraph:
+    """One entry point's captured batched render on one device, with its
+    static inputs and outputs. ``graph`` is its
+    :class:`~gausplat_tpu_torch.utils.step_graph.StepGraph` (``captures``,
+    ``replays``)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.graph = StepGraph()
+        self.rows = None  # [V, 21] f32: the packed cameras
+        self.outputs = ()  # the static outputs, one per RenderOutput field
+        self.ref = None  # [P] f32 zeros: the render's densification ref
+        self.constants = {}
+        self._streams = []
+        self._finalizer = None
+
+    def release(self) -> None:
+        """Drop the graph, its pool, the static buffers and the held tensors
+        (the counts of captures and replays start again)."""
+        self.graph.invalidate()
+        self.graph = StepGraph()
+        self.rows, self.outputs, self.ref, self.constants = None, (), None, {}
+        if self._finalizer is not None:
+            self._finalizer.detach()
+            self._finalizer = None
+
+    def constant(self, key, make: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """A per-rank constant of the step (a slab's screen shift), made once
+        and held while the graph's scene lives."""
+        if key not in self.constants:
+            self.constants[key] = make()
+        return self.constants[key]
+
+    def each_view(self, count: int, fn: Callable[[int], None], concurrent: bool) -> None:
+        """``fn(i)`` for each view ``i``: one after another on the current
+        stream, or (``concurrent``, on the card) each on its own side stream
+        forked from and joined back to the current one, so every view's
+        buffers are live at once and the views' kernels may overlap."""
+        if not concurrent or self.device.type != "cuda":
+            for i in range(count):
+                fn(i)
+            return
+        current = torch.cuda.current_stream(self.device)
+        while len(self._streams) < count:  # made once, kept
+            self._streams.append(torch.cuda.Stream(self.device))
+        streams = self._streams[:count]
+        for i, stream in enumerate(streams):
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                fn(i)
+        for stream in streams:
+            current.wait_stream(stream)
+
+    def _track(self, scene) -> None:
+        """Tie the graph's life to ``scene``: its collection releases it."""
+        if self._finalizer is not None and self._finalizer.peek() is not None \
+                and self._finalizer.peek()[0] is scene:
+            return
+        if self._finalizer is not None:
+            self._finalizer.detach()
+        self._finalizer = weakref.finalize(scene, ViewsGraph.release, self)
+
+    def _static(self, rows, specs, points: int) -> None:
+        """Static buffers of the call's shapes: kept where they match, else
+        made anew (which misses the key)."""
+        device = self.device
+        if self.rows is None or tuple(self.rows.shape) != tuple(rows.shape):
+            self.rows = torch.empty(tuple(rows.shape), dtype=torch.float32, device=device)
+        if [(tuple(t.shape), t.dtype) for t in self.outputs] != [(s, d) for s, d in specs]:
+            self.outputs = tuple(torch.empty(s, dtype=d, device=device) for s, d in specs)
+        if self.ref is None or self.ref.shape[0] != points:
+            self.ref = torch.zeros((points,), dtype=torch.float32, device=device)
+
+    def run(self, scene, params: Sequence[torch.Tensor], rows, specs, static_key,
+            body: Callable[[Camera, tuple, torch.Tensor], None],
+            constants: Sequence[torch.Tensor] = (),
+            any_miss: Optional[Callable[[bool], bool]] = None) -> tuple:
+        """One call: ``rows`` (packed cameras, a numpy array or a tensor on
+        the device) copied into the static camera buffer, then
+        ``body(cameras, outputs, ref)`` replayed (captured or run eagerly as
+        :class:`StepGraph` decides), which reads ``params``, the stacked
+        ``cameras``, ``ref`` and ``constants`` and writes every one of the
+        static ``outputs`` (``specs``: their shapes and dtypes). Returns
+        fresh copies of the outputs."""
+        self._track(scene)
+        self._static(rows, specs, params[0].shape[0])
+        if isinstance(rows, np.ndarray):
+            rows = torch.from_numpy(rows)
+        self.rows.copy_(rows, non_blocking=True)
+        cameras, outputs, ref = stacked_camera(self.rows), self.outputs, self.ref
+        tensors = [*params, self.rows, *outputs, ref, *constants]
+        self.graph.run(lambda: body(cameras, outputs, ref), static_key, tensors, 1,
+                       any_miss=any_miss)
+        return tuple(t.clone() for t in outputs)
+
+
+#: The cached graph of each entry point on each device.
+_GRAPHS: dict = {}
+
+
+def views_graph(name: str, device: torch.device) -> ViewsGraph:
+    """The :class:`ViewsGraph` of entry point ``name`` on ``device``."""
+    key = (name, str(device))
+    if key not in _GRAPHS:
+        _GRAPHS[key] = ViewsGraph(device)
+    return _GRAPHS[key]

@@ -12,8 +12,8 @@ The step writes all of its state in place (the parameters, the Adam
 moments and counts, the densify accumulators, the watermark), and copies
 nothing from the host once its camera and target are on the device, so
 :meth:`Trainer.fit_scan` captures it once as a CUDA graph
-(:mod:`.step_graph`) and replays it for each step of a chunk between host
-events, the counterpart of the JAX package's ``lax.scan`` chunks.
+(:mod:`..utils.step_graph`) and replays it for each step of a chunk
+between host events, the counterpart of the JAX package's ``lax.scan`` chunks.
 
 SH-degree warm-up raises ``colors_sh_degree_max`` every
 ``sh_warmup_interval`` steps. The JAX package recompiles its step there;
@@ -49,7 +49,7 @@ from .densify import (
 )
 from .losses import photometric_loss, psnr
 from .optimizer import FIELDS, OptimizerConfig, make_optimizer, seed_count
-from .step_graph import StepGraph
+from ..utils.step_graph import StepGraph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,7 +273,7 @@ class Trainer:
 
         The views (all of the trainer's size) are stacked once and the
         step picks view ``step % V`` on the device. On a CUDA scene each
-        chunk replays one captured step (:class:`.step_graph.StepGraph`),
+        chunk replays one captured step (:class:`..utils.step_graph.StepGraph`),
         recaptured after a host event that replaces the step's tensors; on
         a CPU scene the same step runs eagerly, step by step.
         """

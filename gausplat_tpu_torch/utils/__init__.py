@@ -1,2 +1,6 @@
 """Build and launch support for the hand-written CUDA kernels, the host
 C++ PLY codec, and profiling helpers."""
+
+from . import native
+
+__all__ = ["native"]

@@ -33,7 +33,17 @@ A, B and C count the same launches, and a replay reads nothing back
 (``torch.cuda.set_sync_debug_mode("error")``). ``ShardedTrainer.fit_scan``
 on a (1, 1) ``("data", "tiles")`` mesh over one NCCL rank captures the
 sharded step with its collectives inside and holds to the same three
-checks against ``ShardedTrainer.fit``."""
+checks against ``ShardedTrainer.fit``.
+
+Serving under ``torch.no_grad()`` replays one captured graph a call
+(``render/views_graph.py``): ``render_views`` in both modes is bit for bit
+the per-view ``render`` on every call (the warm-up, the capture, the
+replays), counts A and B once a view, returns tensors that alias nothing
+of the graph, reads an in-place update at its next replay, recaptures for
+a scene from a setter, keeps one pool for scenes rendered in turn and
+frees it with its scene; on one NCCL rank ``render_data_parallel`` and
+``render_tile_sharded`` are captured with their collectives, bit for bit
+their eager calls, and a replay reads nothing back."""
 
 import numpy as np
 import pytest
@@ -575,3 +585,128 @@ def test_sharded_fit_scan_replay_reads_nothing_back_on_nccl(nccl_mesh, cuda_devi
     _, launches = _counted(lambda: _replay_strict(graph))
     assert launches == [2, 2, 2]
     assert not torch.equal(trainer.scene.positions.detach(), positions)
+
+
+def _serving_setup(device, seed=5):
+    """A small scene on the card and two views of it at 48 x 32."""
+    scene = T.GaussianScene.from_numpy(**scene_arrays(SMALL["p"], seed), device=device)
+    views = [port_view(48, 32), port_view(48, 32, position=(0.3, 0.1, -4.0))]
+    return scene, views, T.RenderOptions(tile_entry_capacity=2048, block_size=64)
+
+
+def _singles(scene, views, options):
+    with torch.no_grad():
+        outs = [T.render(scene, v, options) for v in views]
+    return [torch.stack([getattr(o, f) for o in outs]) for f in T.RenderOutput._fields]
+
+
+@pytest.mark.parametrize("mode", ["vmap", "map"])
+def test_render_views_graph_matches_render(mode, cuda_device):
+    from gausplat_tpu_torch.render.views_graph import views_graph
+
+    scene, views, options = _serving_setup(cuda_device)
+    graph = views_graph("render_views", cuda_device)
+    graph.release()
+    want = _singles(scene, views, options)
+    calls = []
+    with torch.no_grad():
+        for _ in range(4):  # the warm-up, the capture, two replays
+            out, launches = _counted(lambda: T.render_views(scene, views, options, mode=mode))
+            calls.append((out, launches, graph.graph.captures, graph.graph.replays))
+    assert [c[2:] for c in calls] == [(0, 0), (1, 1), (1, 2), (1, 3)]
+    for out, launches, _, _ in calls:
+        assert launches == [2, 2, 0]  # B and A once a view, replays counted
+        for field, got, single in zip(out._fields, out, want):
+            assert torch.equal(got, single), field
+        assert all(t.data_ptr() != s.data_ptr() for t, s in zip(out, graph.outputs))
+    # An earlier call's outputs are its own: a replay for other views leaves them.
+    kept = [t.clone() for t in calls[3][0]]
+    with torch.no_grad():
+        other = T.render_views(scene, views[::-1], options, mode=mode)
+    assert graph.graph.replays == 4 and torch.equal(other.colors_rgb_2d[0], want[0][1])
+    assert all(torch.equal(a, b) for a, b in zip(calls[3][0], kept))
+
+
+def test_render_views_graph_sees_in_place_updates_and_recaptures_for_setters(cuda_device):
+    from gausplat_tpu_torch.render.views_graph import views_graph
+
+    scene, views, options = _serving_setup(cuda_device)
+    graph = views_graph("render_views", cuda_device)
+    graph.release()
+    with torch.no_grad():
+        for _ in range(2):
+            T.render_views(scene, views, options)
+        scene.positions.add_(0.05)
+        moved = T.render_views(scene, views, options)
+        assert (graph.graph.captures, graph.graph.replays) == (1, 2)
+        for field, got, single in zip(moved._fields, moved, _singles(scene, views, options)):
+            assert torch.equal(got, single), field
+        _replay_strict(graph.graph)  # a replay reads nothing back
+        moved_scene = scene.set_opacities(scene.get_opacities() * 0.5)
+        first = T.render_views(moved_scene, views, options)  # a miss: the warm-up
+        assert (graph.graph.captures, graph.graph.replays) == (1, 3)
+        second = T.render_views(moved_scene, views, options)
+        assert (graph.graph.captures, graph.graph.replays) == (2, 4)
+    want = _singles(moved_scene, views, options)
+    for out in (first, second):
+        assert all(torch.equal(got, w) for got, w in zip(out, want))
+
+
+def test_render_views_graph_keeps_one_pool(cuda_device):
+    import gc
+
+    from gausplat_tpu_torch.render.views_graph import views_graph
+
+    graph = views_graph("render_views", cuda_device)
+    graph.release()
+    scenes = [_serving_setup(cuda_device, seed)[0] for seed in (5, 6, 7)]
+    _, views, options = _serving_setup(cuda_device)
+
+    def reserved():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(cuda_device)
+
+    base = reserved()
+    after = []
+    with torch.no_grad():
+        for scene in scenes:  # three scenes in turn, each warmed up and captured
+            for _ in range(2):
+                T.render_views(scene, views, options, mode="vmap")
+            after.append(reserved())
+    assert graph.graph.captures == 3
+    assert after[2] - base < 2 * (after[0] - base), (base, after)
+    del scenes, scene
+    gc.collect()
+    assert graph.graph.graph is None and graph.rows is None  # freed with its scene
+
+
+def test_nccl_serving_is_captured_and_matches_eager(nccl_mesh, cuda_device):
+    from gausplat_tpu_torch.parallel import (
+        render_data_parallel, render_tile_sharded, stack_cameras,
+    )
+    from gausplat_tpu_torch.render.views_graph import views_graph
+
+    scene, views, options = _serving_setup(cuda_device)
+    cameras = stack_cameras(views, device=cuda_device)
+    cases = {
+        "parallel.render_data_parallel": lambda: render_data_parallel(
+            scene, cameras, 48, 32, nccl_mesh, "data", options),
+        "parallel.render_tile_sharded": lambda: render_tile_sharded(
+            scene, views[1], nccl_mesh, "tiles", options),
+    }
+    for name, call in cases.items():
+        graph = views_graph(name, cuda_device)
+        graph.release()
+        want = call()  # grad needed: the eager call
+        assert want.colors_rgb_2d.requires_grad
+        with torch.no_grad():
+            outs = [call() for _ in range(3)]
+        assert (graph.graph.captures, graph.graph.replays) == (1, 2), name
+        for out in outs:
+            for field, got, w in zip(out._fields, out, want):
+                assert torch.equal(got, w.detach()), (name, field)
+        _, launches = _counted(lambda: _replay_strict(graph.graph))
+        assert launches == ([2, 2, 0] if "data" in name else [1, 1, 0]), name
+        graph.release()  # before the fixture's process group goes
