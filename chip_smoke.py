@@ -29,8 +29,16 @@ printing one JSON line:
    rows: images atol 1e-4, integers exact, gradients within 1e-3 scaled
    by each field's largest magnitude;
 5. main_path: serving, under ``torch.no_grad``: a 1M-point scene at
-   1920x1080 rendered for 5 views through ``render`` and once through
-   ``render_views``, with the launch counts of both forward kernels, then
+   1920x1080 rendered for 5 views through ``render``, one replay of its
+   CUDA graph a call after the warm-up and the capture (a new view only
+   copies its camera in), every call bit for bit the eager render in all
+   five fields, and once through ``render_views``, with the launch counts
+   of both forward kernels (by replay too); the per-call entry points
+   against their eager forms: ``render`` and ``count_tile_entries``
+   (every count equal), each with its miss cost (the warm-up's and the
+   capture's host ms against an eager call's), ms a call, busy ms and
+   host calls (a steady call: one graph launch, no kernel launch, at most
+   10 host calls), ``render`` also with a new view every call; then
    CUDA-event timings of the render and of both forward kernels beside
    their plain versions at the serving shapes, with each kernel's own
    device time (profiler, by kernel name), the share of (entry, warp)
@@ -57,15 +65,18 @@ printing one JSON line:
 8. grad: the whole render backward through the kernels against the plain
    path on the small scene (five parameter gradients and the grad norm);
 9. train: the slice's main path: ``Trainer.fit`` for 10 steps on the
-   full-size scene (every SH degree, a densify, an opacity reset), with
-   the launch counts of all three kernels; then, at the step's shapes,
+   full-size scene (every SH degree, a densify, an opacity reset), each
+   step one replay of ``train_step``'s CUDA graph after its capture, with
+   the launch counts of all three kernels (by replay too), bit for bit
+   the same fit with the step launched op by op (``_fit_eager``) from the
+   same start; then, at the step's shapes,
    each kernel against its plain version (tolerances as in phases 2, 3
    and 6) and timed beside it (CUDA events around the wrapper, and the
    device time of its own kernels; B's call must launch nothing else), A
    and C also built without their footprint skip (bit-identical outputs
    required) and timed; the sorts and the binning as at serving; timings
-   of a step and of forward + backward, the peak memory, and a profile of
-   a step;
+   of a step (eager and through its graph) and of forward + backward, the
+   peak memory, and a profile of a step;
 10. colmap_bf16: the bf16 training path from a COLMAP capture. A synthetic
    sparse model of the bench scene (1,000,000 SfM points, the 5 views as
    PINHOLE 1920x1080 images, no image files) is written to a temporary
@@ -150,28 +161,33 @@ printing one JSON line:
    rendered count exact). The live ones must compare entries that blend.
 14. fit_scan: the training step captured as a CUDA graph. (a) phase 9's
    configuration at full size (1,000,000 points, SH 0-3, a densify, an
-   opacity reset): 10 steps of ``Trainer.fit`` twice from one start, whose
-   largest parameter difference is the card's spread, then 10 steps of
+   opacity reset): 10 steps of the eager fit (``Trainer._fit_eager``)
+   twice from one start, whose largest parameter difference is the card's
+   spread, then 10 steps of ``Trainer.fit`` through its graphs and of
    ``Trainer.fit_scan`` (chunks break at every host event; A, B and C
-   counted at 10 launches each, replays included), its parameters within
-   the spread of the first fit's and its point count equal; (b) the steady
-   state at those shapes (20 steps, SH 3, no host event): eager ``fit``
-   against ``fit_scan``, each with ms a step (median of 5 CUDA-event
-   timings), the profiler's device-busy ms, idle share, kernels and host
-   launches a step and the peak memory, the memory the graph's pool keeps,
-   and one replay under ``torch.cuda.set_sync_debug_mode("error")``, after
-   A, B and C at the captured shapes against their plain versions,
+   counted at 10 launches each, replays included), their parameters within
+   the spread of the first fit's (and ``fit`` bit for bit where the spread
+   is 0) and their point counts equal; (b) the steady state at those
+   shapes (20 steps, SH 3, no host event) three ways: the eager fit,
+   ``fit`` through its graph and ``fit_scan``, each with ms a step (median
+   of 5 CUDA-event timings), the profiler's device-busy ms, idle share,
+   kernels and host launches a step, A's, B's and C's device ms a step by
+   name and the peak memory, the memory each graph's pool keeps, and one
+   replay of each graph under ``torch.cuda.set_sync_debug_mode("error")``,
+   after A, B and C at the captured shapes against their plain versions,
    timed; (c) phase 12's lego prefix, which ran through ``fit_scan``: its
    points (PR 8's eager prefix's 4,114, exactly where (a)'s spread is 0)
    and PSNR beside PR 8's, its ms a step, and the steady state at its
    shapes as in (b); (d) ``ShardedTrainer`` on a (1, 1) ("data",
    "tiles") mesh over one NCCL rank in this process, the 4 orbit views at
-   1920x1080 from phase 9's start: ``fit`` twice and ``fit_scan`` once, 10
-   steps across a densify event (chunks of 4, 1, 3 and 2 steps), the
-   sharded step captured with its NCCL collectives inside: the point
-   counts equal, the parameters within the spread, the captures, the
-   replays and A, B and C at 40 launches each (replays counted); then the
-   steady state at those shapes as in (b) (3 timings each).
+   1920x1080 from phase 9's start: the eager fit twice, ``fit`` through
+   its graphs once and ``fit_scan`` once, 10 steps across a densify event
+   (``fit_scan``'s chunks of 4, 1, 3 and 2 steps), the sharded step
+   captured with its NCCL collectives inside: the point counts equal, the
+   parameters within the spread, the captures, the replays and A, B and C
+   at 40 launches each (replays counted); then the steady state at those
+   shapes as in (b) (3 timings each), with the host ms of the ranks' miss
+   decision.
 
 With ``--cards 4`` (a machine with four cards; it exits non-zero before
 any work where fewer are visible, and never runs on fewer ranks or over
@@ -186,20 +202,23 @@ on every rank, and 8 orbit views of the bench scene through
 ``render_data_parallel``'s graph, 2 a rank, bit for bit its eager call,
 both timed beside the eager calls; (b) the (2, 2)
 step against the single-device loss (2e-4) and gradients (1e-3 scaled);
-(c) ``ShardedTrainer`` ``fit`` twice and ``fit_scan`` once from one start,
-10 steps across a densify event: the ranks' scene digests equal, the
-point counts equal, and bit for bit, or else (the first step and fields
-that differ printed) losses within 1e-5 relative and parameters within
-1e-4; (d) the steady state on each rank as in phase 14 (b). Then A, B and
+(c) ``ShardedTrainer``: the eager fit twice, ``fit`` through its graphs
+once and ``fit_scan`` once from one start, 10 steps across a densify
+event: the ranks' scene digests equal (each run's), the point counts
+equal, and each graphed run bit for bit the eager fit, or else (the first
+step and fields that differ printed) losses within 1e-5 relative and
+parameters within 1e-4; (d) the steady state on each rank as in phase 14
+(b). Then A, B and
 C on rank 0's slab 0 of (b) against their plain versions
 (``<kernel>@nccl_slab0``, launches summed over the ranks). Its last line's
 ``count`` is the cards it drove.
 
 Then it prints the card's name and power limit, one JSON line of
 per-kernel results: phase 5 for A and B at the serving shapes,
-``<kernel>@render_views_graph``, whose launches are those of
-``render_views`` through its graph (replays counted, and
-``launches_by_replay``), and a training path for the rest
+``<kernel>@render_graph``, whose launches are those of the main path's
+renders through ``render``'s graph, and ``<kernel>@render_views_graph``,
+whose launches are those of ``render_views`` through its graph (replays
+counted, and ``launches_by_replay``), and a training path for the rest
 (phase 9 for the f32 entry points of A, B and C, phase 10 for the packed
 ``rasterize_forward_bf16`` and ``rasterize_backward_bf16``, phase 11 for
 A, B and C on the slabs, ``<kernel>@slab0`` and ``@last_slab``, whose
@@ -312,12 +331,14 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "c
                      "cudaMemsetAsync", "cudaMemcpyAsync")
 
 
-def profile_device_time(fn, reps: int = 3, top: int = 12) -> dict:
+def profile_device_time(fn, reps: int = 3, top: int = 12, names=()) -> dict:
     """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler,
     CUPTI), the device-busy time per call against the host clock, the idle
     share of the window, the kernels the card ran per call and the host's
     calls that put work on the card per call (``host_launches``: kernel
-    and graph launches, memsets and copies; by name in ``host_calls``).
+    and graph launches, memsets and copies; by name in ``host_calls``);
+    ``named``: the device ms per call of the kernels whose names contain
+    each of ``names``.
     NCCL's kernels (``collective_ms``) run on their own stream beside the
     compute and spin while a peer rank is late, so their time can overlap
     the rest and exceed the work: ``compute_idle_share`` is the share of
@@ -351,9 +372,10 @@ def profile_device_time(fn, reps: int = 3, top: int = 12) -> dict:
         return dict(device_busy_ms="not measured (the profiler saw no device time)",
                     wall_ms=wall_ms)
     collective_ms = sum(k[0] for k in kernels if k[2].startswith("ncclDevKernel"))
+    named = {name: sum(k[0] for k in kernels if name in k[2]) for name in names}
     return dict(
         wall_ms=wall_ms, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
-        collective_ms=collective_ms,
+        collective_ms=collective_ms, named=named,
         compute_idle_share=1.0 - (busy_ms - collective_ms) / wall_ms,
         kernel_launches=sum(k[1] for k in kernels), host_launches=sum(host.values()),
         host_calls=host,
@@ -1094,6 +1116,119 @@ def serving_graph(ctx, outs) -> dict:
     return out
 
 
+#: Host calls that a steady-state call of a per-call entry point through
+#: its graph may make: the graph launch, the copies in and the copies out.
+ENTRY_HOST_CALLS_MAX = 10
+
+
+def host_wall_ms(fn) -> float:
+    """Host wall ms of one call of ``fn``, the device drained before and
+    after it."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3
+
+
+def check_steady_call(prof, what) -> None:
+    """A steady-state call through a graph (the profile of it): one graph
+    launch, no kernel launched from the host, at most
+    ``ENTRY_HOST_CALLS_MAX`` host calls."""
+    if "host_calls" not in prof:  # the profiler is a measurement, not the path
+        return
+    calls = prof["host_calls"]
+    graphs = sum(n for k, n in calls.items() if "GraphLaunch" in k)
+    kernel_calls = sum(n for k, n in calls.items() if "LaunchKernel" in k)
+    check(graphs == 1 and kernel_calls == 0 and prof["host_launches"] <= ENTRY_HOST_CALLS_MAX,
+          f"a steady-state call of {what}: {calls}")
+
+
+def timed_calls(runs, graph_names, reps: int = REPS) -> dict:
+    """Each of ``runs`` (name: call) timed: ms a call (median of ``reps``
+    CUDA-event timings) and the profiler's wall and busy ms, idle share,
+    kernels and host calls a call; the runs named in ``graph_names`` must
+    be steady-state graph calls (:func:`check_steady_call`)."""
+    timing = {}
+    for name, run in runs.items():
+        ms, ms_all = cuda_ms(run, reps)
+        try:
+            prof = profile_device_time(run)
+        except RuntimeError as e:  # the profiler is a measurement, not the path
+            prof = dict(device_busy_ms=f"not measured ({e})")
+        timing[name] = dict(ms=ms, ms_all=ms_all, **{
+            k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                     "kernel_launches", "host_launches", "host_calls")})
+        if name in graph_names:
+            check_steady_call(prof, name)
+    return timing
+
+
+def miss_cost(graph, call, eager_call) -> dict:
+    """The cost of a graph's miss: host wall ms (device drained around
+    each) of the warm-up call and of the capture call after ``graph`` (a
+    ViewsGraph) is released, against an eager call's and a replay's
+    (medians of 3)."""
+    eager_ms = statistics.median(host_wall_ms(eager_call) for _ in range(3))
+    graph.release()
+    warm_up_ms = host_wall_ms(call)
+    capture_ms = host_wall_ms(call)
+    replay_ms = statistics.median(host_wall_ms(call) for _ in range(3))
+    check((graph.graph.captures, graph.graph.replays) == (1, 4),
+          f"the miss cost's calls: captures and replays "
+          f"{(graph.graph.captures, graph.graph.replays)}")
+    return dict(eager_call_ms=eager_ms, warm_up_ms=warm_up_ms, capture_ms=capture_ms,
+                replay_call_ms=replay_ms)
+
+
+@torch.no_grad()
+def entry_graphs(ctx) -> dict:
+    """The per-call serving entry points through their graphs against their
+    eager forms, on the serving scene: ``render`` of the bench view and
+    ``count_tile_entries`` of the 5 views. For each, the miss cost
+    (:func:`miss_cost`); ms a call through the graph and eager, and for
+    ``render`` also a new view every call (the cameras cycle over the 5
+    views: replays, one capture), with the profiler's busy ms, idle share
+    and host calls (:func:`timed_calls`); every count through the graph
+    equal to the eager count."""
+    import itertools
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch.render.pipeline import _count_tile_entries_eager, _render_eager
+    from gausplat_tpu_torch.render.views_graph import views_graph
+
+    scene, views, options, dev = ctx["scene"], ctx["views"], ctx["options"], ctx["device"]
+    view = views[0]
+    out = {}
+    graph = views_graph("render", dev)
+    out["render_miss"] = miss_cost(graph, lambda: T.render(scene, view, options),
+                                   lambda: _render_eager(scene, view, options))
+    cycle = itertools.cycle(views)
+    out["render_timing"] = timed_calls(
+        {"eager": lambda: _render_eager(scene, view, options),
+         "graph": lambda: T.render(scene, view, options),
+         "graph_new_view": lambda: T.render(scene, next(cycle), options)},
+        ("graph", "graph_new_view"))
+    check(graph.graph.captures == 1, f"a change of view recaptured: {graph.graph.captures}")
+    out["render_graph"] = dict(captures=graph.graph.captures, replays=graph.graph.replays)
+
+    graph = views_graph("count_tile_entries", dev)
+    graph.release()
+    counts = [T.count_tile_entries(scene, v, options) for v in views]
+    eager = [_count_tile_entries_eager(scene, v, options) for v in views]
+    check(counts == eager, f"count_tile_entries through its graph {counts}, eager {eager}")
+    check((graph.graph.captures, graph.graph.replays) == (1, len(views) - 1),
+          f"count_tile_entries: captures and replays "
+          f"{(graph.graph.captures, graph.graph.replays)}")
+    out["count_tile_entries"] = dict(counts=counts, eager_counts=eager, bit_for_bit=True)
+    out["count_miss"] = miss_cost(graph, lambda: T.count_tile_entries(scene, view, options),
+                                  lambda: _count_tile_entries_eager(scene, view, options))
+    out["count_timing"] = timed_calls(
+        {"eager": lambda: _count_tile_entries_eager(scene, view, options),
+         "graph": lambda: T.count_tile_entries(scene, view, options)}, ("graph",))
+    return out
+
+
 @torch.no_grad()
 def phase_main_path(ctx):
     """Serving: no graph is built and nothing is kept for a backward."""
@@ -1103,19 +1238,41 @@ def phase_main_path(ctx):
     from gausplat_tpu_torch.ops.rasterize import (
         RASTERIZE_FORWARD, rasterize_forward, rasterize_forward_torch,
     )
+    from gausplat_tpu_torch.render.pipeline import _render_eager
+    from gausplat_tpu_torch.render.views_graph import views_graph
 
     scene, views, options = ctx["scene"], ctx["views"], ctx["options"]
     kernels = (EXPAND, RASTERIZE_FORWARD)
+    graph = views_graph("render", ctx["device"])
+    graph.release()
 
+    # The main path: render through its graph (the warm-up, the capture,
+    # then a replay for each new view), then render_views.
     for kernel in kernels:
         kernel.launches = 0
     start = time.perf_counter()
     outs = [T.render(scene, view, options) for view in views]
+    torch.cuda.synchronize()
+    render_launches = {k.entry: k.launches for k in kernels}
     batched = T.render_views(scene, views, options)
     torch.cuda.synchronize()
     serve_seconds = time.perf_counter() - start
     launches = {kernel.source.name: kernel.launches for kernel in kernels}
     check(all(n > 0 for n in launches.values()), f"a kernel of the path never ran: {launches}")
+    check(all(n == len(views) for n in render_launches.values()),
+          f"render through its graph: A and B launched {render_launches}, not once a view")
+    render_graph = dict(captures=graph.graph.captures, replays=graph.graph.replays,
+                        launches=render_launches,
+                        by_replay={k.entry: graph.graph.by_replay.get(k, 0) for k in kernels})
+    check((render_graph["captures"], render_graph["replays"]) == (1, len(views) - 1),
+          f"render through its graph: {render_graph}")
+    eager_outs = [_render_eager(scene, view, options) for view in views]
+    for i, (o, e) in enumerate(zip(outs, eager_outs)):
+        same = {f: bool(torch.equal(a, b)) for f, a, b in zip(o._fields, o, e)}
+        check(all(same.values()),
+              f"render through its graph (call {i}) differs from the eager render: {same}")
+    render_graph["bit_for_bit"] = True
+    del eager_outs
 
     capacity = options.tile_entry_capacity
     totals = [int(o.tile_point_total) for o in outs]
@@ -1132,11 +1289,13 @@ def phase_main_path(ctx):
     )
     check(batch_same, "render_views differs from render on the same views")
 
-    # Timings at the main path's shapes (these launches are not counted above).
+    # Timings at the main path's shapes (these launches are not counted
+    # above); the render's is its eager form's.
     view = views[0]
-    render_ms, render_all = cuda_ms(lambda: T.render(scene, view, options))
+    render_ms, render_all = cuda_ms(lambda: _render_eager(scene, view, options))
     plain_options = T.RenderOptions(tile_entry_capacity=capacity, backend="torch")
-    plain_render_ms, plain_render_all = cuda_ms(lambda: T.render(scene, view, plain_options))
+    plain_render_ms, plain_render_all = cuda_ms(
+        lambda: _render_eager(scene, view, plain_options))
     b_args = expand_args(ctx["proj"])
     kw = dict(tile_count_x=ctx["tcx"], capacity=capacity)
     b_ms, b_all = cuda_ms(lambda: fused_point_orders(*b_args, **kw))
@@ -1151,7 +1310,7 @@ def phase_main_path(ctx):
                                 RASTERIZE_FORWARD)
     sorting = sort_and_binning(ctx["proj"], ctx["tcx"], ctx["tcy"], capacity)
     try:
-        breakdown = profile_device_time(lambda: T.render(scene, view, options))
+        breakdown = profile_device_time(lambda: _render_eager(scene, view, options))
     except RuntimeError as e:  # the profiler is a measurement, not the path
         breakdown = dict(device_busy_ms=f"not measured ({e})")
     # Bounds from these shapes: each input read once, each output written
@@ -1164,28 +1323,38 @@ def phase_main_path(ctx):
     a_bound["warp_keep_share"] = warp_keep_share(rows, ids, ranges, tcx)
     b_bound = bound(nbytes(*b_args) + nbytes(*fused_point_orders(*b_args, **kw)), 0.0)
 
-    # The main path: render_views through the graph, its counts zeroed in
-    # serving_graph. A and B join the kernels line at the serving shapes,
-    # held to their plain versions on the bench view by phases 2 and 3.
+    # render_views through the graph, its counts zeroed in serving_graph;
+    # the per-call entry points through theirs. A and B join the kernels
+    # line at the serving shapes, held to their plain versions on the bench
+    # view by phases 2 and 3, with the launches of the main path's renders
+    # and of serving_graph's calls.
     serving = serving_graph(ctx, outs)
-    for name, kernel, ms, plain, device, bnd, err in (
-            ("rasterize_forward", RASTERIZE_FORWARD, a_ms, a_plain_ms, a_device, a_bound,
-             max(ctx["raster_full"]["image_max_abs"],
-                 ctx["raster_full"]["transmittance_max_abs"])),
-            ("expand_point_orders", EXPAND, b_ms, b_plain_ms, b_device, b_bound,
-             ctx["expand_full"]["max_abs"])):
-        ctx["kernels"].append(dict(
-            name=f"{name}@render_views_graph", route="cuda",
-            source=f"gausplat_tpu_torch/csrc/{kernel.source.name}", replaces=REPLACES[name],
-            path=f"main_path: render_views through the graph, {len(views)} views of the "
-                 f"serving scene at 1920 x 1080, both modes, 3 calls each",
-            launches=serving["launches"][kernel.entry],
-            launches_by_replay=serving["by_replay"][kernel.entry], max_abs_err=err, ms=ms,
-            plain_ms=plain, device_ms=device["device_ms"], bound_ms=bnd["bound_ms"],
-            bound_by=bnd["bound_by"], library_ms=None))
+    entry = entry_graphs(ctx)
+    paths = (
+        ("render_graph", f"main_path: render through its graph, {len(views)} views of the "
+                         f"serving scene at 1920 x 1080 (the warm-up, then one capture "
+                         f"and {len(views) - 1} replays)",
+         render_graph["launches"], render_graph["by_replay"]),
+        ("render_views_graph", f"main_path: render_views through the graph, {len(views)} "
+                               f"views of the serving scene at 1920 x 1080, both modes, "
+                               f"3 calls each", serving["launches"], serving["by_replay"]))
+    for tag, path, path_launches, by_replay in paths:
+        for name, kernel, ms, plain, device, bnd, err in (
+                ("rasterize_forward", RASTERIZE_FORWARD, a_ms, a_plain_ms, a_device, a_bound,
+                 max(ctx["raster_full"]["image_max_abs"],
+                     ctx["raster_full"]["transmittance_max_abs"])),
+                ("expand_point_orders", EXPAND, b_ms, b_plain_ms, b_device, b_bound,
+                 ctx["expand_full"]["max_abs"])):
+            ctx["kernels"].append(dict(
+                name=f"{name}@{tag}", route="cuda",
+                source=f"gausplat_tpu_torch/csrc/{kernel.source.name}", replaces=REPLACES[name],
+                path=path, launches=path_launches[kernel.entry],
+                launches_by_replay=by_replay[kernel.entry], max_abs_err=err, ms=ms,
+                plain_ms=plain, device_ms=device["device_ms"], bound_ms=bnd["bound_ms"],
+                bound_by=bnd["bound_by"], library_ms=None))
     return dict(
         card=ctx["card"], views=len(views), capacity=capacity, launches=launches,
-        render_views_graph=serving,
+        render_graph=render_graph, entry_graphs=entry, render_views_graph=serving,
         tile_point_total=totals,
         bench_view_total=totals[0], jax_recorded_total=JAX_RECORDED_ENTRIES,
         bench_view_total_minus_jax=totals[0] - JAX_RECORDED_ENTRIES,
@@ -1298,19 +1467,45 @@ def phase_train(ctx):
     with torch.no_grad():
         targets = [T.render(ctx["scene"], v, ctx["options"]).colors_rgb_2d for v in views]
     ctx["targets"] = targets
-    scene = T.GaussianScene.from_numpy(**train_start_arrays(ctx["arrays"]), device=dev)
+    start = train_start_arrays(ctx["arrays"])
+    scene = T.GaussianScene.from_numpy(**start, device=dev)
     options = T.calibrate_options(scene, views)
     config = train_config(options, views)
     extent = config.densify.scene_extent
     width, height = views[0].image_width, views[0].image_height
-    trainer = TT.Trainer(scene, width, height, config)
 
+    # The eager baseline from the same start: the step launched op by op.
+    eager = TT.Trainer(T.GaussianScene.from_numpy(**start, device=dev), width, height, config)
+    eager_history, _, eager_launches, eager_seconds = fit_ten_steps(eager, views, targets,
+                                                                    "_fit_eager")
+    eager_params = params_of(eager.scene)
+    del eager
+
+    # The main path: Trainer.fit, each step one replay of its graph.
+    trainer = TT.Trainer(scene, width, height, config)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     history, segments, all_launches, fit_seconds = fit_ten_steps(trainer, views, targets)
     launches = {kernel.source.name: all_launches[kernel.entry]
                 for kernel in (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_graph = trainer._step_graph
+    fields = [name for name, _ in trainer.scene.named_parameters()]
+    fit_graph = dict(
+        captures=step_graph.captures, replays=step_graph.replays,
+        launches_by_replay={k.entry: step_graph.by_replay.get(k, 0)
+                            for k in (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)},
+        eager_launches=eager_launches, eager_seconds=eager_seconds,
+        differing_fields=[f for f, a, b in zip(fields, params_of(trainer.scene), eager_params)
+                          if not torch.equal(a, b)],
+        differing_steps=[i for i, (a, b) in enumerate(zip(history, eager_history)) if a != b])
+    del eager_params
+    check(step_graph.captures >= 1 and step_graph.replays > 0,
+          f"fit replayed no captured step: {fit_graph}")
+    check(all_launches == eager_launches, f"fit's launches {all_launches}, eager {eager_launches}")
+    check(not fit_graph["differing_fields"] and not fit_graph["differing_steps"],
+          f"fit through its graphs differs from the eager fit: {fit_graph}")
+    fit_graph["bit_for_bit"] = True
 
     losses = [h["loss"] for h in history]
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
@@ -1426,9 +1621,12 @@ def phase_train(ctx):
         ("expand_point_orders", "expand.cu", "gausplat_tpu/ops/expand.py:121"),
         ("rasterize_backward", "rasterize_backward.cu", "gausplat_tpu/ops/rasterize.py:604"),
     )
+    by_replay = {k.source.name: fit_graph["launches_by_replay"][k.entry]
+                 for k in (EXPAND, RASTERIZE_FORWARD, RASTERIZE_BACKWARD)}
     ctx["kernels"] += [
         dict(name=name, route="cuda", source=f"gausplat_tpu_torch/csrc/{source}",
-             replaces=replaces, launches=launches[source], max_abs_err=errors[name],
+             replaces=replaces, launches=launches[source],
+             launches_by_replay=by_replay[source], max_abs_err=errors[name],
              ms=times[name][0][0], plain_ms=times[name][1][0],
              device_ms=devices[name]["device_ms"],
              bound_ms=bounds[name]["bound_ms"], bound_by=bounds[name]["bound_by"],
@@ -1436,14 +1634,16 @@ def phase_train(ctx):
         for name, source, replaces in kernel_rows
     ]
 
-    # A step with no host event: no densify, no overflow read.
+    # A step with no host event (no densify, no overflow read), eager and
+    # through its graph.
     trainer.config = dataclasses.replace(trainer.config, densify_until=0,
                                          overflow_check_interval=10**9)
-    step_ms, step_all = cuda_ms(lambda: trainer.train_step(view, target))
+    step_ms, step_all = cuda_ms(lambda: trainer._train_step_eager(view, target))
     try:
-        breakdown = profile_device_time(lambda: trainer.train_step(view, target))
+        breakdown = profile_device_time(lambda: trainer._train_step_eager(view, target))
     except RuntimeError as e:  # the profiler is a measurement, not the path
         breakdown = dict(device_busy_ms=f"not measured ({e})")
+    graph_step = timed_calls({"graph": lambda: trainer.train_step(view, target)}, ("graph",))
 
     return dict(
         card=ctx["card"], steps=len(history), launches=launches, losses=losses,
@@ -1452,9 +1652,9 @@ def phase_train(ctx):
         segments=segments, densify=densify, start_capacity=options.tile_entry_capacity,
         scene_extent=extent, loss_first=losses[0], loss_before_reset=losses[reset - 1],
         loss_last=losses[-1],
-        fit_10_steps_seconds=fit_seconds, peak_memory_gb=peak_gb,
+        fit_10_steps_seconds=fit_seconds, peak_memory_gb=peak_gb, fit_graph=fit_graph,
         forward_backward_ms=fwd_bwd_ms, forward_backward_ms_all=fwd_bwd_all,
-        step_ms=step_ms, step_ms_all=step_all,
+        step_ms=step_ms, step_ms_all=step_all, graph_step=graph_step["graph"],
         kernels_at_step=dict(
             capacity=capacity, points=trainer.scene.point_count,
             pairs_below_counts=pairs, blended_pairs=blended,
@@ -2387,9 +2587,9 @@ def phase_tools(ctx):
         trainer.config = dataclasses.replace(trainer.config, densify_until=0,
                                              overflow_check_interval=10**9)
         target = setup["targets"][0]
-        step_ms, step_all = cuda_ms(lambda: trainer.train_step(lego_view, target))
+        step_ms, step_all = cuda_ms(lambda: trainer._train_step_eager(lego_view, target))
         try:
-            breakdown = profile_device_time(lambda: trainer.train_step(lego_view, target))
+            breakdown = profile_device_time(lambda: trainer._train_step_eager(lego_view, target))
         except RuntimeError as e:  # the profiler is a measurement, not the path
             breakdown = dict(device_busy_ms=f"not measured ({e})")
         out["lego_fit"].update(step_ms=step_ms, step_ms_all=step_all, step_profile=breakdown)
@@ -2587,19 +2787,27 @@ def params_max_diff(a, b) -> float:
     return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
 
 
+#: The steady state's three ways of running the same steps: the step
+#: launched op by op, ``fit`` (each step one replay of train_step's graph)
+#: and ``fit_scan`` (each step one replay of the chunk's graph).
+STEADY_WAYS = (("eager", "_fit_eager"), ("fit", "fit"), ("fit_scan", "fit_scan"))
+
+
 def steady_state(trainer, views, targets, reps: int = REPS, profile_steps: int = STEADY_STEPS,
                  profile_reps: int = 2) -> dict:
-    """``STEADY_STEPS`` steps with no host event, eager ``fit`` against
-    ``fit_scan`` (the captured step; captured here where the key missed):
-    ms a step (median of ``reps`` CUDA-event timings of the whole call, the
-    history's read included), the profiler's device-busy ms, idle share,
-    kernels and host launches a step (over ``profile_reps`` calls of
+    """``STEADY_STEPS`` steps with no host event three ways
+    (``STEADY_WAYS``): ms a step (median of ``reps`` CUDA-event timings of
+    the whole call, the history's read included), the profiler's
+    device-busy ms, idle share, kernels and host launches a step and the
+    device ms a step of A, B and C by name (over ``profile_reps`` calls of
     ``profile_steps`` steps: the profiler's own processing grows with the
-    kernels it saw), the peak memory of each, and the memory the graph's
-    pool keeps. Then one replay with the host's sync checks set to raise.
-    ``trainer`` is a ``Trainer`` (``views`` a list) or a ``ShardedTrainer``
-    (``views`` stacked cameras); every rank of a sharded trainer makes the
-    same calls in the same order."""
+    kernels it saw), the peak memory of each, and the memory each graph's
+    pool keeps. Then one replay of each graph with the host's sync checks
+    set to raise. ``trainer`` is a ``Trainer`` (``views`` a list) or a
+    ``ShardedTrainer`` (``views`` stacked cameras; then also the host ms of
+    the ranks' miss decision, ``any_miss_ms``, which each ``fit`` step makes
+    and each ``fit_scan`` chunk once); every rank of a sharded trainer
+    makes the same calls in the same order."""
     import dataclasses
     import gc
 
@@ -2610,24 +2818,28 @@ def steady_state(trainer, views, targets, reps: int = REPS, profile_steps: int =
     trainer.step_count = 3 * STEADY_SH_INTERVAL
     check(trainer._sh_degree() == min(3, trainer.config.render.colors_sh_degree_max),
           "the steady state is not at the full SH degree")
-    trainer._graph.invalidate()
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved()
-    trainer.fit_scan(views, targets, n)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    graph_pool_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
-    out = dict(steps=n, graph_pool_gb=graph_pool_gb, points=trainer.scene.point_count)
-    for name in ("fit", "fit_scan"):
-        run = lambda: getattr(trainer, name)(views, targets, n)  # noqa: E731
+    out = dict(steps=n, points=trainer.scene.point_count)
+    for name, graph in (("fit_scan", trainer._graph), ("fit", trainer._step_graph)):
+        graph.invalidate()
+    for name, graph in (("fit_scan", trainer._graph), ("fit", trainer._step_graph)):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        getattr(trainer, name)(views, targets, 2)  # the warm-up, then the capture
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out[f"{name}_graph_pool_gb"] = (torch.cuda.memory_reserved() - reserved) / 1e9
+    names = [k for source in ("expand.cu", "rasterize_forward.cu", "rasterize_backward.cu")
+             for k in DEVICE_KERNELS[source] if k != "Memset"]
+    for name, method in STEADY_WAYS:
+        run = lambda: getattr(trainer, method)(views, targets, n)  # noqa: E731
         torch.cuda.reset_peak_memory_stats()
         ms, ms_all = cuda_ms(run, reps)
         try:
             prof = profile_device_time(
-                lambda: getattr(trainer, name)(views, targets, profile_steps),
-                reps=profile_reps)
+                lambda: getattr(trainer, method)(views, targets, profile_steps),
+                reps=profile_reps, names=names)
         except RuntimeError as e:  # the profiler is a measurement, not the path
             prof = dict(device_busy_ms=f"not measured ({e})")
         per_step = {k: (v / profile_steps if isinstance(v, (int, float)) else v)
@@ -2636,30 +2848,37 @@ def steady_state(trainer, views, targets, reps: int = REPS, profile_steps: int =
                              "host_launches")}
         out[name] = dict(ms_per_step=ms / n, ms_all=ms_all, per_step=per_step,
                          profile_steps=profile_steps,
+                         kernels_ms_per_step={k: v / profile_steps
+                                              for k, v in prof.get("named", {}).items()},
                          device_idle_share=prof.get("device_idle_share"),
                          compute_idle_share=prof.get("compute_idle_share"),
                          host_calls=prof.get("host_calls"), top=prof.get("top"),
                          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    graph = trainer._graph
-    check(graph.graph is not None, "fit_scan left no captured step")
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        graph.replay()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    out["strict_replay"] = "no host read"
+    if hasattr(trainer, "mesh"):
+        torch.cuda.synchronize()
+        out["any_miss_ms"] = statistics.median(
+            host_wall_ms(lambda: trainer._any_rank_missed(False)) for _ in range(REPS))
+    for name, graph in (("fit_scan", trainer._graph), ("fit", trainer._step_graph)):
+        check(graph.graph is not None, f"{name} left no captured step")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    out["strict_replay"] = "no host read, either graph"
     return out
 
 
 def phase_fit_scan(ctx):
     """``Trainer.fit_scan``: (a) the train phase's configuration at full
-    size, 10 steps of ``fit`` twice from one start (the card's spread) and
-    of ``fit_scan`` (the path: its launches), the parameters held to the
-    spread; A, B and C at the captured shapes against their plain versions
-    (``<kernel>@fit_scan``); (b) the steady state at those shapes, eager
-    against the graph; (c) the tools phase's lego prefix, which ran through
+    size, 10 steps of the eager fit twice from one start (the card's
+    spread), of ``fit`` through its graphs and of ``fit_scan`` (the path:
+    its launches), the parameters held to the spread; A, B and C at the
+    captured shapes against their plain versions (``<kernel>@fit_scan``,
+    with their device time in fit's graph); (b) the steady state at those
+    shapes three ways; (c) the tools phase's lego prefix, which ran through
     ``fit_scan``, beside the eager prefix's record (``LEGO_EAGER_POINTS``),
     and its steady state; (d) ``ShardedTrainer.fit_scan`` on one NCCL rank
     (:func:`sharded_nccl_fit_scan`)."""
@@ -2678,33 +2897,49 @@ def phase_fit_scan(ctx):
         return TT.Trainer(scene, width, height,
                           train_config(T.calibrate_options(scene, views), views))
 
-    # (a) Two eager fits, then the captured one, from the same start.
+    # (a) Two eager fits, then fit through its graphs and the captured
+    # fit_scan, from the same start.
     finals, eager_seconds = [], []
     for _ in range(2):
         tr = trainer()
-        _, _, _, seconds = fit_ten_steps(tr, views, targets)
-        finals.append((params_of(tr.scene), tr.scene.point_count))
+        history, _, _, seconds = fit_ten_steps(tr, views, targets, "_fit_eager")
+        finals.append((params_of(tr.scene), tr.scene.point_count, history))
         eager_seconds.append(seconds)
         del tr
         gc.collect()
+    graphed = trainer()
+    fit_history, _, fit_launches, fit_seconds = fit_ten_steps(graphed, views, targets)
+    fit_params = params_of(graphed.scene)
+    fit_graph = dict(captures=graphed._step_graph.captures, replays=graphed._step_graph.replays,
+                     points=graphed.scene.point_count)
+    del graphed
+    gc.collect()
     scan = trainer()
     history, segments, launches, scan_seconds = fit_ten_steps(scan, views, targets, "fit_scan")
+    scan_by_replay = {k.source.name: scan._graph.by_replay.get(k, 0) for k in all_kernels()[:3]}
     spread = params_max_diff(finals[0][0], finals[1][0])
     diff = params_max_diff(params_of(scan.scene), finals[0][0])
-    points = [finals[0][1], finals[1][1], scan.scene.point_count]
+    fit_diff = params_max_diff(fit_params, finals[0][0])
+    points = [finals[0][1], finals[1][1], fit_graph["points"], scan.scene.point_count]
     graph = dict(captures=scan._graph.captures, replays=scan._graph.replays)
     check(len(set(points)) == 1, f"the point counts differ: {points}")
     check(diff <= spread, f"fit_scan's parameters differ by {diff}, beyond the spread {spread}")
+    check(fit_diff <= spread and (spread > 0 or fit_history == finals[0][2]),
+          f"fit through its graphs differs from the eager fit by {fit_diff} (spread {spread})")
     check(all(launches[k] == 10 for k in PATH), f"fit_scan's launches: {launches}")
-    check(graph["replays"] > 0, f"fit_scan replayed no captured step: {graph}")
+    check(fit_launches == launches, f"fit's launches {fit_launches}, fit_scan's {launches}")
+    check(graph["replays"] > 0 and fit_graph["replays"] > 0,
+          f"fit_scan or fit replayed no captured step: {graph}, {fit_graph}")
     check(all(seg["max_total"] <= seg["capacity"] for seg in segments),
           f"entry overflow: {segments}")
     check(all(math.isfinite(h["loss"]) for h in history), "fit_scan: a non-finite loss")
     out["train_config"] = dict(
         points=points, spread=spread, max_abs_diff_from_fit=diff, launches=launches,
         graph=graph, losses=[h["loss"] for h in history], segments=segments,
-        eager_seconds=eager_seconds, scan_seconds=scan_seconds)
-    del finals
+        eager_seconds=eager_seconds, scan_seconds=scan_seconds,
+        fit_graph=dict(fit_graph, max_abs_diff_from_eager=fit_diff, seconds=fit_seconds,
+                       bit_for_bit=fit_diff == 0.0 and fit_history == finals[0][2]))
+    del finals, fit_params
     gc.collect()
 
     # A, B and C at the captured shapes, then (b) the steady state there.
@@ -2717,6 +2952,15 @@ def phase_fit_scan(ctx):
                     f"fit_scan (a): 10 steps of the train phase's configuration, "
                     f"{scan.scene.point_count} points, {width} x {height}, captured", launches)
     out["steady"] = steady_state(scan, views, targets)
+    # A's, B's and C's launches by replay in (a), and their device time in
+    # the captured step, from fit's graph in (b).
+    for row in ctx["kernels"]:
+        if row["name"].endswith("@fit_scan"):
+            source = row["source"].rsplit("/", 1)[1]
+            row["launches_by_replay"] = scan_by_replay[source]
+            row["device_ms_in_graph"] = sum(
+                out["steady"]["fit"]["kernels_ms_per_step"].get(k, 0.0)
+                for k in DEVICE_KERNELS[source])
     del scan
     gc.collect()
 
@@ -2765,50 +3009,60 @@ def sharded_fit_config(options, views):
 
 
 def sharded_fits(make, cameras, targets) -> dict:
-    """``fit`` twice and ``fit_scan`` once, 10 steps each, from one start
+    """The eager ``fit`` (the step launched op by op) twice, ``fit`` through
+    its graphs once and ``fit_scan`` once, 10 steps each, from one start
     (``make()`` builds the trainer), in the segments of
     :func:`fit_ten_steps` (every count set to 0 before each run): the
-    card's spread (the two fits' largest parameter difference),
-    ``fit_scan``'s difference from the first fit, the first step and the
-    fields where they differ, the point counts, the launches and the
-    graph's captures and replays. Returns the record and the fit_scan
-    trainer."""
+    card's spread (the eager fits' largest parameter difference), and for
+    ``fit_scan`` (at the top level) and ``fit`` (``graph_fit``) the
+    difference from the first eager fit, the first step and the fields
+    where they differ, the launches, the graph's captures and replays and
+    the digest. Returns the record and the fit_scan trainer."""
     import gc
 
     runs = []
-    for method in ("fit", "fit", "fit_scan"):
+    for method in ("_fit_eager", "_fit_eager", "fit", "fit_scan"):
         trainer = make()
         history, segments, launches, seconds = fit_ten_steps(trainer, cameras, targets, method)
+        graph = trainer._graph if method == "fit_scan" else trainer._step_graph
         runs.append(dict(trainer=trainer, history=history, segments=segments,
                          launches=launches, seconds=seconds, params=params_of(trainer.scene),
-                         points=trainer.scene.point_count))
-        if method == "fit":
+                         points=trainer.scene.point_count,
+                         graph=dict(captures=graph.captures, replays=graph.replays)))
+        if method != "fit_scan":
             del trainer, runs[-1]["trainer"]
             gc.collect()
-    first, second, scan = runs
+    first, second, graphed, scan = runs
     fields = [name for name, _ in scan["trainer"].scene.named_parameters()]
-    differ = [f for f, a, b in zip(fields, scan["params"], first["params"])
-              if not torch.equal(a, b)]
-    steps = [i for i, (a, b) in enumerate(zip(scan["history"], first["history"]))
-             if (a["loss"], a["tile_point_total"]) != (b["loss"], b["tile_point_total"])]
-    graph = scan["trainer"]._graph
+
+    def against_eager(run) -> dict:
+        differ = [f for f, a, b in zip(fields, run["params"], first["params"])
+                  if not torch.equal(a, b)]
+        steps = [i for i, (a, b) in enumerate(zip(run["history"], first["history"]))
+                 if (a["loss"], a["tile_point_total"]) != (b["loss"], b["tile_point_total"])]
+        return dict(
+            max_abs_diff_from_fit=params_max_diff(run["params"], first["params"]),
+            bit_for_bit=not differ and not steps, first_differing_step=steps[0] if steps else None,
+            differing_fields=differ,
+            losses=[h["loss"] for h in run["history"]],
+            loss_max_rel_diff=max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                                  for a, b in zip(run["history"], first["history"])),
+            tile_point_total=[int(h["tile_point_total"]) for h in run["history"]],
+            segments=run["segments"], launches=run["launches"], graph=run["graph"],
+            digest=params_digest(run["params"]))
+
+    graph_fit = against_eager(graphed)
+    graph_fit.update(seconds=graphed["seconds"], spread=0.0)
     return dict(
         record=dict(
             points=[r["points"] for r in runs],
             spread=params_max_diff(first["params"], second["params"]),
-            max_abs_diff_from_fit=params_max_diff(scan["params"], first["params"]),
-            bit_for_bit=not differ and not steps, first_differing_step=steps[0] if steps else None,
-            differing_fields=differ,
-            losses=[h["loss"] for h in scan["history"]],
+            **against_eager(scan),
             fit_losses=[h["loss"] for h in first["history"]],
-            loss_max_rel_diff=max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
-                                  for a, b in zip(scan["history"], first["history"])),
-            tile_point_total=[int(h["tile_point_total"]) for h in scan["history"]],
-            segments=scan["segments"], launches=scan["launches"],
             fit_launches=first["launches"], launches_by_run=[r["launches"] for r in runs],
-            graph=dict(captures=graph.captures, replays=graph.replays),
             fit_seconds=[first["seconds"], second["seconds"]], scan_seconds=scan["seconds"],
-            digest=params_digest(scan["params"]), fit_digest=params_digest(first["params"])),
+            fit_digest=params_digest(first["params"]), graph_fit=graph_fit,
+            graph_fit_digest=graph_fit["digest"]),
         trainer=scan["trainer"])
 
 
@@ -2818,36 +3072,39 @@ FIT_LOSS_RTOL, FIT_PARAMS_ATOL = 1e-5, 1e-4
 
 
 def check_sharded_fits(rec, views_a_step, tag, within_spread: bool = True) -> None:
-    """The gates of a fit_scan against its fits: the same point counts; the
-    parameters within the card's spread (0 where the fits agree bit for
-    bit), or, with ``within_spread`` false, bit for bit or else within the
-    CPU tests' bounds (losses ``FIT_LOSS_RTOL``, parameters
-    ``FIT_PARAMS_ATOL``); every step's entries within its slab capacity;
-    the path's kernels launched once a view a step; replays by the graph."""
+    """The gates of a fit_scan and of a fit through its graphs against the
+    eager fits: the same point counts; the parameters within the card's
+    spread (0 where the eager fits agree bit for bit), or, with
+    ``within_spread`` false, bit for bit or else within the CPU tests'
+    bounds (losses ``FIT_LOSS_RTOL``, parameters ``FIT_PARAMS_ATOL``); every
+    step's entries within its slab capacity; the path's kernels launched
+    once a view a step; replays by each graph."""
     check(len(set(rec["points"])) == 1, f"{tag}: the point counts differ: {rec['points']}")
-    close = (rec["max_abs_diff_from_fit"] <= rec["spread"] if within_spread else
-             rec["bit_for_bit"] or (rec["loss_max_rel_diff"] <= FIT_LOSS_RTOL
-                                    and rec["max_abs_diff_from_fit"] <= FIT_PARAMS_ATOL))
-    check(close, f"{tag}: fit_scan differs from fit by {rec['max_abs_diff_from_fit']} (spread "
-          f"{rec['spread']}; losses {rec['loss_max_rel_diff']} relative; first step "
-          f"{rec['first_differing_step']}, fields {rec['differing_fields']})")
-    check(all(seg["max_total"] <= seg["capacity"] for seg in rec["segments"]),
-          f"{tag}: entry overflow: {rec['segments']}")
-    check(all(math.isfinite(x) for x in rec["losses"]), f"{tag}: a non-finite loss")
-    check(all(rec["launches"][k] == 10 * views_a_step for k in PATH)
-          and rec["launches"] == rec["fit_launches"],
-          f"{tag}: launches {rec['launches']} (fit: {rec['fit_launches']})")
-    check(rec["graph"]["captures"] >= 1 and rec["graph"]["replays"] > 0,
-          f"{tag}: fit_scan replayed no captured step: {rec['graph']}")
+    for name, run in (("fit_scan", rec), ("fit through its graphs", rec["graph_fit"])):
+        close = (run["max_abs_diff_from_fit"] <= rec["spread"] if within_spread else
+                 run["bit_for_bit"] or (run["loss_max_rel_diff"] <= FIT_LOSS_RTOL
+                                        and run["max_abs_diff_from_fit"] <= FIT_PARAMS_ATOL))
+        check(close, f"{tag}: {name} differs from the eager fit by "
+                     f"{run['max_abs_diff_from_fit']} (spread {rec['spread']}; losses "
+                     f"{run['loss_max_rel_diff']} relative; first step "
+                     f"{run['first_differing_step']}, fields {run['differing_fields']})")
+        check(all(seg["max_total"] <= seg["capacity"] for seg in run["segments"]),
+              f"{tag}: {name}: entry overflow: {run['segments']}")
+        check(all(math.isfinite(x) for x in run["losses"]), f"{tag}: {name}: a non-finite loss")
+        check(all(run["launches"][k] == 10 * views_a_step for k in PATH)
+              and run["launches"] == rec["fit_launches"],
+              f"{tag}: {name}: launches {run['launches']} (eager: {rec['fit_launches']})")
+        check(run["graph"]["captures"] >= 1 and run["graph"]["replays"] > 0,
+              f"{tag}: {name} replayed no captured step: {run['graph']}")
 
 
 def sharded_nccl_fit_scan(ctx) -> dict:
     """fit_scan (d): ``ShardedTrainer`` on a (1, 1) ("data", "tiles") mesh
     over one NCCL rank in this process, on the bench scene's 4 orbit views
-    at 1920x1080 from the train phase's start: ``fit`` twice and
-    ``fit_scan`` once across a densify event (:func:`sharded_fits`), then
-    the steady state, eager against the graph, with one replay under
-    ``set_sync_debug_mode("error")``."""
+    at 1920x1080 from the train phase's start: the eager fit twice, ``fit``
+    through its graphs and ``fit_scan`` once across a densify event
+    (:func:`sharded_fits`), then the steady state three ways, with one
+    replay of each graph under ``set_sync_debug_mode("error")``."""
     import torch.distributed as dist
 
     import gausplat_tpu_torch as T
@@ -2901,9 +3158,9 @@ def nccl_cards_worker(rank, out_dir, spec):
     4 slabs of 544 rows, rank 0 against the single render the parent saved
     (``single4k.pt``), and the render's ms (median of 5, CUDA events);
     (b) the (2, 2) step on the bench scene's 4 orbit views, rank 0 against
-    ``reference.pt``; (c) ``ShardedTrainer`` ``fit`` twice and
-    ``fit_scan`` once, 10 steps from one start across a densify event;
-    (d) the steady state, eager ``fit`` against ``fit_scan``. Writes
+    ``reference.pt``; (c) ``ShardedTrainer``: the eager fit twice,
+    ``fit`` through its graphs and ``fit_scan`` once, 10 steps from one
+    start across a densify event; (d) the steady state three ways. Writes
     ``rank{rank}.json``: its device and backend, times, checks, digests and
     the path's launches ((a)-(c), the targets' renders and the timings
     left out)."""
@@ -3034,8 +3291,10 @@ def nccl_cards_worker(rank, out_dir, spec):
                                   h_pad)
     del got, scene, step
 
-    # (c) ShardedTrainer: fit twice and fit_scan once from one start.
-    part("c", "ShardedTrainer: fit twice and fit_scan once, 10 steps across a densify event")
+    # (c) ShardedTrainer: the eager fit twice, fit through its graphs and
+    # fit_scan once from one start.
+    part("c", "ShardedTrainer: the eager fit twice, fit through its graphs and fit_scan once, "
+              "10 steps across a densify event")
     fits = sharded_fits(lambda: ShardedTrainer(T.GaussianScene.from_numpy(**start, device=dev),
                                                grid, width, height, config), cams, targets)
     rec["fits"] = fits["record"]
@@ -3046,7 +3305,8 @@ def nccl_cards_worker(rank, out_dir, spec):
     rec["launches"] = launches
 
     # (d) The steady state on each rank.
-    part("d", f"the steady state: {STEADY_STEPS} steps with no host event, fit against fit_scan")
+    part("d", f"the steady state: {STEADY_STEPS} steps with no host event, eager, fit through "
+              f"its graphs and fit_scan")
     rec["steady"] = steady_state(fits["trainer"], cams, targets, reps=3,
                                  profile_steps=SHARDED_PROFILE_STEPS, profile_reps=1)
     (out_dir / f"rank{rank}.json").write_text(json.dumps(rec))
@@ -3062,6 +3322,8 @@ def phase_nccl_cards(ctx):
 
     import gausplat_tpu_torch as T
     from gausplat_tpu_torch.parallel.render import _shard_capacity, slab_rows
+    from gausplat_tpu_torch.render.pipeline import _render_eager
+    from gausplat_tpu_torch.render.views_graph import views_graph
     from gausplat_tpu_torch.testing import spawn_ranks
 
     dev = ctx["device"]
@@ -3076,11 +3338,14 @@ def phase_nccl_cards(ctx):
 
         def render_4k():
             with torch.no_grad():
-                return T.render(scene, view, options)
+                return _render_eager(scene, view, options)
 
         single = render_4k()
         torch.save({f: v.cpu() for f, v in single._asdict().items()}, tmp / "single4k.pt")
         single_ms, single_ms_all = cuda_ms(render_4k)
+        with torch.no_grad():
+            single_graph_ms, single_graph_ms_all = cuda_ms(lambda: T.render(scene, view, options))
+        views_graph("render", dev).release()
         del scene, single
         # The (2, 2) step's single-device reference.
         arrays = bench_scene_arrays()
@@ -3115,7 +3380,7 @@ def phase_nccl_cards(ctx):
           == [("nccl", f"cuda:{r}", r) for r in range(CARDS)],
           f"the ranks are not one NCCL rank per card: "
           f"{[(r['backend'], r['device']) for r in ranks]}")
-    for key in ("digest", "fit_digest"):
+    for key in ("digest", "fit_digest", "graph_fit_digest"):
         digests = {r["fits"][key] for r in ranks}
         check(len(digests) == 1, f"the ranks' scenes differ ({key}): {digests}")
     launches = {k.entry: sum(r["launches"][k.entry] for r in ranks) for k in kernels}
@@ -3134,13 +3399,15 @@ def phase_nccl_cards(ctx):
     rank0 = ranks[0]
     steady = {name: [{k: r["steady"][name][k] for k in (
         "ms_per_step", "per_step", "device_idle_share", "compute_idle_share")}
-        for r in ranks] for name in ("fit", "fit_scan")}
+        for r in ranks] for name, _ in STEADY_WAYS}
+    steady["any_miss_ms"] = [r["steady"]["any_miss_ms"] for r in ranks]
     return dict(
         cards=nvidia_smi_all("name,power.limit"), backend="nccl",
         devices=[dict(rank=r["rank"], device=r["device"], name=r["device_name"])
                  for r in ranks],
         mesh4k=rank0["mesh4k"], render_4k_single_ms=single_ms,
-        render_4k_single_ms_all=single_ms_all,
+        render_4k_single_ms_all=single_ms_all, render_4k_single_graph_ms=single_graph_ms,
+        render_4k_single_graph_ms_all=single_graph_ms_all,
         rank_render_4k_ms=[r["render_4k_ms"] for r in ranks],
         rank_render_4k_ms_all=[r["render_4k_ms_all"] for r in ranks],
         rank_render_4k_graph=[r["render_4k_graph"] for r in ranks],
@@ -3150,6 +3417,7 @@ def phase_nccl_cards(ctx):
         step_slab_capacity=rank0["step_slab_capacity"],
         fits={k: v for k, v in rank0["fits"].items() if k != "launches_by_run"},
         rank_fits_bit_for_bit=[r["fits"]["bit_for_bit"] for r in ranks],
+        rank_graph_fits_bit_for_bit=[r["fits"]["graph_fit"]["bit_for_bit"] for r in ranks],
         steady=steady, steady_rank0=rank0["steady"], launches=launches,
         rank_launches=[r["launches"] for r in ranks], spawn_seconds=spawn_seconds,
         slab0=rec)

@@ -21,12 +21,16 @@ targets:
   slabs, so the host can grow the per-slab capacity at its own cadence.
 
 The step copies nothing from the host once its cameras and targets are on
-the device, and writes its state in place, so
-:meth:`ShardedTrainer.fit_scan` captures it on each rank as a CUDA graph
-with its NCCL collectives inside (:class:`..utils.step_graph.StepGraph`)
-and replays it for each step of a chunk between host events, the
-counterpart of the JAX package's ``lax.scan`` chunks of the shard_map'd
-step.
+the device, and writes its state in place, so on a mesh over NCCL each
+rank captures it as a CUDA graph with its NCCL collectives inside
+(:class:`..utils.step_graph.StepGraph`): :meth:`ShardedTrainer.train_step`
+(and so :meth:`ShardedTrainer.fit`) is one replay a call, as the JAX
+package's jitted ``shard_map`` step is one dispatch, and
+:meth:`ShardedTrainer.fit_scan` replays it for each step of a chunk
+between host events, the counterpart of the JAX package's ``lax.scan``
+chunks of the shard_map'd step. Each keeps a graph of its own. On gloo
+the same steps run eagerly; :meth:`ShardedTrainer._train_step_eager` is
+the step launched op by op.
 """
 
 from __future__ import annotations
@@ -234,9 +238,11 @@ class ShardedTrainer:
         # The step of the current options and point count, kept so that its
         # device constants and its optimizer's keep their addresses.
         self._step, self._step_key = None, None
-        # fit_scan's captured step and its device-side inputs.
+        # fit_scan's captured step and its device-side inputs; train_step's.
         self._graph = StepGraph()
         self._scan = None
+        self._step_graph = StepGraph()
+        self._one = None
 
     def _sh_degree(self) -> int:
         """SH warm-up schedule, as ``Trainer._sh_degree``."""
@@ -280,7 +286,28 @@ class ShardedTrainer:
     def train_step(self, cameras, targets_padded) -> dict:
         """One optimisation step on the view batch. Returns the metrics as
         0-d tensors (no wait for the device), with the densify stats where
-        a densify ran."""
+        a densify ran.
+
+        On a mesh over NCCL the step is one replay of its graph on each
+        rank: the cameras and the padded targets are copied into static
+        buffers (a caller's loop may pass other ones each call), the ranks
+        decide a miss of the key together (a max over the mesh, as
+        :meth:`fit_scan` does; after a miss every rank steps eagerly on a
+        side stream, then captures), the graph replays and the metrics
+        are cloned out; then the host events run. On gloo the same step
+        runs eagerly."""
+        step = self._prepare()
+        one = self._one = self._static_inputs(self._one, cameras, targets_padded, 1)
+        self._step_graph.run(lambda: self._one_step(step, one), self._static_key(),
+                             self._step_tensors(step, one), 1,
+                             capture=self.mesh.backend == "nccl", any_miss=self._any_rank_missed)
+        metrics = {"loss": one.losses[0].clone(), "tile_point_total": one.totals[0].clone()}
+        self.step_count += 1
+        stats = self._host_events()
+        return {**metrics, **stats} if stats else metrics
+
+    def _train_step_eager(self, cameras, targets_padded) -> dict:
+        """:meth:`train_step` launched op by op from the host."""
         step = self._prepare()
         _, _, _, metrics = step(self.scene, self._opt_state, self._densify_acc, cameras,
                                 targets_padded)
@@ -323,8 +350,15 @@ class ShardedTrainer:
     def fit(self, cameras, targets, iterations: int) -> list:
         """``iterations`` steps on the fixed view batch; the metric history
         as host floats, read once at the end."""
+        return self._fit(self.train_step, cameras, targets, iterations)
+
+    def _fit_eager(self, cameras, targets, iterations: int) -> list:
+        """:meth:`fit` through :meth:`_train_step_eager`."""
+        return self._fit(self._train_step_eager, cameras, targets, iterations)
+
+    def _fit(self, train_step, cameras, targets, iterations: int) -> list:
         padded = self.pad_targets(targets)
-        history = [self.train_step(cameras, padded) for _ in range(iterations)]
+        history = [train_step(cameras, padded) for _ in range(iterations)]
         return [{k: (float(v) if isinstance(v, torch.Tensor) and v.dim() == 0 else v)
                  for k, v in h.items()} for h in history]
 
@@ -346,7 +380,8 @@ class ShardedTrainer:
         answers.
         """
         end = self.step_count + iterations
-        scan = self._scan_inputs(cameras, self.pad_targets(targets), max_chunk)
+        scan = self._scan = self._static_inputs(self._scan, cameras, self.pad_targets(targets),
+                                                max_chunk)
         capture = self.mesh.backend == "nccl"
         chunks = []
         while self.step_count < end:
@@ -365,21 +400,30 @@ class ShardedTrainer:
         return [{"loss": loss, "tile_point_total": float(total)}
                 for loss, total in zip(losses, totals)]
 
-    def _scan_inputs(self, cameras, padded: torch.Tensor, max_chunk: int) -> "_ScanInputs":
-        """fit_scan's device-side inputs, written into the last call's
-        tensors where the shapes allow, so the captured step survives."""
-        scan = self._scan
+    def _static_inputs(self, scan, cameras, padded: torch.Tensor,
+                       max_chunk: int) -> "_ScanInputs":
+        """A step's device-side inputs: ``cameras`` and ``padded`` written
+        into ``scan``'s tensors where the shapes allow, so the captured
+        step survives, else into new ones."""
         if (scan is None or scan.targets.shape != padded.shape
                 or scan.cameras.focal_length.shape != cameras.focal_length.shape
                 or scan.losses.shape[0] != max_chunk):
             cameras = Camera(**{f: getattr(cameras, f).to(self.device, copy=True)
                                 for f in _CAMERA_FIELDS})
-            scan = self._scan = _ScanInputs(cameras, padded, max_chunk)
-        else:
-            for f in _CAMERA_FIELDS:
-                getattr(scan.cameras, f).copy_(getattr(cameras, f))
-            scan.targets.copy_(padded)
+            return _ScanInputs(cameras, padded.clone(), max_chunk)
+        for f in _CAMERA_FIELDS:
+            getattr(scan.cameras, f).copy_(getattr(cameras, f))
+        scan.targets.copy_(padded)
         return scan
+
+    def _one_step(self, step: ShardedStep, one: "_ScanInputs") -> None:
+        """The step of train_step: the whole view batch, its metrics into
+        row 0 of ``one``'s buffers, the watermark advanced, on the device."""
+        _, _, _, m = step(self.scene, self._opt_state, self._densify_acc, one.cameras,
+                          one.targets)
+        torch.maximum(self._entry_watermark, m["tile_point_total"], out=self._entry_watermark)
+        one.losses.copy_(m["loss"].view(1))
+        one.totals.copy_(m["tile_point_total"].view(1))
 
     def _scan_step(self, step: ShardedStep, scan: "_ScanInputs") -> None:
         """The step of fit_scan: the whole view batch, its metrics into row
@@ -402,7 +446,7 @@ class ShardedTrainer:
                 self.image_height, self.scene.point_count, self.data_axis, self.tile_axis)
 
     def _step_tensors(self, step: ShardedStep, scan: "_ScanInputs") -> list:
-        """Every tensor the step of fit_scan reads or writes and keeps."""
+        """Every tensor the step reads or writes and keeps."""
         adam = [t for f in FIELDS for t in self._opt_state["adam"][f]]
         return [*(getattr(self.scene, f) for f in FIELDS), *adam, self._opt_state["count"],
                 *self._densify_acc.values(), self._entry_watermark, *scan.tensors(),
@@ -415,10 +459,10 @@ class ShardedTrainer:
 
 
 class _ScanInputs:
-    """fit_scan's inputs on the device, at addresses that persist from call
-    to call: the stacked cameras and the padded targets ``[V, ...]``, the
-    chunk's slot, and the metrics buffers (``losses`` and ``totals``
-    ``[max_chunk]``)."""
+    """fit_scan's (or, with one row, train_step's) inputs on the device, at
+    addresses that persist from call to call: the stacked cameras and the
+    padded targets ``[V, ...]``, the chunk's slot, and the metrics buffers
+    (``losses`` and ``totals`` ``[max_chunk]``)."""
 
     def __init__(self, cameras: Camera, targets: torch.Tensor, max_chunk: int):
         device = targets.device

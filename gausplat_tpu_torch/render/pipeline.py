@@ -370,13 +370,41 @@ def render(
     For the densification signal pass ``positions_2d_grad_norm_ref``
     (zeros of shape [P] that require grad) and read its gradient, as the
     reference's dummy-ref side channel (scene/gaussian_3d/mod.rs:222-229).
-    Under ``torch.no_grad()``, or when nothing requires grad, autograd
-    records no node for :class:`RasterizeFunction`: no graph is built and
-    its saved tensors are freed when the call returns.
+
+    Where nothing asks for a gradient (under ``torch.no_grad()``, or no
+    parameter and no given ref requires grad), a render on the card is one
+    dispatch, as the JAX package's jitted render is: one replay of entry
+    point ``"render"``'s captured graph (:mod:`.views_graph`, which says
+    what the graph is keyed on and when it is freed; the first call for a
+    scene and size runs eagerly on a side stream, the second captures; a
+    new view only copies its camera in). The ref is not read there: its
+    values enter no output. The eager render (:func:`_render_eager`) runs
+    where grad is enabled and a parameter or the ref requires it (the
+    differentiable render), inside a caller's own capture (the trainers'
+    steps), with the plain versions (``backend="torch"``, whose loops read
+    their bounds back to the host, which no capture may do), and on a CPU
+    device. Both give the same values, bit for bit.
 
     ``device``: where the render runs; it must hold the scene's
     parameters. ``None`` takes the scene's device.
     """
+    device = _scene_device(scene, device)
+    params = scene_params(scene)
+    given = () if positions_2d_grad_norm_ref is None else (positions_2d_grad_norm_ref,)
+    if (device.type == "cuda" and _use_kernels(options, device)
+            and not runs_eagerly(params + given)):
+        return serve_views(scene, pack_cameras([view]), view.image_width, view.image_height,
+                           options, "map", "render", device, batched=False)
+    return _render_eager(scene, view, options, positions_2d_grad_norm_ref, device)
+
+
+def _render_eager(scene: GaussianScene, view: View, options: RenderOptions = RenderOptions(),
+                  positions_2d_grad_norm_ref: Optional[torch.Tensor] = None,
+                  device=None) -> RenderOutput:
+    """:func:`render` launched op by op from the host, differentiable.
+    Under ``torch.no_grad()``, or when nothing requires grad, autograd
+    records no node for :class:`RasterizeFunction`: no graph is built and
+    its saved tensors are freed when the call returns."""
     device = _scene_device(scene, device)
     point_count = _validate(scene, view.image_width, view.image_height, options)
     if positions_2d_grad_norm_ref is None:
@@ -409,7 +437,7 @@ def render_views(
     for a scene runs eagerly, the second captures). On a CPU device the
     same step runs eagerly. Where grad is enabled and a scene parameter
     requires it, or inside the caller's own capture, the views are
-    rendered one by one through :func:`render`, differentiably.
+    rendered one by one through :func:`_render_eager`, differentiably.
 
     ``mode``, as the JAX package's:
     - ``"vmap"``: every view in flight at once (in the graph each view on
@@ -437,13 +465,13 @@ def render_views(
 
 
 def _render_views_eager(scene, views, options, mode, device) -> RenderOutput:
-    """:func:`render_views` as a loop of :func:`render` calls."""
+    """:func:`render_views` as a loop of eager renders (:func:`_render_eager`)."""
     if mode == "vmap":
-        outs = [render(scene, v, options, device=device) for v in views]
+        outs = [_render_eager(scene, v, options, device=device) for v in views]
         return RenderOutput(*(torch.stack(field) for field in zip(*outs)))
     stacked = None
     for i, v in enumerate(views):
-        out = render(scene, v, options, device=device)
+        out = _render_eager(scene, v, options, device=device)
         if stacked is None:
             stacked = RenderOutput(*(f.new_empty((len(views),) + f.shape) for f in out))
         for dst, src in zip(stacked, out):
@@ -452,11 +480,12 @@ def _render_views_eager(scene, views, options, mode, device) -> RenderOutput:
 
 
 def serve_views(scene: GaussianScene, rows, width: int, height: int, options: RenderOptions,
-                mode: str, name: str, device: torch.device) -> RenderOutput:
+                mode: str, name: str, device: torch.device, batched: bool = True) -> RenderOutput:
     """Render the V views of the packed camera ``rows`` (numpy, or on the
     device; :mod:`.views_graph`) as one replay of entry point ``name``'s
     graph (its step run eagerly on a CPU device), ``mode`` as
-    :func:`render_views`'. Returns outputs with a leading view axis."""
+    :func:`render_views`'. Returns outputs with a leading view axis, or,
+    with ``batched`` false, the one view's outputs without it."""
     point_count = _validate(scene, width, height, options)
     capacity = _capacity(point_count, options)
     use_kernels = _use_kernels(options, device)
@@ -467,10 +496,11 @@ def serve_views(scene: GaussianScene, rows, width: int, height: int, options: Re
         out = _render_core(params, ref, camera_at(cameras, i), width, height, capacity,
                            options, use_kernels)
         for dst, src in zip(outputs, out):
-            dst[i].copy_(src)
+            (dst[i] if batched else dst).copy_(src)
 
     return RenderOutput(*graph.run(
-        scene, params, rows, output_specs(count, width, height, point_count),
+        scene, params, rows, output_specs(count if batched else None, width, height,
+                                          point_count),
         (mode, width, height, options),
         lambda cameras, outputs, ref: graph.each_view(
             count, lambda i: one(cameras, outputs, ref, i), concurrent=mode == "vmap")))
@@ -485,18 +515,48 @@ def count_tile_entries(
     device=None,
 ) -> int:
     """True (tile, point) entry count for one view, the reference's scan
-    total (read back at rank/mod.rs:61-63), from the projection alone."""
+    total (read back at rank/mod.rs:61-63), from the projection alone.
+
+    One dispatch a call, as the JAX package's one tiny jitted program: on
+    the card one replay of entry point ``"count_tile_entries"``'s captured
+    graph (:mod:`.views_graph`; keyed on the size, the SH degree and the
+    culling, so a view set of one size replays), which writes the total
+    into a static 0-d int64, read back after it. On a CPU device the same
+    step runs eagerly. :func:`_count_tile_entries_eager` is the count
+    launched op by op."""
     device = _scene_device(scene, device)
-    tile_count_x = -(-view.image_width // TILE_SIZE_X)
-    tile_count_y = -(-view.image_height // TILE_SIZE_Y)
+    width, height = view.image_width, view.image_height
+    params = scene_params(scene)
+    graph = views_graph("count_tile_entries", device)
+
+    def body(cameras, outputs, ref):
+        outputs[0].copy_(_entry_total(scene, camera_at(cameras, 0), width, height, options))
+
+    (total,) = graph.run(scene, params, pack_cameras([view]), (((), torch.int64),),
+                         (width, height, options.colors_sh_degree_max, options.tight_culling),
+                         body)
+    return int(total)
+
+
+@torch.no_grad()
+def _count_tile_entries_eager(scene: GaussianScene, view: View,
+                              options: RenderOptions = RenderOptions(), *, device=None) -> int:
+    """:func:`count_tile_entries` launched op by op from the host."""
+    device = _scene_device(scene, device)
+    return int(_entry_total(scene, Camera.from_view(view, device=device), view.image_width,
+                            view.image_height, options))
+
+
+def _entry_total(scene: GaussianScene, camera: Camera, width: int, height: int,
+                 options: RenderOptions) -> torch.Tensor:
+    """The projection's touched-tile counts summed, as a 0-d int64."""
     proj = project_gaussians(
-        scene.colors_sh, scene.positions, scene.rotations, scene.scalings,
-        Camera.from_view(view, device=device),
+        scene.colors_sh, scene.positions, scene.rotations, scene.scalings, camera,
         sh_degree=options.colors_sh_degree_max,
-        tile_count_x=tile_count_x, tile_count_y=tile_count_y,
+        tile_count_x=-(-width // TILE_SIZE_X), tile_count_y=-(-height // TILE_SIZE_Y),
         opacities=scene.opacities, tight_culling=options.tight_culling,
     )
-    return int(proj.tile_counts.to(torch.int64).sum())
+    return proj.tile_counts.to(torch.int64).sum()
 
 
 def calibrate_options(

@@ -1,12 +1,15 @@
-"""Batched serving as one CUDA graph replay a call.
+"""Serving as one CUDA graph replay a call.
 
-The card's counterpart of the JAX package's one-dispatch batched renders:
-``render/pipeline.py::_make_render_views_fn`` (``jax.jit`` of a ``vmap`` or
-a ``lax.map`` over the views) and, in ``parallel/render.py``, the jitted
-vmap of ``render_views``, the ``shard_map`` of ``render_data_parallel`` and
-that of ``render_tile_sharded``. Each is one dispatch a call there; here
-the same no-grad render (``_render_core`` per view, the collectives where
-the entry point has them) is captured once through
+The card's counterpart of the JAX package's one-dispatch renders:
+``render/pipeline.py::_make_render_fn`` (``jax.jit`` of one view's render),
+its jitted ``count_tile_entries``, ``_make_render_views_fn`` (``jax.jit``
+of a ``vmap`` or a ``lax.map`` over the views) and, in
+``parallel/render.py``, the jitted vmap of ``render_views``, the
+``shard_map`` of ``render_data_parallel`` and that of
+``render_tile_sharded``. Each is one dispatch a call there; here the same
+no-grad render (``_render_core`` per view, the collectives where the entry
+point has them; for ``count_tile_entries`` the projection and the sum of
+its tile counts into a 0-d int64) is captured once through
 :class:`~gausplat_tpu_torch.utils.step_graph.StepGraph` and each later
 call is one host-to-device copy of its cameras into a static buffer, one
 graph launch, and one copy of the static outputs into fresh tensors (so
@@ -43,7 +46,10 @@ is enabled and a scene parameter (or a given ref) requires it, and where
 the current stream is already capturing (the caller's own graph then
 records the eager loop), the entry points run their eager loops,
 differentiable; on a CPU device the step below runs eagerly, its plain
-version; a render whose collectives go through gloo stays eager.
+version (``render`` itself calls its eager form there); a render whose
+collectives go through gloo stays eager; ``render`` with the plain
+versions (``backend="torch"``) stays eager, as they read their loop
+bounds back to the host.
 """
 
 from __future__ import annotations

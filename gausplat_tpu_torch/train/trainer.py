@@ -11,9 +11,16 @@ its cadence, so a step without a host event never waits for the device.
 The step writes all of its state in place (the parameters, the Adam
 moments and counts, the densify accumulators, the watermark), and copies
 nothing from the host once its camera and target are on the device, so
-:meth:`Trainer.fit_scan` captures it once as a CUDA graph
-(:mod:`..utils.step_graph`) and replays it for each step of a chunk
-between host events, the counterpart of the JAX package's ``lax.scan`` chunks.
+on the card it is captured as a CUDA graph (:mod:`..utils.step_graph`)
+and replayed: :meth:`Trainer.train_step` and :meth:`Trainer.train_step_batch`
+(and so :meth:`Trainer.fit`) are one replay a call, as the JAX package's
+jitted ``step`` and ``step_batch`` are one dispatch, and
+:meth:`Trainer.fit_scan` replays its step for each step of a chunk between
+host events, the counterpart of the JAX package's ``lax.scan`` chunks.
+Each keeps a graph of its own, so alternating them recaptures nothing.
+The host events stay on the host, after the replay. On a CPU scene the
+same step bodies run eagerly; :meth:`Trainer._train_step_eager` and
+:meth:`Trainer._train_step_batch_eager` are the steps launched op by op.
 
 SH-degree warm-up raises ``colors_sh_degree_max`` every
 ``sh_warmup_interval`` steps. The JAX package recompiles its step there;
@@ -35,10 +42,10 @@ from ..render.pipeline import (
     _render_core,
     _use_kernels,
     _validate,
-    render,
     scene_params,
 )
 from ..render.view import View
+from ..render.views_graph import CAMERA_FLOATS, camera_at, pack_cameras, stacked_camera
 from ..scene.gaussian_3d import GaussianScene
 from .densify import (
     DensifyConfig,
@@ -126,6 +133,9 @@ class Trainer:
         # fit_scan's captured step and its device-side inputs.
         self._graph = StepGraph()
         self._scan = None
+        # train_step's and train_step_batch's captured steps and inputs.
+        self._step_graph, self._batch_graph = StepGraph(), StepGraph()
+        self._one, self._batch = None, None
 
     # -- internals -------------------------------------------------------------
 
@@ -203,7 +213,26 @@ class Trainer:
 
         Returns metrics as 0-d device tensors: the step does not wait for
         the device. Convert with ``float()`` when a value is needed.
+
+        On the card the step is one replay of its captured graph: the
+        camera and the target are copied into static buffers, the graph
+        replays (after a miss of its key, e.g. after a densify, one eager
+        step on a side stream, then the capture), and the metrics are
+        cloned out; then the host events run. On a CPU scene the same
+        step runs eagerly.
         """
+        self._prepare()
+        info = self._step_info()
+        one = self._one = _StepInputs.fill(self._one, [view], [target], self.device)
+        self._step_graph.run(lambda: self._one_step(one), self._static_key("one", view),
+                             self._step_tensors(one), 1)
+        metrics = one.metrics()
+        self.step_count += 1
+        stats = self._host_events()
+        return {**metrics, **info, **stats}
+
+    def _train_step_eager(self, view: View, target) -> dict:
+        """:meth:`train_step` launched op by op from the host."""
         self._prepare()
         info = self._step_info()
         metrics = self._step(Camera.from_view(view, device=self.device), self._target(target),
@@ -212,35 +241,66 @@ class Trainer:
         stats = self._host_events()
         return {**metrics, **info, **stats}
 
+    def _one_step(self, one: "_StepInputs") -> None:
+        """train_step's step on its static inputs."""
+        one.write(self._step(camera_at(one.cameras, 0), one.targets[0], one.width, one.height))
+
     def train_step_batch(self, views, targets) -> dict:
         """One optimization step from the mean loss over a view batch (the
         views render one after another into one graph). The densify
         statistics match ``len(views)`` successive single-view steps;
         ``step_count`` advances by the batch size. As in the JAX package,
-        no host event runs here."""
+        no host event runs here. On the card one replay of its captured
+        graph a call, as :meth:`train_step`."""
         views = list(views)
         self._prepare()
-        ref = self._ref()
-        targets = [self._target(t) for t in targets]
+        batch = self._batch = _StepInputs.fill(self._batch, views, targets, self.device)
+        self._batch_graph.run(lambda: self._batch_step(batch),
+                              self._static_key("batch", views[0]),
+                              self._step_tensors(batch), 1)
+        self.step_count += len(views)
+        return batch.metrics()
+
+    def _train_step_batch_eager(self, views, targets) -> dict:
+        """:meth:`train_step_batch` launched op by op from the host."""
+        views = list(views)
+        self._prepare()
+        cameras = [Camera.from_view(v, device=self.device) for v in views]
+        metrics = self._batch_body(cameras, [self._target(t) for t in targets],
+                                   views[0].image_width, views[0].image_height)
+        self.step_count += len(views)
+        return metrics
+
+    def _batch_step(self, batch: "_StepInputs") -> None:
+        """train_step_batch's step on its static inputs."""
+        cameras = [camera_at(batch.cameras, i) for i in range(batch.targets.shape[0])]
+        batch.write(self._batch_body(cameras, list(batch.targets), batch.width, batch.height))
+
+    def _batch_body(self, cameras, targets, width: int, height: int) -> dict:
+        """One step from the mean loss over the views of ``cameras``
+        against ``targets`` (on the device), written in place; returns the
+        metrics as 0-d device tensors."""
         options = self._options()
-        outs = [render(self.scene, v, options, ref) for v in views]
+        point_count = _validate(self.scene, width, height, options)
+        capacity, use_kernels = _capacity(point_count, options), _use_kernels(options, self.device)
+        params = scene_params(self.scene)
+        ref = self._ref()
+        outs = [_render_core(params, ref, camera, width, height, capacity, options, use_kernels)
+                for camera in cameras]
         losses = [
             photometric_loss(o.colors_rgb_2d, t, self.config.ssim_weight)
             for o, t in zip(outs, targets)
         ]
         loss = torch.mean(torch.stack(losses))
         grad_norm = self._apply_gradients(loss, ref)
-        n = len(views)
+        n = len(cameras)
         radii = torch.stack([o.radii for o in outs])
         acc = self._densify_acc
-        self._densify_acc = {
-            # The shared ref's gradient sums the per-view norms of the mean
-            # loss's gradients; times V it equals V single-view steps.
-            "grad_norm_sum": acc["grad_norm_sum"] + grad_norm * n,
-            "visible_count": acc["visible_count"] + (radii > 0).to(torch.int32).sum(0),
-            "max_radii": torch.maximum(acc["max_radii"], radii.amax(0)),
-        }
-        self.step_count += n
+        # The shared ref's gradient sums the per-view norms of the mean
+        # loss's gradients; times V it equals V single-view steps.
+        acc["grad_norm_sum"].add_(grad_norm * n)
+        acc["visible_count"].add_((radii > 0).sum(0, dtype=torch.int32))
+        torch.maximum(acc["max_radii"], radii.amax(0), out=acc["max_radii"])
         return {
             "loss": loss.detach(),
             "psnr": psnr(torch.stack([o.colors_rgb_2d.detach() for o in outs]),
@@ -251,13 +311,20 @@ class Trainer:
     def fit(self, views, targets, iterations: Optional[int] = None) -> list:
         """Round-robin fit over (views, targets). Returns the metric
         history as host floats, read once at the end."""
+        return self._fit(self.train_step, views, targets, iterations)
+
+    def _fit_eager(self, views, targets, iterations: Optional[int] = None) -> list:
+        """:meth:`fit` through :meth:`_train_step_eager`."""
+        return self._fit(self._train_step_eager, views, targets, iterations)
+
+    def _fit(self, train_step, views, targets, iterations: Optional[int]) -> list:
         iterations = iterations or self.config.iterations
         history = []
         n = len(views)
         for _ in range(iterations):
             # By the global step, so a resumed trainer replays the sequence.
             j = self.step_count % n
-            history.append(self.train_step(views[j], targets[j]))
+            history.append(train_step(views[j], targets[j]))
         return [
             {k: (float(v) if isinstance(v, torch.Tensor) and v.dim() == 0 else v)
              for k, v in h.items()}
@@ -334,15 +401,20 @@ class Trainer:
         scan.step.add_(1)
         scan.slot.add_(1)
 
-    def _static_key(self) -> tuple:
-        """What shapes the step besides its tensors."""
-        return (self._options(), self.config.ssim_weight, self.image_width, self.image_height)
+    def _static_key(self, kind: str = "scan", view: Optional[View] = None) -> tuple:
+        """What shapes a step besides its tensors: which step, its options
+        and loss weight, and the size it renders."""
+        size = ((self.image_width, self.image_height) if view is None
+                else (view.image_width, view.image_height))
+        return (kind, self._options(), self.config.ssim_weight, *size)
 
-    def _step_tensors(self, scan: "_ScanInputs") -> list:
-        """Every tensor the step of fit_scan reads or writes and keeps."""
+    def _step_tensors(self, inputs) -> list:
+        """Every tensor a step reads or writes and keeps: the scene, the
+        optimizer state, the densify accumulators, the watermark and the
+        step's own inputs and outputs (``inputs.tensors()``)."""
         adam = [t for f in FIELDS for t in self._opt_state["adam"][f]]
         return [*scene_params(self.scene), *adam, self._opt_state["count"],
-                *self._densify_acc.values(), self._entry_watermark, *scan.tensors()]
+                *self._densify_acc.values(), self._entry_watermark, *inputs.tensors()]
 
     def _host_events(self) -> dict:
         """Host interventions after the step at ``step_count``: densify,
@@ -398,3 +470,50 @@ class _ScanInputs:
     def tensors(self) -> list:
         return [*(getattr(self.cameras, f) for f in _CAMERA_FIELDS), self.targets, self.step,
                 self.slot, self.values, self.totals]
+
+
+class _StepInputs:
+    """The static inputs and outputs of ``train_step`` (one view) or
+    ``train_step_batch`` (V views) on the device, kept from call to call
+    while the shapes hold, so the captured step survives: the packed
+    cameras ``rows`` ``[V, 21]`` (``cameras``: their stacked view), the
+    targets ``[V, H, W, 3]`` and the 0-d metrics (loss, PSNR, entry
+    total)."""
+
+    def __init__(self, count: int, width: int, height: int, device):
+        self.width, self.height = width, height
+        self.rows = torch.empty((count, CAMERA_FLOATS), dtype=torch.float32, device=device)
+        self.cameras = stacked_camera(self.rows)
+        self.targets = torch.empty((count, height, width, 3), dtype=torch.float32,
+                                   device=device)
+        self.loss = torch.zeros((), dtype=torch.float32, device=device)
+        self.psnr = torch.zeros((), dtype=torch.float32, device=device)
+        self.total = torch.zeros((), dtype=torch.int32, device=device)
+
+    @classmethod
+    def fill(cls, inputs: Optional["_StepInputs"], views, targets, device) -> "_StepInputs":
+        """``inputs`` (made anew on ``device`` where None or of other
+        shapes) holding the views' cameras and the ``targets`` (arrays or
+        tensors on any device)."""
+        width, height = views[0].image_width, views[0].image_height
+        if inputs is None or (inputs.rows.shape[0], inputs.width, inputs.height) != (
+                len(views), width, height):
+            inputs = cls(len(views), width, height, device)
+        inputs.rows.copy_(torch.from_numpy(pack_cameras(views)), non_blocking=True)
+        for dst, src in zip(inputs.targets, targets):
+            dst.copy_(torch.as_tensor(src, dtype=torch.float32))
+        return inputs
+
+    def write(self, metrics: dict) -> None:
+        """Copy a step's metrics (0-d tensors) into the static outputs."""
+        self.loss.copy_(metrics["loss"])
+        self.psnr.copy_(metrics["psnr"])
+        self.total.copy_(metrics["tile_point_total"])
+
+    def metrics(self) -> dict:
+        """The step's metrics, cloned out of the static outputs."""
+        return {"loss": self.loss.clone(), "psnr": self.psnr.clone(),
+                "tile_point_total": self.total.clone()}
+
+    def tensors(self) -> list:
+        return [self.rows, self.targets, self.loss, self.psnr, self.total]

@@ -47,7 +47,9 @@ from .kernels import captured_launches, count_replay
 
 class StepGraph:
     """A step function captured as one CUDA graph, replayed while its key
-    holds. ``captures`` counts the captures made, ``replays`` the replays."""
+    holds. ``captures`` counts the captures made, ``replays`` the replays,
+    ``by_replay`` each kernel's launches made by replays, over every
+    capture."""
 
     def __init__(self):
         self.key = None
@@ -56,6 +58,7 @@ class StepGraph:
         self._held = ()
         self.captures = 0
         self.replays = 0
+        self.by_replay = {}
 
     def invalidate(self) -> None:
         """Free the graph, its memory pool and the tensors it held."""
@@ -100,6 +103,8 @@ class StepGraph:
         self.graph.replay()
         count_replay(self.launches)
         self.replays += 1
+        for kernel, n in self.launches.items():
+            self.by_replay[kernel] = self.by_replay.get(kernel, 0) + n
 
     @staticmethod
     def _warm_up(step, device) -> None:

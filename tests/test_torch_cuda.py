@@ -43,7 +43,17 @@ of the graph, reads an in-place update at its next replay, recaptures for
 a scene from a setter, keeps one pool for scenes rendered in turn and
 frees it with its scene; on one NCCL rank ``render_data_parallel`` and
 ``render_tile_sharded`` are captured with their collectives, bit for bit
-their eager calls, and a replay reads nothing back."""
+their eager calls, and a replay reads nothing back.
+
+The per-call entry points replay a graph of their own: the no-grad
+``render`` (entry point ``"render"``) and ``count_tile_entries`` are bit
+for bit their eager forms over the warm-up, the capture and the replays,
+a new view replays (one capture), a new scene recaptures, and a call
+inside a caller's own capture takes the eager form; ``Trainer.fit``
+(``train_step``) and ``train_step_batch`` through their graphs are bit
+for bit the steps launched op by op (``_fit_eager``,
+``_train_step_batch_eager``) across a densify, with the same launches;
+``ShardedTrainer.fit`` on one NCCL rank likewise."""
 
 import numpy as np
 import pytest
@@ -595,8 +605,10 @@ def _serving_setup(device, seed=5):
 
 
 def _singles(scene, views, options):
+    from gausplat_tpu_torch.render.pipeline import _render_eager
+
     with torch.no_grad():
-        outs = [T.render(scene, v, options) for v in views]
+        outs = [_render_eager(scene, v, options) for v in views]
     return [torch.stack([getattr(o, f) for o in outs]) for f in T.RenderOutput._fields]
 
 
@@ -710,3 +722,158 @@ def test_nccl_serving_is_captured_and_matches_eager(nccl_mesh, cuda_device):
         _, launches = _counted(lambda: _replay_strict(graph.graph))
         assert launches == ([2, 2, 0] if "data" in name else [1, 1, 0]), name
         graph.release()  # before the fixture's process group goes
+
+
+def _entry_graph(name, device):
+    from gausplat_tpu_torch.render.views_graph import views_graph
+
+    graph = views_graph(name, device)
+    graph.release()
+    return graph
+
+
+def test_render_graph_matches_the_eager_render(cuda_device):
+    from gausplat_tpu_torch.render.pipeline import _render_eager
+
+    scene, views, options = _serving_setup(cuda_device)
+    graph = _entry_graph("render", cuda_device)
+    ref = torch.linspace(0.5, 2.0, scene.point_count, device=cuda_device)  # read by no output
+    calls = []
+    with torch.no_grad():
+        # The warm-up, the capture, a replay, then a new view: a replay.
+        for view in (views[0], views[0], views[0], views[1]):
+            out, launches = _counted(lambda: T.render(scene, view, options, ref))
+            want = _render_eager(scene, view, options)
+            for field, got, w in zip(out._fields, out, want):
+                assert got.shape == w.shape and torch.equal(got, w), field
+            assert all(t.data_ptr() != s.data_ptr() for t, s in zip(out, graph.outputs))
+            calls.append((launches, graph.graph.captures, graph.graph.replays))
+    assert calls == [([1, 1, 0], 0, 0), ([1, 1, 0], 1, 1), ([1, 1, 0], 1, 2),
+                     ([1, 1, 0], 1, 3)]
+    _, launches = _counted(lambda: _replay_strict(graph.graph))  # reads nothing back
+    assert launches == [1, 1, 0]
+    # A new scene misses: the warm-up, then the capture.
+    other = T.GaussianScene.from_numpy(**scene_arrays(SMALL["p"], 6), device=cuda_device)
+    with torch.no_grad():
+        for _ in range(2):
+            out = T.render(other, views[1], options)
+    assert (graph.graph.captures, graph.graph.replays) == (2, 5)
+    want = _render_eager(other, views[1], options)
+    assert all(torch.equal(a, b.detach()) for a, b in zip(out, want))
+    # Grad needed: the eager, differentiable render.
+    out = T.render(other, views[1], options)
+    assert out.colors_rgb_2d.requires_grad and graph.graph.replays == 5
+
+
+def test_entry_points_inside_a_capture_stay_eager(cuda_device, monkeypatch):
+    from gausplat_tpu_torch.render import pipeline
+
+    scene, views, options = _serving_setup(cuda_device)
+    graph = _entry_graph("render", cuda_device)
+    taken = []
+
+    def eager(*args, **kwargs):  # records the call; a host copy could not be captured
+        taken.append(args[1])
+        return torch.zeros((), device=cuda_device).add_(1.0)
+
+    monkeypatch.setattr(pipeline, "_render_eager", eager)
+    caller = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.no_grad(), torch.cuda.stream(side):
+        eager(None, None)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    with torch.no_grad(), torch.cuda.graph(caller):
+        got = T.render(scene, views[0], options)
+    caller.replay()
+    torch.cuda.synchronize()
+    assert taken[1:] == [views[0]] and float(got) == 1.0
+    assert (graph.graph.captures, graph.graph.replays, graph.rows) == (0, 0, None)
+
+
+def test_count_tile_entries_graph_matches_eager(cuda_device):
+    from gausplat_tpu_torch.render.pipeline import _count_tile_entries_eager
+
+    scene, views, options = _serving_setup(cuda_device)
+    graph = _entry_graph("count_tile_entries", cuda_device)
+    got = [T.count_tile_entries(scene, v, options) for v in (views[0], views[0], views[1])]
+    want = [_count_tile_entries_eager(scene, v, options) for v in (views[0], views[0], views[1])]
+    assert got == want and min(got) > 0
+    assert (graph.graph.captures, graph.graph.replays) == (1, 2)
+    # calibrate_options counts through the same graph: a replay a view.
+    calibrated = T.calibrate_options(scene, views, options)
+    assert graph.graph.replays == 4
+    assert calibrated.tile_entry_capacity >= max(want)
+
+
+def _assert_same_trainers(got, want):
+    for f in ("colors_sh", "opacities", "positions", "rotations", "scalings"):
+        assert torch.equal(getattr(got.scene, f), getattr(want.scene, f)), f
+        for a, b in zip(got._opt_state["adam"][f], want._opt_state["adam"][f]):
+            assert torch.equal(a, b), f
+    for k, v in want._densify_acc.items():
+        assert torch.equal(got._densify_acc[k], v), k
+    assert torch.equal(got._entry_watermark, want._entry_watermark)
+
+
+def test_fit_through_graphs_matches_the_eager_fit(cuda_device, deterministic_cudnn):
+    make, pairs, targets = _fit_scan_setup(cuda_device)
+    eager, graphed = make(), make()
+    want, eager_launches = _counted(lambda: eager._fit_eager(pairs, targets, 13))
+    got, launches = _counted(lambda: graphed.fit(pairs, targets, 13))
+    graph = graphed._step_graph
+    # A miss after each host event that replaces the step's tensors.
+    assert graph.captures >= 2 and graph.replays >= 5 and graphed._graph.captures == 0
+    assert launches == eager_launches == [13, 13, 13]
+    assert graphed.scene.point_count == eager.scene.point_count > 25
+    assert got == want
+    _assert_same_trainers(graphed, eager)
+    # With no host event, fit and fit_scan alternate without recapturing:
+    # each keeps a graph of its own.
+    import dataclasses
+
+    graphed.config = dataclasses.replace(graphed.config, densify_until=0,
+                                         overflow_check_interval=10**9,
+                                         sh_warmup_interval=10**6)
+    graphed.fit(pairs, targets, 2)
+    graphed.fit_scan(pairs, targets, 2)
+    counts = (graph.captures, graphed._graph.captures)
+    replays = graph.replays
+    graphed.fit(pairs, targets, 1)
+    graphed.fit_scan(pairs, targets, 2)
+    assert (graph.captures, graphed._graph.captures) == counts and graph.replays == replays + 1
+    _, launches = _counted(lambda: _replay_strict(graph))
+    assert launches == [1, 1, 1]
+
+
+def test_train_step_batch_graph_matches_the_eager_step(cuda_device, deterministic_cudnn):
+    import dataclasses
+
+    make, pairs, targets = _fit_scan_setup(cuda_device)
+    batch = pairs + pairs[:1]
+    batch_targets = targets + targets[:1]
+    eager, graphed = make(), make()
+    for trainer in (eager, graphed):  # one SH degree over the 3 batch steps: one key
+        trainer.config = dataclasses.replace(trainer.config, sh_warmup_interval=100)
+    want = [eager._train_step_batch_eager(batch, batch_targets) for _ in range(3)]
+    got, launches = _counted(lambda: [graphed.train_step_batch(batch, batch_targets)
+                                      for _ in range(3)])
+    assert (graphed._batch_graph.captures, graphed._batch_graph.replays) == (1, 2)
+    assert launches == [9, 9, 9]
+    for g, w in zip(got, want):
+        assert {k: float(v) for k, v in g.items()} == {k: float(v) for k, v in w.items()}
+    _assert_same_trainers(graphed, eager)
+
+
+def test_sharded_fit_through_graphs_matches_the_eager_fit_on_nccl(
+        nccl_mesh, cuda_device, deterministic_cudnn):
+    make, cameras, targets = _sharded_fit_scan_setup(cuda_device, nccl_mesh)
+    eager, graphed = make(), make()
+    want, eager_launches = _counted(lambda: eager._fit_eager(cameras, targets, 13))
+    got, launches = _counted(lambda: graphed.fit(cameras, targets, 13))
+    graph = graphed._step_graph
+    assert graph.captures >= 2 and graph.replays >= 5
+    assert launches == eager_launches == [26, 26, 26]
+    assert graphed.scene.point_count == eager.scene.point_count > 25
+    assert got == want
+    _assert_same_trainers(graphed, eager)

@@ -13,6 +13,13 @@ import torch
 import gausplat_tpu_torch as T
 from gausplat_tpu_torch.testing import EXPAND_WORKLOADS  # noqa: F401  (re-exported)
 
+# One torch thread a process. The suite runs six pytest-xdist workers on
+# eight cores, and each worker imports every test file when it collects, so
+# this caps every worker: with a thread per core in each, the workers'
+# threads outnumbered the cores several times over and the port's tests and
+# the JAX tests beside them ran several times slower than alone.
+torch.set_num_threads(1)
+
 #: The small scene of tests/test_rasterize.py: P=80 at 56x40 (partial tiles
 #: on both axes), capacity 1024, blend windows of 64.
 SMALL = dict(p=80, width=56, height=40, capacity=1024, block=64)
