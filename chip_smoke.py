@@ -9,7 +9,7 @@ It imports torch, numpy and ``gausplat_tpu_torch`` only (no JAX, and
 nothing of ``tests/``), builds the three hand-written kernel libraries from
 ``gausplat_tpu_torch/csrc`` into ``build/gausplat_tpu_torch/`` (one nvcc
 each, all at once; the rasterize libraries hold an entry point for f32
-rows and one for packed bf16-pair rows), and runs fourteen phases, each
+rows and one for packed bf16-pair rows), and runs fifteen phases, each
 printing one JSON line:
 
 1. env: versions, the card, the kernel builds and their ptxas reports;
@@ -187,7 +187,29 @@ printing one JSON line:
    parameters within the spread, the captures, the replays and A, B and C
    at 40 launches each (replays counted); then the steady state at those
    shapes as in (b) (3 timings each), with the host ms of the ranks' miss
-   decision.
+   decision;
+15. render_grad: the differentiable ``render`` and its backward through
+   their forward and backward CUDA graphs (``render/grad_graph.py``), as a
+   user's loop calls them (a fresh ref that requires grad each call, an L1
+   loss against a target, ``loss.backward()``), at the serving shapes (the
+   1M-point scene at 1920x1080, SH 3, the calibrated capacity; each view's
+   target another view's render) and at the lego fit's (phase 12's fitted
+   4,114-point scene, 800x800): the warm-up, the capture, a replay, a new
+   view, two renders before one backward, backwards in the reverse order,
+   a dropped forward, then a scene of another point count from
+   ``from_numpy`` (a miss: its warm-up, capture and a replay), every output,
+   parameter gradient and ref gradient bit for bit the same sequence through
+   ``_render_eager`` and its backward, the pair's captures, replays and
+   moved states checked after each step, A, B and C counted (by replay
+   too); then the miss cost (host ms of the warm-up and the capture calls
+   against an eager call and a replay), the pool's bytes and the saved
+   state a move copies, a call through the graphs and eager in turns (ms,
+   median of 5 CUDA-event timings twice over, with every timing), two views
+   before one backward likewise, the profiler's busy ms, idle share and
+   host calls of a call and of the render with its backward alone (two
+   graph launches a call), one replay of each graph with the host's sync
+   checks set to raise, and A, B and C at the call's shapes against their
+   plain versions, timed.
 
 With ``--cards 4`` (a machine with four cards; it exits non-zero before
 any work where fewer are visible, and never runs on fewer ranks or over
@@ -230,7 +252,10 @@ its 2,000 steps', phase 13 for A, B and C at each script's shapes,
 ``@mesh_scale_slab0`` and ``@pad_slab`` (``mesh_scale``'s step at 8 ranks
 on the ranks of that slab), phase 14 for A, B and C at the captured
 step's shapes, ``<kernel>@fit_scan``, whose launches are (a)'s fit_scan's,
-replays included (with ``--cards 4``: only ``<kernel>@nccl_slab0``): their
+replays included, phase 15 for A, B and C at the differentiable render's
+shapes, ``<kernel>@render_grad`` (serving) and ``@render_grad_lego``, whose
+launches are those of its sequence through the graphs (replays counted, and
+``launches_by_replay``; with ``--cards 4``: only ``<kernel>@nccl_slab0``): their
 launches, and the error, time (``ms``, CUDA events around the wrapper;
 ``device_ms``, its kernels' device time), plain time and bound at the
 step's shapes;
@@ -392,39 +417,64 @@ DEVICE_KERNELS = {
 }
 
 
+#: Host seconds of idle profiler window on each side of a :func:`device_ms`
+#: reading, and the readings it takes before it gives up.
+PROFILE_PAD_S = 0.05
+PROFILE_ATTEMPTS = 3
+
+
+def _profiled_device_ms(fn, names, reps: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    every = 0.0
+    mine, records, others = {}, {}, []
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA or not event.count:
+            continue
+        us = getattr(event, "device_time_total", None)
+        us = event.cuda_time_total if us is None else us
+        # The mean over the records held, times the launches a call.
+        ms = us / 1e3 / event.count * max(1, round(event.count / reps))
+        every += ms
+        found = ([event.key[:90]] if names is None
+                 else [name for name in names if name in event.key])
+        if found:
+            mine[found[0]] = mine.get(found[0], 0.0) + ms
+            records[found[0]] = records.get(found[0], 0) + event.count
+        else:
+            others.append(event.key[:90])
+    return dict(device_ms=sum(mine.values()), device_all_ms=every, kernels=mine,
+                records=records, other_kernels=others)
+
+
 def device_ms(fn, names=None, reps: int = 20) -> dict:
     """Device time per call of ``fn`` (torch.profiler, CUPTI) over ``reps``
     calls after a warm-up: ``device_ms`` of the kernels whose names contain
     one of ``names``, or of every kernel where ``names`` is None
     (``kernels``: by name), ``device_all_ms`` of every kernel, and the names
-    of the others that ran. "not measured" where the profiler saw no device
-    time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    of the others that ran. The profiler drops device records: a reading
+    of 20 calls has held 10-19 records of a kernel, and some readings of A
+    none. So each kernel's time is the mean over the records
+    it holds times its launches a call (``records``: how many it held), the
+    window is padded with ``PROFILE_PAD_S`` of idle host time on each side,
+    and a reading that holds no record of one of ``names`` is taken again,
+    up to ``PROFILE_ATTEMPTS`` times, then is "not measured"
+    (``profiler_misses``: the readings dropped)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    every = 0.0
-    mine, others = {}, []
-    for event in prof.key_averages():
-        if event.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(event, "device_time_total", None)
-        us = event.cuda_time_total if us is None else us
-        every += us
-        found = ([event.key[:90]] if names is None
-                 else [name for name in names if name in event.key])
-        if found:
-            mine[found[0]] = mine.get(found[0], 0.0) + us / 1e3 / reps
-        else:
-            others.append(event.key[:90])
-    if every == 0.0:
-        return dict(device_ms="not measured (the profiler saw no device time)")
-    return dict(device_ms=sum(mine.values()), device_all_ms=every / 1e3 / reps,
-                kernels=mine, other_kernels=others)
+    for attempt in range(PROFILE_ATTEMPTS):
+        rec = _profiled_device_ms(fn, names, reps)
+        if rec["kernels"] and (names is None or all(n in rec["kernels"] for n in names)):
+            return dict(rec, profiler_misses=attempt)
+    return dict(rec, profiler_misses=PROFILE_ATTEMPTS,
+                device_ms=f"not measured (the profiler held {rec['records']} records of "
+                          f"{reps} calls, {PROFILE_ATTEMPTS} readings)")
 
 
 def kernel_device_ms(fn, kernel) -> dict:
@@ -2219,8 +2269,11 @@ def slab_kernel_records(scene, view, slab, capacity, dev, tag) -> tuple[dict, di
     }
     timings = {}
     for name, (run, plain, kernel, bnd, err) in runs.items():
+        device = kernel_device_ms(run, kernel)
         timings[name] = dict(ms=cuda_ms(run)[0], plain_ms=cuda_ms(plain)[0],
-                             device_ms=kernel_device_ms(run, kernel)["device_ms"],
+                             device_ms=device["device_ms"],
+                             device_records=device["records"],
+                             profiler_misses=device["profiler_misses"],
                              bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
                              max_abs_err=err, kernel=kernel)
     rec = dict(slab=list(slab), capacity=capacity, entries=int(ranges[:, 1].max()),
@@ -2459,6 +2512,7 @@ def phase_tools(ctx):
     import gausplat_tpu_torch as T
     from gausplat_tpu_torch.examples.fit_toy_scene import fit_toy_scene
     from gausplat_tpu_torch.scene import ply
+    from gausplat_tpu_torch.scene.gaussian_3d import PARAM_DIMS
     from gausplat_tpu_torch.scripts import render_ply as RP
     from gausplat_tpu_torch.scripts.train_long import long_fit_setup, run_long_fit
     from gausplat_tpu_torch.utils import native, profiling
@@ -2595,6 +2649,9 @@ def phase_tools(ctx):
         out["lego_fit"].update(step_ms=step_ms, step_ms_all=step_all, step_profile=breakdown)
         ctx["lego"] = dict(trainer=trainer, views=setup["views"], targets=setup["targets"],
                            record=out["lego_fit"])
+        ctx["lego_grad"] = dict(  # the fitted scene, for phase render_grad
+            arrays={f: getattr(trainer.scene, f).detach().cpu().numpy() for f in PARAM_DIMS},
+            views=setup["views"], targets=setup["targets"], options=trainer._options())
 
         # (e) A Chrome trace of one render holds the stages and the kernels.
         trace_dir = tmp / "trace"
@@ -3423,6 +3480,263 @@ def phase_nccl_cards(ctx):
         slab0=rec)
 
 
+# --- phase 15: the differentiable render as a forward and a backward graph ----------
+
+
+class UserLoop:
+    """A user's loop around the differentiable ``render``: a fresh ref that
+    requires grad each call, ``loss = mean |image - target|`` and
+    ``loss.backward()``, through ``render_fn`` (``render``, or
+    ``_render_eager``, the same render launched op by op). With ``keep``,
+    ``record`` holds every output and gradient, in order."""
+
+    def __init__(self, scene, views, targets, options, render_fn, keep=True):
+        self.scene, self.views, self.targets = scene, views, targets
+        self.options, self.render_fn, self.keep = options, render_fn, keep
+        self.record = []
+
+    def render(self, i):
+        ref = torch.zeros((self.scene.point_count,), device=self.scene.device,
+                          requires_grad=True)
+        out = self.render_fn(self.scene, self.views[i], self.options, ref)
+        if self.keep:
+            self.record.append([t.detach() for t in out])
+        return out, ref, i
+
+    def backward(self, *calls):
+        self.scene.zero_grad(set_to_none=True)
+        sum(torch.mean(torch.abs(out.colors_rgb_2d - self.targets[i]))
+            for out, _, i in calls).backward()
+        if self.keep:
+            self.record.append([p.grad for p in self.scene.parameters()]
+                               + [ref.grad for _, ref, _ in calls])
+
+    def step(self, i=0):
+        self.backward(self.render(i))
+
+
+def _reverse_order(loop):
+    a, b = loop.render(0), loop.render(1)
+    loop.backward(b)
+    loop.backward(a)
+
+
+def _dropped_forward(loop):
+    loop.render(4)  # an evaluation render under grad, its output dropped
+    loop.step(0)
+
+
+#: The render_grad phase's sequence on one scene: (name, step, the pair's
+#: captures, forward replays, backward replays and moved states after it).
+GRAD_SEQUENCE = (
+    ("warm_up", lambda loop: loop.step(0), (0, 0, 0, 0)),
+    ("capture", lambda loop: loop.step(0), (1, 1, 1, 0)),
+    ("replay", lambda loop: loop.step(0), (1, 2, 2, 0)),
+    ("new_view", lambda loop: loop.step(1), (1, 3, 3, 0)),
+    ("two_renders_one_backward", lambda loop: loop.backward(loop.render(2), loop.render(3)),
+     (1, 5, 5, 1)),
+    ("reverse_order", _reverse_order, (1, 7, 7, 2)),
+    ("dropped_forward", _dropped_forward, (1, 9, 8, 2)),
+)
+#: Then on a scene of another point count (from ``from_numpy``): a miss.
+GRAD_NEW_P = (
+    ("new_p_warm_up", lambda loop: loop.step(0), (1, 9, 8, 2)),
+    ("new_p_capture", lambda loop: loop.step(0), (2, 10, 9, 2)),
+    ("new_p_replay", lambda loop: loop.step(1), (2, 11, 10, 2)),
+)
+
+
+def grad_sequence(scenes, views, targets, options, render_fn, graph=None) -> tuple:
+    """:data:`GRAD_SEQUENCE` on ``scenes[0]`` and :data:`GRAD_NEW_P` on
+    ``scenes[1]`` through ``render_fn``, with every kernel's count set to 0
+    just before and read just after. With ``graph`` (the device's
+    ``GradGraph``), each step's counts of the pair are checked. Returns the
+    record (one entry per render and per backward) and the launches."""
+    kernels = all_kernels()
+    torch.cuda.synchronize()
+    for kernel in kernels:
+        kernel.launches = 0
+    record = []
+    for scene, steps in zip(scenes, (GRAD_SEQUENCE, GRAD_NEW_P)):
+        loop = UserLoop(scene, views, targets, options, render_fn)
+        for name, step, counts in steps:
+            step(loop)
+            if graph is not None:
+                got = (graph.captures, graph.replays["forward"], graph.replays["backward"],
+                       graph.moves)
+                check(got == counts, f"render_grad, {name}: the pair's captures, forward "
+                                     f"and backward replays and moves {got}, not {counts}")
+        record += loop.record
+        scene.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    return record, {kernel.entry: kernel.launches for kernel in kernels}
+
+
+def render_grad_config(ctx, tag, scene, views, targets, options) -> dict:
+    """One configuration of phase render_grad: the user's loop through the
+    graph pair against ``_render_eager`` and its backward (every output,
+    parameter gradient and ref gradient bit for bit over the sequence, one
+    capture per key, A, B and C launched from the graphs and counted), the
+    miss cost, the pool, the wall, busy and host figures of a call both
+    ways, and A, B and C at the call's shapes (``<kernel>@<tag>``)."""
+    import gc
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch.render.grad_graph import grad_graph
+    from gausplat_tpu_torch.render.pipeline import _render_eager
+    from gausplat_tpu_torch.scene.gaussian_3d import PARAM_DIMS
+
+    dev = ctx["device"]
+    graph = grad_graph(dev)
+    cut = scene.point_count - scene.point_count // 16
+    other = T.GaussianScene.from_numpy(
+        **{f: getattr(scene, f).detach().cpu().numpy()[:cut] for f in PARAM_DIMS}, device=dev)
+    width, height = views[0].image_width, views[0].image_height
+    out = dict(points=scene.point_count, new_p_points=other.point_count, width=width,
+               height=height, capacity=options.tile_entry_capacity,
+               sh_degree=options.colors_sh_degree_max)
+
+    # The sequence through the graph pair, then op by op; compared bit for bit.
+    graph.release()
+    got, launches = grad_sequence((scene, other), views, targets, options, T.render, graph)
+    by_replay = {k.entry: n for k, n in graph.by_replay.items()}
+    graph_captures = graph.captures
+    want, eager_launches = grad_sequence((scene, other), views, targets, options,
+                                         _render_eager)
+    check(len(got) == len(want), f"{tag}: {len(got)} records through the graphs, "
+                                 f"{len(want)} eager")
+    differ = [(i, j) for i, (g, w) in enumerate(zip(got, want)) for j, (a, b) in
+              enumerate(zip(g, w)) if a.shape != b.shape or not torch.equal(a, b)]
+    check(not differ, f"{tag}: the graphed render differs from the eager render "
+                      f"(record, tensor): {differ[:10]}")
+    finite = all(bool(torch.isfinite(t).all()) for r in got for t in r
+                 if t.is_floating_point())
+    check(finite, f"{tag}: a non-finite output or gradient")
+    # Each capture call also runs the render and its backward once on a
+    # side stream before it captures.
+    check(all(launches[k] == eager_launches[k] + graph_captures for k in PATH),
+          f"{tag}: launches {launches}, eager {eager_launches}, captures {graph_captures}")
+    check(all(launches[k] > 0 for k in PATH) and all(by_replay.get(k, 0) > 0 for k in PATH),
+          f"{tag}: a kernel of the path was not launched from the graphs: {launches}, "
+          f"by replay {by_replay}")
+    out.update(bit_for_bit=True, records=len(got), launches=launches,
+               launches_by_replay=by_replay, steps=[name for name, _, _ in GRAD_SEQUENCE
+                                                     + GRAD_NEW_P])
+    del got, want, other
+    gc.collect()
+
+    # The miss cost and the memory the pair keeps.
+    call_loop = UserLoop(scene, views, targets, options, T.render, keep=False)
+    eager_loop = UserLoop(scene, views, targets, options, _render_eager, keep=False)
+
+    def settle() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
+    graph.release()
+    reserved = [settle()]
+    warm_up_ms = host_wall_ms(call_loop.step)
+    reserved.append(settle())
+    capture_ms = host_wall_ms(call_loop.step)
+    reserved.append(settle())
+    pair = graph.pair
+    out["miss"] = dict(
+        warm_up_ms=warm_up_ms, capture_ms=capture_ms,
+        replay_call_ms=statistics.median(host_wall_ms(call_loop.step) for _ in range(3)),
+        eager_call_ms=statistics.median(host_wall_ms(eager_loop.step) for _ in range(3)),
+        forward_only=dict(graph.miss_ms))
+    out["memory"] = dict(
+        graph_pool_bytes=reserved[2] - reserved[1],
+        saved_state_bytes=sum(b.numel() for b in pair.state),
+        static_bytes=nbytes(pair.rows, pair.ref, pair.cot),
+        saved_tensors=len(pair.saved))
+
+    # A call both ways: wall (CUDA events), busy, idle share, host calls.
+    cot = torch.randn((height, width, 3), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(19))
+
+    def render_only(render_fn):
+        def call():
+            scene.zero_grad(set_to_none=True)
+            ref = torch.zeros((scene.point_count,), device=dev, requires_grad=True)
+            render_fn(scene, views[0], options, ref).colors_rgb_2d.backward(cot)
+        return call
+
+    turns = in_turns(call_loop.step, eager_loop.step)
+    two = in_turns(lambda: call_loop.backward(call_loop.render(1), call_loop.render(2)),
+                   lambda: eager_loop.backward(eager_loop.render(1), eager_loop.render(2)))
+    timing = dict(graph=dict(ms=turns["first"][0], ms_all=turns["first"][1]),
+                  eager=dict(ms=turns["second"][0], ms_all=turns["second"][1]),
+                  two_views_graph=dict(ms=two["first"][0], ms_all=two["first"][1]),
+                  two_views_eager=dict(ms=two["second"][0], ms_all=two["second"][1]))
+    for name, run in (("graph", call_loop.step), ("eager", eager_loop.step),
+                      ("graph_render_only", render_only(T.render)),
+                      ("eager_render_only", render_only(_render_eager))):
+        try:
+            prof = profile_device_time(run)
+        except RuntimeError as e:  # the profiler is a measurement, not the path
+            prof = dict(device_busy_ms=f"not measured ({e})")
+        timing.setdefault(name, {}).update({
+            k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                     "kernel_launches", "host_launches", "host_calls")})
+        if name.startswith("graph") and "host_calls" in prof:
+            graphs = sum(n for k, n in prof["host_calls"].items() if "GraphLaunch" in k)
+            check(graphs == 2, f"{tag}: a {name} call made {graphs} graph launches, not 2")
+    out["timing"] = timing
+    check(graph.captures == 1, f"{tag}: the timed calls recaptured ({graph.captures})")
+
+    # Both graphs replayed once more with the host's sync checks set to raise.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pair.forward.replay()
+        pair.backward.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    out["strict_replay"] = "no host read, either graph"
+    graph.release()
+    scene.zero_grad(set_to_none=True)
+    del pair, call_loop, eager_loop
+    gc.collect()
+
+    # A, B and C at the call's shapes, with the sequence's launches.
+    rec, timings = slab_kernel_records(scene, views[0], (0, height),
+                                       options.tile_entry_capacity, dev, tag)
+    check_live(rec, tag)
+    out["kernels"] = rec
+    for t in timings.values():
+        t["launches_by_replay"] = by_replay.get(t["kernel"].entry, 0)
+    add_kernel_rows(ctx, timings, tag,
+                    f"render_grad: the differentiable render and its backward through the "
+                    f"graph pair, {scene.point_count} points at {width} x {height}, "
+                    f"{len(GRAD_SEQUENCE) + len(GRAD_NEW_P)} steps of a user's loop",
+                    launches)
+    return out
+
+
+def phase_render_grad(ctx):
+    """The differentiable ``render`` through its forward and backward graphs,
+    against the eager render and its backward, at the serving shapes (the
+    1M-point scene at 1920 x 1080, SH 3, the calibrated capacity; each
+    view's target another view's render) and at the lego fit's (the
+    4,114-point scene of the tools phase, 800 x 800)."""
+    import gausplat_tpu_torch as T
+
+    dev = ctx["device"]
+    targets = ctx["targets"][1:] + ctx["targets"][:1]
+    out = dict(card=ctx["card"])
+    out["serving"] = render_grad_config(ctx, "render_grad", ctx["scene"], ctx["views"],
+                                        targets, ctx["options"])
+    lego = ctx.pop("lego_grad")
+    scene = T.GaussianScene.from_numpy(**lego["arrays"], device=dev)
+    out["lego"] = render_grad_config(ctx, "render_grad_lego", scene, lego["views"],
+                                     lego["targets"], lego["options"])
+    return out
+
+
 def nvidia_smi_all(query: str) -> list:
     """``nvidia-smi --query-gpu`` for every card, one line each."""
     done = subprocess.run(
@@ -3460,7 +3774,8 @@ def main(argv=None) -> int:
               ("adversarial", phase_adversarial), ("grad", phase_grad),
               ("train", phase_train), ("colmap_bf16", phase_colmap_bf16),
               ("parallel", phase_parallel), ("tools", phase_tools),
-              ("scripts", phase_scripts), ("fit_scan", phase_fit_scan)]
+              ("scripts", phase_scripts), ("fit_scan", phase_fit_scan),
+              ("render_grad", phase_render_grad)]
     if args.cards == CARDS:
         phases = [("env", phase_env), ("nccl_cards", phase_nccl_cards)]
     for name, phase in phases:

@@ -1,0 +1,339 @@
+"""The differentiable render as one forward and one backward graph replay.
+
+The card's counterpart of the JAX package's ``render`` under ``jax.grad``:
+``jax.jit`` of a ``jax.custom_vjp`` (``render/pipeline.py::_render_fwd`` and
+``_render_bwd``), which runs the forward as one compiled dispatch and the
+backward as another. Here the same render (``_render_core`` with autograd
+recording, on detached aliases of the scene's parameters) is captured once
+as a forward CUDA graph, and ``torch.autograd.grad`` of its image against
+those aliases and a static ref as a backward CUDA graph, both in one memory
+pool (as ``torch.cuda.make_graphed_callables`` does). A call is then
+:class:`GraphRenderFunction`: its forward copies the packed camera row in,
+replays the forward graph and clones the five outputs out; its backward
+copies the image's cotangent in, replays the backward graph and clones the
+gradients out. Outputs and gradients are bit for bit those of the eager
+render and its autograd backward.
+
+**The key** (:meth:`GradGraph.run`): the sizes, options and capacity the
+caller gives, which of the five parameters and the ref need a gradient,
+and the address, shape and dtype of the five parameters, which the graphs
+hold while they live. The aliases share the parameters' storage, so a
+parameter updated in place is read by the next replay. The caller's ref is
+not keyed: its value enters no output, and a trainer makes a fresh one
+each step; only its length, the point count, counts. A miss (a new scene,
+a setter, another size or another set of inputs needing grad) drops the
+pair; the call runs eagerly, forward and backward (the warm-up), and the
+next call captures (an eager forward and backward of the static inputs on
+a side stream first, then both captures), then replays. ``miss_ms`` keeps
+the host ms of the last warm-up and capture calls.
+
+**Saved state.** The backward graph reads what the forward graph wrote:
+the tensors autograd saved during the forward capture (collected with
+``torch.autograd.graph.saved_tensors_hooks``; those that are views of the
+parameters excepted, since they are the parameters) and the camera row.
+A second forward overwrites them while an earlier call's backward may
+still be to come: two views rendered before one backward, backwards in
+the reverse order, a forward whose output is kept. So the pair records
+which call owns the static state; before a forward replay overwrites it
+while that call is still pending (its autograd node alive and its saved
+tensors not released), the state is copied into the call's own tensors,
+and before that call's backward replay it is copied back. One render and
+then its backward copies nothing. Recomputing the projection in the
+backward, as ``_render_bwd`` does, would add the projection's device time
+to every backward instead.
+
+As in the eager render, an in-place change to a parameter between a
+forward and its backward raises (:class:`GraphRenderFunction` saves the
+five parameters), and the transmittances, radii, counts and entry total
+carry no gradient. Double backward is not supported, as the reference's
+``custom_vjp`` has none.
+
+**On a CPU device** the same code runs, every replay run eagerly: the
+forward body is run again and what it saved and returned is copied into
+the static tensors, and the backward is ``torch.autograd.grad`` of the
+static image, so the ownership and its copies run as on the card.
+``render`` itself stays eager there.
+
+**Memory.** One pair is kept per device (:func:`grad_graph`); it holds the
+scene's tensors, not the scene, and is released when the scene is
+collected. A pair left behind by a miss lives on while a pending call
+needs it.
+"""
+
+from __future__ import annotations
+
+import time
+import weakref
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..utils.step_graph import StepGraph
+from .views_graph import release_with, stacked_camera
+
+
+def _storage_bytes(t: torch.Tensor) -> torch.Tensor:
+    """The whole storage under ``t`` as a uint8 tensor (with a version
+    counter of its own, so autograd sees no in-place change)."""
+    storage = t.untyped_storage()
+    return torch.empty(0, dtype=torch.uint8, device=t.device).set_(
+        storage, 0, (storage.nbytes(),), (1,))
+
+
+class _Call:
+    """One call through a pair: its autograd node (weakly) and, while
+    another call owns the pair's static state, its own copy of its state."""
+
+    def __init__(self, pair: "_Pair"):
+        self.pair = pair
+        self.node = None  # weakref of the call's autograd node
+        self.own = None  # its saved state while another call owns the static one
+
+    def pending(self) -> bool:
+        """Whether the call's backward may still come: its node is alive and
+        its saved tensors were not released (nor changed in place)."""
+        node = None if self.node is None else self.node()
+        if node is None:
+            return False
+        try:
+            node.saved_tensors
+        except RuntimeError:
+            return False
+        return True
+
+
+class _Pair:
+    """One captured forward and backward graph in one pool, with their
+    static tensors: the camera row, the aliases of the parameters, the
+    static ref, the outputs, the image's cotangent, the gradients and the
+    saved state, and the call that owns that state."""
+
+    def __init__(self, stats: "GradGraph", params: Sequence[torch.Tensor], needs: tuple,
+                 rows_shape, body: Callable):
+        device = params[0].device
+        self.stats, self.device, self.body = stats, device, body
+        self.rows = torch.zeros(rows_shape, dtype=torch.float32, device=device)
+        self.cameras = stacked_camera(self.rows)
+        self.ref = torch.zeros((params[0].shape[0],), dtype=torch.float32,
+                               device=device).requires_grad_(needs[-1])
+        self.aliases = tuple(p.detach().requires_grad_(n) for p, n in zip(params, needs))
+        self.wrt = tuple(t for t, n in zip(self.aliases + (self.ref,), needs) if n)
+        self.needs = needs
+        self.forward, self.backward = StepGraph(), StepGraph()
+        self.owner = None
+        self.image = self.outputs = self.cot = self.grads = None
+        self.saved, self.state, self._copies = (), (), ()
+
+    def _run_forward(self, saved: list):
+        """The render on the static inputs, with autograd recording; every
+        tensor it saves for the backward is appended to ``saved``."""
+        def pack(t):
+            t = t.detach()
+            saved.append(t)
+            return t
+
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            return self.body(self.aliases, self.ref, self.cameras)
+
+    def _grads(self):
+        with torch.enable_grad():
+            return torch.autograd.grad(self.image, self.wrt, self.cot, retain_graph=True)
+
+    def capture(self, rows: torch.Tensor) -> None:
+        """Make the static tensors and, on the card, capture both graphs
+        (after an eager forward and backward on a side stream)."""
+        saved = []
+
+        def forward():
+            out = self._run_forward(saved)
+            self.image, self.outputs = out[0], tuple(t.detach() for t in out)
+
+        def backward():
+            self.grads = self._grads()
+
+        self.rows.copy_(rows)
+        if self.device.type == "cuda":
+            def warm_up():
+                image = self._run_forward([])[0]
+                with torch.enable_grad():
+                    torch.autograd.grad(image, self.wrt, torch.zeros_like(image))
+
+            StepGraph.warm_up(warm_up, self.device)
+            pool = torch.cuda.graph_pool_handle()
+            self.forward.capture(forward, self.device, pool)
+            self.cot = torch.zeros_like(self.outputs[0])
+            self.backward.capture(backward, self.device, pool)
+        else:
+            forward()
+            self.cot = torch.zeros_like(self.outputs[0])
+            backward()
+        self.saved = tuple(saved)
+        # The state a forward writes and the backward reads: each storage of
+        # the saved tensors and the outputs once (by index), the parameters'
+        # excepted, then the camera row.
+        skip = {p.untyped_storage().data_ptr() for p in self.aliases + (self.ref, self.rows)}
+        copies = []
+        for i, t in enumerate(self.saved + self.outputs):
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in skip:
+                skip.add(ptr)
+                copies.append((i, _storage_bytes(t)))
+        self._copies = tuple(copies)
+        self.state = tuple(b for i, b in copies if i < len(self.saved)) + (
+            _storage_bytes(self.rows),)
+
+    def replay_forward(self) -> None:
+        if self.device.type == "cuda":
+            self.forward.replay()
+        else:
+            saved = []
+            out = self._run_forward(saved)
+            new = saved + [t.detach() for t in out]
+            if len(saved) != len(self.saved):
+                raise RuntimeError(f"the render saved {len(saved)} tensors, its capture "
+                                   f"{len(self.saved)}")
+            for i, dst in self._copies:
+                dst.copy_(_storage_bytes(new[i]))
+        self.stats.note("forward", self.forward)
+
+    def replay_backward(self) -> None:
+        if self.device.type == "cuda":
+            self.backward.replay()
+        else:
+            for dst, g in zip(self.grads, self._grads()):
+                dst.copy_(g)
+        self.stats.note("backward", self.backward)
+
+    def take(self, call: _Call, rows: torch.Tensor) -> None:
+        """Give the static state to ``call``'s forward: the current owner's
+        state moved out first where its backward may still come."""
+        if self.owner is not None and self.owner is not call and self.owner.pending():
+            self._move_out(self.owner)
+        self.owner = call
+        self.rows.copy_(rows, non_blocking=True)
+        self.replay_forward()
+
+    def restore(self, call: _Call) -> None:
+        """Give the static state back to ``call`` before its backward."""
+        if self.owner is call:
+            return
+        if call.own is None:
+            raise RuntimeError("the graphed render lost a pending call's saved state")
+        if self.owner is not None and self.owner.pending():
+            self._move_out(self.owner)
+        for dst, src in zip(self.state, call.own):
+            dst.copy_(src)
+        call.own, self.owner = None, call
+
+    def _move_out(self, call: _Call) -> None:
+        call.own = tuple(b.clone() for b in self.state)
+        self.stats.moves += 1
+
+
+class GraphRenderFunction(torch.autograd.Function):
+    """One differentiable render through a captured pair.
+
+    ``apply(pair, rows, *params, ref)``: ``pair`` a captured :class:`_Pair`,
+    ``rows`` the packed camera row ``[1, 21]`` (on the host or the device),
+    ``params`` the five parameters, ``ref`` the densification ref (None
+    where it needs no gradient). Returns the five :class:`RenderOutput`
+    fields; only the image carries a gradient."""
+
+    @staticmethod
+    def forward(ctx, pair, rows, *inputs):
+        call = _Call(pair)
+        pair.take(call, rows)
+        ctx.call = call
+        call.node = weakref.ref(ctx)
+        ctx.save_for_backward(*inputs[:5])
+        ctx.set_materialize_grads(False)  # no zeros made for the other outputs
+        outs = tuple(t.clone() for t in pair.outputs)
+        ctx.mark_non_differentiable(*outs[1:])
+        return outs
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_image, *_):
+        ctx.saved_tensors  # raises where a parameter changed in place since the forward
+        pair = ctx.call.pair
+        pair.restore(ctx.call)
+        if grad_image is None:
+            pair.cot.zero_()
+        else:
+            pair.cot.copy_(grad_image)
+        pair.replay_backward()
+        grads = iter(g.clone() for g in pair.grads)
+        return (None, None, *(next(grads) if n else None for n in pair.needs))
+
+
+class GradGraph:
+    """The differentiable render's captured pair on one device, with the
+    counts over its pairs since it was made or released: ``captures``,
+    ``replays`` (of each graph), ``by_replay`` (each kernel's launches by
+    replay), ``moves`` (a call's state moved out) and ``miss_ms``."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._finalizer = None
+        self.release()
+
+    def release(self) -> None:
+        """Drop the pair and the held tensors (the counts start again). A
+        call still pending keeps its own pair until its backward."""
+        self.key, self.pair, self._held = None, None, ()
+        self.captures, self.moves = 0, 0
+        self.replays = {"forward": 0, "backward": 0}
+        self.by_replay = {}
+        self.miss_ms = {}
+        if self._finalizer is not None:
+            self._finalizer.detach()
+            self._finalizer = None
+
+    def note(self, which: str, graph: StepGraph) -> None:
+        """Count one replay of ``which`` graph of a pair."""
+        self.replays[which] += 1
+        for kernel, n in graph.launches.items():
+            self.by_replay[kernel] = self.by_replay.get(kernel, 0) + n
+
+    def run(self, scene, params: Sequence[torch.Tensor], ref: Optional[torch.Tensor], rows,
+            static_key, body: Callable, warm_up: Callable) -> tuple:
+        """One differentiable render. ``body(params, ref, cameras)`` renders
+        from the stacked ``cameras`` (column views of the ``[1, 21]`` camera
+        row) and returns the five outputs; ``static_key`` holds everything
+        else that shapes it; ``warm_up()`` is the eager render, run on a
+        miss. Returns the five outputs."""
+        needs = tuple(p.requires_grad for p in params) + (
+            ref is not None and ref.requires_grad,)
+        key = (static_key, needs,
+               tuple((p.data_ptr(), tuple(p.shape), p.dtype) for p in params))
+        self._finalizer = release_with(scene, self._finalizer, self.release)
+        start = time.perf_counter()
+        if key != self.key:
+            self.key, self.pair, self._held = key, None, tuple(params)
+            out = warm_up()
+            self.miss_ms = {"warm_up_ms": (time.perf_counter() - start) * 1e3}
+            return tuple(out)
+        if isinstance(rows, np.ndarray):
+            rows = torch.from_numpy(rows)
+        captured = self.pair is None
+        if captured:
+            self.pair = _Pair(self, params, needs, tuple(rows.shape), body)
+            self.pair.capture(rows)
+            self.captures += 1
+        out = GraphRenderFunction.apply(self.pair, rows, *params, ref if needs[-1] else None)
+        if captured:
+            self.miss_ms["capture_ms"] = (time.perf_counter() - start) * 1e3
+        return out
+
+
+#: The differentiable render's graphs on each device.
+_GRAPHS: dict = {}
+
+
+def grad_graph(device: torch.device) -> GradGraph:
+    """The :class:`GradGraph` of ``device``."""
+    key = str(device)
+    if key not in _GRAPHS:
+        _GRAPHS[key] = GradGraph(device)
+    return _GRAPHS[key]

@@ -63,7 +63,10 @@ from ..ops.rasterize import (
 )
 from ..scene.gaussian_3d import PARAM_DIMS, GaussianScene
 from .view import View
-from .views_graph import camera_at, output_specs, pack_cameras, runs_eagerly, views_graph
+from .grad_graph import grad_graph
+from .views_graph import (
+    camera_at, capturing, needs_grad, output_specs, pack_cameras, runs_eagerly, views_graph,
+)
 
 BACKENDS = ("cuda", "torch", "auto")
 
@@ -378,12 +381,18 @@ def render(
     what the graph is keyed on and when it is freed; the first call for a
     scene and size runs eagerly on a side stream, the second captures; a
     new view only copies its camera in). The ref is not read there: its
-    values enter no output. The eager render (:func:`_render_eager`) runs
-    where grad is enabled and a parameter or the ref requires it (the
-    differentiable render), inside a caller's own capture (the trainers'
+    values enter no output. Where grad is enabled and a parameter or the
+    ref requires it (the differentiable render), a render on the card is
+    one replay of a captured forward graph and its backward one replay of
+    a captured backward graph, as the JAX package's jitted custom VJP
+    under ``jax.grad`` is (:mod:`.grad_graph`, which says what the pair is
+    keyed on and how a later forward leaves an earlier call's backward
+    intact; the first call for a key runs eagerly, forward and backward,
+    the second captures). The eager render (:func:`_render_eager`) runs
+    on a key's first call, inside a caller's own capture (the trainers'
     steps), with the plain versions (``backend="torch"``, whose loops read
     their bounds back to the host, which no capture may do), and on a CPU
-    device. Both give the same values, bit for bit.
+    device. All give the same values and gradients, bit for bit.
 
     ``device``: where the render runs; it must hold the scene's
     parameters. ``None`` takes the scene's device.
@@ -391,11 +400,34 @@ def render(
     device = _scene_device(scene, device)
     params = scene_params(scene)
     given = () if positions_2d_grad_norm_ref is None else (positions_2d_grad_norm_ref,)
-    if (device.type == "cuda" and _use_kernels(options, device)
-            and not runs_eagerly(params + given)):
+    if device.type == "cuda" and _use_kernels(options, device) and not capturing(device):
+        if needs_grad(params + given):
+            return _render_graphed(scene, view, options, positions_2d_grad_norm_ref, device)
         return serve_views(scene, pack_cameras([view]), view.image_width, view.image_height,
                            options, "map", "render", device, batched=False)
     return _render_eager(scene, view, options, positions_2d_grad_norm_ref, device)
+
+
+def _render_graphed(scene: GaussianScene, view: View, options: RenderOptions = RenderOptions(),
+                    positions_2d_grad_norm_ref: Optional[torch.Tensor] = None,
+                    device=None) -> RenderOutput:
+    """The differentiable :func:`render` as one forward graph replay, its
+    backward as one backward graph replay (:mod:`.grad_graph`; on a CPU
+    device both run eagerly, through the same static tensors and copies)."""
+    device = _scene_device(scene, device)
+    width, height = view.image_width, view.image_height
+    point_count = _validate(scene, width, height, options)
+    capacity = _capacity(point_count, options)
+    use_kernels = _use_kernels(options, device)
+
+    def body(params, ref, cameras):
+        return _render_core(params, ref, camera_at(cameras, 0), width, height, capacity,
+                            options, use_kernels)
+
+    return RenderOutput(*grad_graph(device).run(
+        scene, scene_params(scene), positions_2d_grad_norm_ref, pack_cameras([view]),
+        (width, height, capacity, options), body,
+        lambda: _render_eager(scene, view, options, positions_2d_grad_norm_ref, device)))
 
 
 def _render_eager(scene: GaussianScene, view: View, options: RenderOptions = RenderOptions(),

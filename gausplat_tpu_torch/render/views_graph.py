@@ -42,11 +42,13 @@ drops the graph, its pool, its buffers and the tensors it held.
 
 **When it runs eagerly** (the documented modes; on the card nothing else
 falls back to them, and an error in capture or replay raises): where grad
-is enabled and a scene parameter (or a given ref) requires it, and where
-the current stream is already capturing (the caller's own graph then
-records the eager loop), the entry points run their eager loops,
-differentiable; on a CPU device the step below runs eagerly, its plain
-version (``render`` itself calls its eager form there); a render whose
+is enabled and a scene parameter (or a given ref) requires it, the batched
+and sharded entry points run their eager loops, differentiable, and
+``render`` takes its own pair of graphs, a forward and a backward
+(:mod:`.grad_graph`); where the current stream is already capturing (the
+caller's own graph then records the eager loop) every entry point runs
+eagerly; on a CPU device the step below runs eagerly, its plain version
+(``render`` itself calls its eager form there); a render whose
 collectives go through gloo stays eager; ``render`` with the plain
 versions (``backend="torch"``) stays eager, as they read their loop
 bounds back to the host.
@@ -109,14 +111,34 @@ def camera_at(cameras: Camera, i: int, pos2d_shift: Optional[torch.Tensor] = Non
     return Camera(**fields, pos2d_shift=pos2d_shift)
 
 
+def needs_grad(tensors: Sequence[torch.Tensor]) -> bool:
+    """Whether grad is enabled and one of ``tensors`` requires it."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def capturing(device: torch.device) -> bool:
+    """Whether the current stream of ``device`` is capturing a graph."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
 def runs_eagerly(tensors: Sequence[torch.Tensor]) -> bool:
     """Whether a serving call on ``tensors`` (the scene's parameters and any
-    ref) takes its eager loop: grad is enabled and one of them requires it,
-    or the current stream is already capturing."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return True
-    device = tensors[0].device
-    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    ref) takes its eager loop: grad is needed, or the current stream is
+    already capturing."""
+    return needs_grad(tensors) or capturing(tensors[0].device)
+
+
+def release_with(scene, finalizer: Optional[weakref.finalize],
+                 release: Callable[[], None]) -> weakref.finalize:
+    """A finalizer that calls ``release`` when ``scene`` is collected:
+    ``finalizer`` where it already watches ``scene``, else a new one (and
+    ``finalizer`` detached)."""
+    if finalizer is not None and finalizer.peek() is not None \
+            and finalizer.peek()[0] is scene:
+        return finalizer
+    if finalizer is not None:
+        finalizer.detach()
+    return weakref.finalize(scene, release)
 
 
 def output_specs(views: Optional[int], width: int, height: int, points: int) -> tuple:
@@ -181,15 +203,6 @@ class ViewsGraph:
         for stream in streams:
             current.wait_stream(stream)
 
-    def _track(self, scene) -> None:
-        """Tie the graph's life to ``scene``: its collection releases it."""
-        if self._finalizer is not None and self._finalizer.peek() is not None \
-                and self._finalizer.peek()[0] is scene:
-            return
-        if self._finalizer is not None:
-            self._finalizer.detach()
-        self._finalizer = weakref.finalize(scene, ViewsGraph.release, self)
-
     def _static(self, rows, specs, points: int) -> None:
         """Static buffers of the call's shapes: kept where they match, else
         made anew (which misses the key)."""
@@ -212,7 +225,7 @@ class ViewsGraph:
         ``cameras``, ``ref`` and ``constants`` and writes every one of the
         static ``outputs`` (``specs``: their shapes and dtypes). Returns
         fresh copies of the outputs."""
-        self._track(scene)
+        self._finalizer = release_with(scene, self._finalizer, self.release)
         self._static(rows, specs, params[0].shape[0])
         if isinstance(rows, np.ndarray):
             rows = torch.from_numpy(rows)

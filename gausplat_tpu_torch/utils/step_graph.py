@@ -89,11 +89,11 @@ class StepGraph:
             missed = any_miss(missed)
         if missed:
             self.invalidate()
-            self._warm_up(step, device)
+            self.warm_up(step, device)
             self.key, self._held = key, tuple(tensors)
             steps -= 1
         if steps and self.graph is None:
-            self._capture(step, device)
+            self.capture(step, device)
         for _ in range(steps):
             self.replay()
 
@@ -107,17 +107,24 @@ class StepGraph:
             self.by_replay[kernel] = self.by_replay.get(kernel, 0) + n
 
     @staticmethod
-    def _warm_up(step, device) -> None:
+    def warm_up(step, device) -> None:
+        """``step`` run eagerly on a side stream, joined back to the current
+        one: before a capture, it makes the lazy first uses (libraries,
+        handles, workspaces) that a capture may not record."""
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             step()
         torch.cuda.current_stream(device).wait_stream(side)
 
-    def _capture(self, step, device) -> None:
+    def capture(self, step, device, pool=None) -> None:
+        """Capture ``step`` as this graph, its kernels' launches recorded
+        for :meth:`replay`. ``pool``: a memory pool
+        (``torch.cuda.graph_pool_handle()``) shared with other graphs that
+        replay in turn with this one, as a forward and its backward do."""
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(device):
-            with captured_launches() as launches, torch.cuda.graph(graph):
+            with captured_launches() as launches, torch.cuda.graph(graph, pool=pool):
                 step()
         self.graph, self.launches = graph, launches
         self.captures += 1

@@ -45,6 +45,15 @@ frees it with its scene; on one NCCL rank ``render_data_parallel`` and
 ``render_tile_sharded`` are captured with their collectives, bit for bit
 their eager calls, and a replay reads nothing back.
 
+The differentiable ``render`` replays a forward graph and its backward a
+backward graph (``render/grad_graph.py``): over the warm-up, the capture,
+replays, a new view, two forwards before one backward, backwards in the
+reverse order and a dropped forward, every output and gradient is bit for
+bit the eager render's and its backward's, with one capture, A, B and C
+counted once a view, the state of a pending call moved out only where
+another forward overwrites it; a new point count recaptures, a whole call
+reads nothing back, and a call inside a caller's capture stays eager.
+
 The per-call entry points replay a graph of their own: the no-grad
 ``render`` (entry point ``"render"``) and ``count_tile_entries`` are bit
 for bit their eager forms over the warm-up, the capture and the replays,
@@ -877,3 +886,120 @@ def test_sharded_fit_through_graphs_matches_the_eager_fit_on_nccl(
     assert graphed.scene.point_count == eager.scene.point_count > 25
     assert got == want
     _assert_same_trainers(graphed, eager)
+
+
+def _grad_calls(scene, views, options, render_fn, weight):
+    """The sequence of differentiable renders that the graph pair is held
+    to: the warm-up, the capture, a replay, a new view, two forwards then
+    one backward, backwards in the reverse order, a dropped forward. Returns
+    every output and gradient in order, and the launches of A, B and C of
+    each step."""
+    record, launches = [], []
+
+    def render(view):
+        ref = torch.zeros(scene.point_count, device=scene.device, requires_grad=True)
+        out = render_fn(scene, view, options, ref)
+        record.extend(t.detach() for t in out)
+        return out, ref
+
+    def backward(*pairs):
+        scene.zero_grad(set_to_none=True)
+        sum(torch.sum(out.colors_rgb_2d * weight) for out, _ in pairs).backward()
+        record.extend(p.grad for p in scene.parameters())
+        record.extend(ref.grad for _, ref in pairs)
+
+    steps = [lambda: backward(render(views[0])) for _ in range(3)]
+    steps += [lambda: backward(render(views[1])),
+              lambda: backward(render(views[0]), render(views[1]))]
+
+    def reverse():
+        a, b = render(views[0]), render(views[1])
+        backward(b)
+        backward(a)
+
+    def dropped():
+        render(views[1])
+        backward(render(views[0]))
+
+    for step in steps + [reverse, dropped]:
+        launches.append(_counted(step)[1])
+    return record, launches
+
+
+def test_grad_graph_matches_the_eager_render_and_backward(cuda_device):
+    from gausplat_tpu_torch.render.grad_graph import grad_graph
+    from gausplat_tpu_torch.render.pipeline import _render_eager
+
+    scene, views, options = _serving_setup(cuda_device)
+    graph = grad_graph(cuda_device)
+    graph.release()
+    weight = torch.randn((32, 48, 3), generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    got, launches = _grad_calls(scene, views, options, T.render, weight)
+    assert (graph.captures, graph.replays, graph.moves) == (
+        1, {"forward": 9, "backward": 8}, 2)
+    eager = [[1, 1, 1]] * 4 + [[2, 2, 2], [2, 2, 2], [2, 2, 1]]
+    # The capture call also runs the render and its backward once on a side
+    # stream before it captures.
+    assert launches == eager[:1] + [[2, 2, 2]] + eager[2:]
+    assert graph.by_replay == {EXPAND: 9, RASTERIZE_FORWARD: 9, RASTERIZE_BACKWARD: 8}
+    want, eager_launches = _grad_calls(scene, views, options, _render_eager, weight)
+    assert eager_launches == eager and len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and torch.equal(a, b), i
+    # A new point count misses: the warm-up, then the capture.
+    other = T.GaussianScene.from_numpy(**scene_arrays(SMALL["p"] + 8, 6), device=cuda_device)
+    got, _ = _grad_calls(other, views, options, T.render, weight)
+    want, _ = _grad_calls(other, views, options, _render_eager, weight)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert graph.captures == 2
+
+
+def test_grad_graph_replay_reads_nothing_back(cuda_device):
+    from gausplat_tpu_torch.render.grad_graph import grad_graph
+
+    scene, views, options = _serving_setup(cuda_device)
+    graph = grad_graph(cuda_device)
+    graph.release()
+    for _ in range(2):  # the warm-up, the capture
+        T.render(scene, views[0], options).colors_rgb_2d.sum().backward()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:  # a whole call: the copies in, both replays, the clones out
+        out = T.render(scene, views[1], options)
+        out.colors_rgb_2d.sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _, launches = _counted(lambda: _replay_strict(graph.pair.forward))
+    assert launches == [1, 1, 0]
+    _, launches = _counted(lambda: _replay_strict(graph.pair.backward))
+    assert launches == [0, 0, 1]
+    assert graph.captures == 1
+
+
+def test_differentiable_render_inside_a_capture_stays_eager(cuda_device, monkeypatch):
+    from gausplat_tpu_torch.render import pipeline
+    from gausplat_tpu_torch.render.grad_graph import grad_graph
+
+    scene, views, options = _serving_setup(cuda_device)
+    graph = grad_graph(cuda_device)
+    graph.release()
+    taken = []
+
+    def eager(*args, **kwargs):  # records the call; a host copy could not be captured
+        taken.append(args[1])
+        return torch.zeros((), device=cuda_device).add_(1.0)
+
+    monkeypatch.setattr(pipeline, "_render_eager", eager)
+    caller = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        eager(None, None)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    assert scene.positions.requires_grad and torch.is_grad_enabled()
+    with torch.cuda.graph(caller):
+        got = T.render(scene, views[0], options)
+    caller.replay()
+    torch.cuda.synchronize()
+    assert taken[1:] == [views[0]] and float(got) == 1.0
+    assert (graph.key, graph.pair, graph.captures) == (None, None, 0)
