@@ -209,7 +209,22 @@ printing one JSON line:
    host calls of a call and of the render with its backward alone (two
    graph launches a call), one replay of each graph with the host's sync
    checks set to raise, and A, B and C at the call's shapes against their
-   plain versions, timed.
+   plain versions, timed. Its views part: ``render_views`` of the 5 views a
+   call on the serving scene (call ``i`` from the ``i``-th view on, an L1
+   loss of the stack against the targets in the same order), in both
+   modes, through its graph pair against ``_render_views_eager`` over the
+   same sequence (every output and parameter gradient bit for bit, A, B
+   and C 5 each a replay), then (one pair serves both modes) the miss
+   cost, pool and saved state, ms, busy, idle and host calls both ways,
+   the render and its backward alone (two graph launches, no kernel launch
+   from the host) and the strict replays; then A, B and C at its shapes. Its NCCL part: a (1, 1) mesh
+   over one NCCL rank in this process, ``render_data_parallel`` of the 4
+   orbit views and ``render_tile_sharded`` of the bench view under grad,
+   each through its graph pair against its eager form over the warm-up,
+   the capture, two replays and two calls before one backward (every
+   output and gradient bit for bit, one capture), timed both ways, the
+   render and its backward alone making no kernel launch from the host but
+   the ranks' miss decision's.
 
 With ``--cards 4`` (a machine with four cards; it exits non-zero before
 any work where fewer are visible, and never runs on fewer ranks or over
@@ -230,10 +245,18 @@ event: the ranks' scene digests equal (each run's), the point counts
 equal, and each graphed run bit for bit the eager fit, or else (the first
 step and fields that differ printed) losses within 1e-5 relative and
 parameters within 1e-4; (d) the steady state on each rank as in phase 14
-(b). Then A, B and
-C on rank 0's slab 0 of (b) against their plain versions
-(``<kernel>@nccl_slab0``, launches summed over the ranks). Its last line's
-``count`` is the cards it drove.
+(b); (e) under grad (``mean(image ** 2)``), the 4K frame through
+``render_tile_sharded``'s graph pair and the 8 orbit views through
+``render_data_parallel``'s, each bit for bit its eager form on every rank
+as phase 15's NCCL part holds them, timed both ways with the ranks' miss
+decision, and on rank 0 within the multi-device gates (the image within
+1e-4, the 4K frame's on all but 1e-3 of its pixels; gradients within
+1e-3 scaled) of the single-device differentiable render the parent
+computed. Then A, B and C on rank 0's slab 0 of (b)
+(``<kernel>@nccl_slab0``) and on slab 0 of the 4K frame
+(``<kernel>@nccl_grad_slab0``, (e)'s launches) against their plain
+versions, launches summed over the ranks. Its last line's ``count`` is
+the cards it drove.
 
 Then it prints the card's name and power limit, one JSON line of
 per-kernel results: phase 5 for A and B at the serving shapes,
@@ -255,7 +278,9 @@ step's shapes, ``<kernel>@fit_scan``, whose launches are (a)'s fit_scan's,
 replays included, phase 15 for A, B and C at the differentiable render's
 shapes, ``<kernel>@render_grad`` (serving) and ``@render_grad_lego``, whose
 launches are those of its sequence through the graphs (replays counted, and
-``launches_by_replay``; with ``--cards 4``: only ``<kernel>@nccl_slab0``): their
+``launches_by_replay``), and ``<kernel>@render_views_grad``, whose launches
+are those of its views part's sequences in both modes (with ``--cards 4``:
+only ``<kernel>@nccl_slab0`` and ``@nccl_grad_slab0``): their
 launches, and the error, time (``ms``, CUDA events around the wrapper;
 ``device_ms``, its kernels' device time), plain time and bound at the
 step's shapes;
@@ -276,6 +301,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 
 import numpy as np
 import torch
@@ -368,7 +394,9 @@ def profile_device_time(fn, reps: int = 3, top: int = 12, names=()) -> dict:
     compute and spin while a peer rank is late, so their time can overlap
     the rest and exceed the work: ``compute_idle_share`` is the share of
     the window in which no other kernel ran. The profiler's ``nccl:*``
-    ranges, which span those kernels again, are left out."""
+    ranges, which span those kernels again, are left out. The profiler
+    drops device records (see :func:`device_ms`), so each kernel's time
+    is the mean over the records it holds times its launches a call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -385,17 +413,18 @@ def profile_device_time(fn, reps: int = 3, top: int = 12, names=()) -> dict:
             if event.key.startswith(HOST_LAUNCH_CALLS):
                 host[event.key] = event.count / reps
             continue
-        if event.key.startswith("nccl:"):
+        if event.key.startswith("nccl:") or not event.count:
             continue
         device_us = getattr(event, "device_time_total", None)
         if device_us is None:
             device_us = event.cuda_time_total
-        kernels.append((device_us / 1e3 / reps, event.count // reps, event.key[:90]))
+        per_call = max(1, round(event.count / reps))
+        kernels.append((device_us / 1e3 / event.count * per_call, per_call, event.key[:90]))
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
-    if busy_ms == 0.0:
+    if busy_ms == 0.0:  # the host's calls are the host's records, kept
         return dict(device_busy_ms="not measured (the profiler saw no device time)",
-                    wall_ms=wall_ms)
+                    wall_ms=wall_ms, host_launches=sum(host.values()), host_calls=host)
     collective_ms = sum(k[0] for k in kernels if k[2].startswith("ncclDevKernel"))
     named = {name: sum(k[0] for k in kernels if name in k[2]) for name in names}
     return dict(
@@ -1159,8 +1188,7 @@ def serving_graph(ctx, outs) -> dict:
             if name.startswith("graph") and "host_calls" in prof:
                 calls = prof["host_calls"]
                 graphs = sum(n for k, n in calls.items() if "GraphLaunch" in k)
-                kernel_calls = sum(n for k, n in calls.items() if "LaunchKernel" in k)
-                check(graphs == 1 and kernel_calls == 0,
+                check(graphs == 1 and kernel_calls(prof) == 0,
                       f"a steady-state {name} call of {count} views: {calls}")
     out["timing"] = timing
     return out
@@ -1181,6 +1209,12 @@ def host_wall_ms(fn) -> float:
     return (time.perf_counter() - start) * 1e3
 
 
+def kernel_calls(prof) -> float:
+    """The host's kernel launches a call in a :func:`profile_device_time`
+    record (graph launches and copies not counted)."""
+    return sum(n for k, n in prof.get("host_calls", {}).items() if "LaunchKernel" in k)
+
+
 def check_steady_call(prof, what) -> None:
     """A steady-state call through a graph (the profile of it): one graph
     launch, no kernel launched from the host, at most
@@ -1189,8 +1223,8 @@ def check_steady_call(prof, what) -> None:
         return
     calls = prof["host_calls"]
     graphs = sum(n for k, n in calls.items() if "GraphLaunch" in k)
-    kernel_calls = sum(n for k, n in calls.items() if "LaunchKernel" in k)
-    check(graphs == 1 and kernel_calls == 0 and prof["host_launches"] <= ENTRY_HOST_CALLS_MAX,
+    check(graphs == 1 and kernel_calls(prof) == 0
+          and prof["host_launches"] <= ENTRY_HOST_CALLS_MAX,
           f"a steady-state call of {what}: {calls}")
 
 
@@ -3208,6 +3242,36 @@ CARDS = 4
 SERVE_YAWS = (-0.2, -0.15, -0.1, -0.05, 0.0, 0.05, 0.1, 0.15)
 
 
+def grad_call_record(out, scene, ref) -> list:
+    """A differentiable call's outputs and gradients in the order of
+    :func:`sharded_grad_against_eager`'s records, on the host: the five
+    outputs, the five parameter gradients, the ref's."""
+    return [t.detach().cpu() for t in out] + [p.grad.cpu() for p in scene.parameters()] + [
+        ref.grad.cpu()]
+
+
+def against_single(got, want, names, tiled, what) -> dict:
+    """A sharded differentiable call (:func:`grad_call_record`'s layout)
+    against the single-device render's, within the multi-device gates: the
+    image within 1e-4 (for the tile-sharded frame, on all but
+    ``MESH4K_PIXEL_SHARE`` of its pixels), the radii equal, each gradient
+    (the five parameters' and the ref's) within ``GRAD_SCALED_ATOL``
+    scaled by its largest magnitude."""
+    dev = got[0].device
+    diff = (got[0] - want[0].to(dev)).abs().amax(dim=-1)
+    share = float((diff > 1e-4).double().mean())
+    grads = {name: scaled_err(g, w.to(dev))
+             for name, g, w in zip(list(names) + ["norm"], got[5:], want[5:])}
+    rec = dict(image_max_abs=float(diff.max()), share_beyond_1e4=share,
+               radii_equal=bool(torch.equal(got[1], want[1].to(dev))), grad_scaled_err=grads,
+               finite=all(bool(torch.isfinite(t).all()) for t in got if t.is_floating_point()))
+    check(rec["finite"] and rec["radii_equal"]
+          and share <= (MESH4K_PIXEL_SHARE if tiled else 0.0)
+          and all(e <= GRAD_SCALED_ATOL for e in grads.values()),
+          f"{what}: the sharded call under grad against the single-device render: {rec}")
+    return rec
+
+
 def nccl_cards_worker(rank, out_dir, spec):
     """One of the ranks of ``--cards 4``, on its own card (``cuda:rank``,
     made current by ``spawn_ranks`` before the NCCL group), printing a JSON
@@ -3217,10 +3281,17 @@ def nccl_cards_worker(rank, out_dir, spec):
     (b) the (2, 2) step on the bench scene's 4 orbit views, rank 0 against
     ``reference.pt``; (c) ``ShardedTrainer``: the eager fit twice,
     ``fit`` through its graphs and ``fit_scan`` once, 10 steps from one
-    start across a densify event; (d) the steady state three ways. Writes
-    ``rank{rank}.json``: its device and backend, times, checks, digests and
-    the path's launches ((a)-(c), the targets' renders and the timings
-    left out)."""
+    start across a densify event; (d) the steady state three ways; (e)
+    under grad, the 4K frame through ``render_tile_sharded``'s graph pair
+    and the 8 orbit views through ``render_data_parallel``'s, each bit for
+    bit its eager form (:func:`sharded_grad_against_eager`) and, on rank 0,
+    within the multi-device gates of the single-device differentiable render
+    (``single4k_grad.pt``, ``single8_grad.pt``). Writes ``rank{rank}.json``:
+    its device and backend, times, checks, digests and the path's launches
+    ((a)-(c), the targets' renders and the timings left out; (e)'s in
+    ``grad_launches``)."""
+    import gc
+
     import torch.distributed as dist
 
     import gausplat_tpu_torch as T
@@ -3366,15 +3437,69 @@ def nccl_cards_worker(rank, out_dir, spec):
               f"its graphs and fit_scan")
     rec["steady"] = steady_state(fits["trainer"], cams, targets, reps=3,
                                  profile_steps=SHARDED_PROFILE_STEPS, profile_reps=1)
+    del fits
+    torch.cuda.empty_cache()
+
+    # (e) Under grad: each through its graph pair against its eager form,
+    # and (rank 0) against the single-device differentiable render the
+    # parent saved.
+    part("e", "under grad: the 4K frame through render_tile_sharded's graph pair, the 8 "
+              "orbit views through render_data_parallel's, each against its eager form")
+
+    def progress(stage):
+        print(f"nccl_cards (e), rank {rank}: {stage}", file=sys.stderr, flush=True)
+
+    progress("the miss decision")
+    rec["grad_miss_decision"] = miss_decision(mesh, dev)
+    miss_launches = rec["grad_miss_decision"]["kernel_launches"]
+    scene = mesh4k_scene(T, dev)
+    names = [n for n, _ in scene.named_parameters()]
+    grad = {"render_tile_sharded_4k": sharded_grad_against_eager(
+        "parallel.render_tile_sharded", scene,
+        lambda ref: render_tile_sharded(scene, view, mesh, "tiles", options, ref),
+        lambda ref: _tile_sharded_eager(scene, view, mesh, "tiles", options, ref),
+        lambda o: torch.mean(o.colors_rgb_2d ** 2), 1, miss_launches, progress)}
+    del scene
+    torch.cuda.empty_cache()
+    bench = T.GaussianScene.from_numpy(**bench_scene_arrays(), device=dev)
+    serve_cams = stack_cameras(serve_views, device=dev)
+    grad["render_data_parallel_8"] = sharded_grad_against_eager(
+        "parallel.render_data_parallel", bench,
+        lambda ref: render_data_parallel(bench, serve_cams, w, h, data_mesh, "data",
+                                         serve_options, ref),
+        lambda ref: _data_parallel_eager(bench, serve_cams, w, h, data_mesh, "data",
+                                         serve_options, ref),
+        lambda o: torch.mean(o.colors_rgb_2d ** 2), len(SERVE_YAWS) // CARDS, miss_launches,
+        progress)
+    del bench, serve_cams
+    for key, file, tiled in (("render_tile_sharded_4k", "single4k_grad.pt", True),
+                             ("render_data_parallel_8", "single8_grad.pt", False)):
+        call = grad[key].pop("replay_call")
+        progress(f"{key}: against the single-device render")
+        if rank == 0:
+            grad[key]["against_single"] = against_single(
+                call, torch.load(out_dir / file, weights_only=True), names, tiled, key)
+        del call
+        torch.cuda.empty_cache()
+    rec["grad"] = grad
+    rec["grad_launches"] = {k.entry: sum(g["launches"].get(k.entry, 0) for g in grad.values())
+                            for k in kernels}
     (out_dir / f"rank{rank}.json").write_text(json.dumps(rec))
+    # Every rank frees what it captured and meets the others before the
+    # group's teardown.
+    gc.collect()
+    torch.cuda.synchronize()
+    dist.barrier(device_ids=[rank])
 
 
 def phase_nccl_cards(ctx):
-    """The parallel path with one card per rank: the single 4K render and
-    the (2, 2) step's single-device reference on card 0, then four NCCL
-    ranks on cards 0-3 (:func:`nccl_cards_worker`); then A, B and C on rank
-    0's slab 0 of the step against their plain versions
-    (``<kernel>@nccl_slab0``, the launches summed over the ranks)."""
+    """The parallel path with one card per rank: the single 4K render, the
+    (2, 2) step's single-device reference and part (e)'s differentiable
+    references on card 0, then four NCCL ranks on cards 0-3
+    (:func:`nccl_cards_worker`); then A, B and C on rank 0's slab 0 of the
+    step (``<kernel>@nccl_slab0``) and on slab 0 of the 4K frame
+    (``<kernel>@nccl_grad_slab0``, part (e)'s launches) against their plain
+    versions, the launches summed over the ranks."""
     import tempfile
 
     import gausplat_tpu_torch as T
@@ -3403,7 +3528,15 @@ def phase_nccl_cards(ctx):
         with torch.no_grad():
             single_graph_ms, single_graph_ms_all = cuda_ms(lambda: T.render(scene, view, options))
         views_graph("render", dev).release()
-        del scene, single
+        del single
+        # Part (e)'s single-device references: the differentiable render of
+        # the 4K frame and of the 8 orbit views (one ref), with the
+        # gradients of mean(image ** 2).
+        ref = torch.zeros(scene.point_count, device=dev, requires_grad=True)
+        out = _render_eager(scene, view, options, ref)
+        torch.mean(out.colors_rgb_2d ** 2).backward()
+        torch.save(grad_call_record(out, scene, ref), tmp / "single4k_grad.pt")
+        del scene, out, ref
         # The (2, 2) step's single-device reference.
         arrays = bench_scene_arrays()
         all_views = bench_views(T)
@@ -3416,6 +3549,16 @@ def phase_nccl_cards(ctx):
             targets = [T.render(bench, v, T.RenderOptions(tile_entry_capacity=bench_capacity)
                                 ).colors_rgb_2d for v in views]
             del bench
+        bench = T.GaussianScene.from_numpy(**arrays, device=dev)
+        ref = torch.zeros(bench.point_count, device=dev, requires_grad=True)
+        serve_options = T.RenderOptions(tile_entry_capacity=serve_capacity)
+        outs = [_render_eager(bench, orbit_view(T, yaw, 0.0), serve_options, ref)
+                for yaw in SERVE_YAWS]
+        out = T.RenderOutput(*(torch.stack(field) for field in zip(*outs)))
+        torch.mean(out.colors_rgb_2d ** 2).backward()
+        torch.save(grad_call_record(out, bench, ref), tmp / "single8_grad.pt")
+        del bench, ref, outs, out
+        torch.cuda.empty_cache()
         scene = T.GaussianScene.from_numpy(**train_start_arrays(arrays), device=dev)
         reference, step_capacity = step_reference(T, scene, views, targets)
         torch.save(reference, tmp / "reference.pt")
@@ -3429,7 +3572,7 @@ def phase_nccl_cards(ctx):
         spawn_ranks(nccl_cards_worker, CARDS, str(tmp),
                     dict(bench_capacity=bench_capacity, step_capacity=step_capacity,
                          serve_capacity=serve_capacity),
-                    backend="nccl", timeout_s=600.0)
+                    backend="nccl", timeout_s=180.0)
         spawn_seconds = time.perf_counter() - start
         ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(CARDS)]
 
@@ -3453,6 +3596,36 @@ def phase_nccl_cards(ctx):
     add_kernel_rows(ctx, timings, "nccl_slab0",
                     f"nccl_cards: slab 0 (0-{h_local - 1} of {h_pad} rows) of the (2, 2) step "
                     f"on {CARDS} cards over NCCL, 1920 x {h_local}", launches)
+    # A, B and C on slab 0 of part (e)'s 4K frame under grad, with (e)'s
+    # launches summed over the ranks.
+    grad_launches = {k.entry: sum(r["grad_launches"][k.entry] for r in ranks) for k in kernels}
+    check(all(grad_launches[k] > 0 for k in PATH),
+          f"a kernel of the path under grad never ran: {grad_launches}")
+    del scene
+    torch.cuda.empty_cache()
+    scene = mesh4k_scene(T, dev)
+    h4k = slab_rows(MESH4K_HEIGHT, MESH4K_SLABS)[0]
+    grad_rec, timings = slab_kernel_records(
+        scene, mesh4k_view(T), (0, h4k), _shard_capacity(MESH4K_CAPACITY, MESH4K_SLABS, 128),
+        dev, "nccl_grad_slab0")
+    check_live(grad_rec, "nccl_grad_slab0")
+    add_kernel_rows(ctx, timings, "nccl_grad_slab0",
+                    f"nccl_cards (e): slab 0 (0-{h4k - 1} of {MESH4K_HEIGHT} rows) of the 4K "
+                    f"frame under grad through render_tile_sharded's graph pair, and the 8 "
+                    f"orbit views through render_data_parallel's, on {CARDS} cards over NCCL, "
+                    f"{MESH4K_WIDTH} x {h4k}", grad_launches)
+    grad = {key: dict(
+        rank_bit_for_bit=[r["grad"][key]["bit_for_bit"] for r in ranks],
+        rank_timing=[{w: {k: r["grad"][key]["timing"][w].get(k) for k in (
+            "ms", "ms_all", "device_busy_ms", "device_idle_share", "compute_idle_share",
+            "collective_ms", "host_launches")} for w in ("graph", "eager")} for r in ranks],
+        rank_graph_render_only=[r["grad"][key]["timing"]["graph_render_only"] for r in ranks],
+        launches_a_replay=ranks[0]["grad"][key]["launches_a_replay"],
+        against_single=ranks[0]["grad"][key]["against_single"])
+        for key in ("render_tile_sharded_4k", "render_data_parallel_8")}
+    grad["rank_miss_decision"] = [r["grad_miss_decision"] for r in ranks]
+    grad["launches"] = grad_launches
+    grad["slab0"] = grad_rec
     rank0 = ranks[0]
     steady = {name: [{k: r["steady"][name][k] for k in (
         "ms_per_step", "per_step", "device_idle_share", "compute_idle_share")}
@@ -3477,10 +3650,21 @@ def phase_nccl_cards(ctx):
         rank_graph_fits_bit_for_bit=[r["fits"]["graph_fit"]["bit_for_bit"] for r in ranks],
         steady=steady, steady_rank0=rank0["steady"], launches=launches,
         rank_launches=[r["launches"] for r in ranks], spawn_seconds=spawn_seconds,
-        slab0=rec)
+        slab0=rec, grad=grad)
 
 
 # --- phase 15: the differentiable render as a forward and a backward graph ----------
+
+
+def settled_reserved(dev) -> int:
+    """The caching allocator's reserved bytes on ``dev`` after a collection,
+    a drain and an ``empty_cache``: what graphs' pools and live tensors hold."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(dev)
 
 
 class UserLoop:
@@ -3546,10 +3730,12 @@ GRAD_NEW_P = (
 )
 
 
-def grad_sequence(scenes, views, targets, options, render_fn, graph=None) -> tuple:
+def grad_sequence(scenes, views, targets, options, render_fn, graph=None,
+                  loop_type=None) -> tuple:
     """:data:`GRAD_SEQUENCE` on ``scenes[0]`` and :data:`GRAD_NEW_P` on
-    ``scenes[1]`` through ``render_fn``, with every kernel's count set to 0
-    just before and read just after. With ``graph`` (the device's
+    ``scenes[1]`` through ``render_fn`` in a ``loop_type`` loop
+    (:class:`UserLoop` by default), with every kernel's count set to 0
+    just before and read just after. With ``graph`` (the entry point's
     ``GradGraph``), each step's counts of the pair are checked. Returns the
     record (one entry per render and per backward) and the launches."""
     kernels = all_kernels()
@@ -3558,7 +3744,7 @@ def grad_sequence(scenes, views, targets, options, render_fn, graph=None) -> tup
         kernel.launches = 0
     record = []
     for scene, steps in zip(scenes, (GRAD_SEQUENCE, GRAD_NEW_P)):
-        loop = UserLoop(scene, views, targets, options, render_fn)
+        loop = (loop_type or UserLoop)(scene, views, targets, options, render_fn)
         for name, step, counts in steps:
             step(loop)
             if graph is not None:
@@ -3570,6 +3756,76 @@ def grad_sequence(scenes, views, targets, options, render_fn, graph=None) -> tup
         scene.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
     return record, {kernel.entry: kernel.launches for kernel in kernels}
+
+
+def pair_costs(graph, call_loop, eager_loop, render_only, what, pairs=None, profiled=None,
+               kernels_allowed=0) -> dict:
+    """A graph pair's costs in one configuration (``graph`` its entry
+    point's ``GradGraph``, released first and after): the miss (host ms of
+    the warm-up and the capture calls of ``call_loop.step``, against a
+    replay's and ``eager_loop.step``'s, medians of 3), the memory the pair
+    keeps (its pool, the saved state a move copies, the static tensors), a
+    call both ways in turns (ms, CUDA events) and ``pairs`` (prefix: (through
+    the pair, eager)) likewise, the profiler's figures of a call both ways,
+    of ``render_only`` (the render and its backward alone through the pair:
+    two graph launches and at most ``kernels_allowed`` kernels launched from
+    the host) and of ``profiled`` (name: call), then each graph replayed
+    with the host's sync checks set to raise."""
+    dev = graph.device
+    graph.release()
+    reserved = [settled_reserved(dev)]
+    warm_up_ms = host_wall_ms(call_loop.step)
+    reserved.append(settled_reserved(dev))
+    capture_ms = host_wall_ms(call_loop.step)
+    reserved.append(settled_reserved(dev))
+    pair = graph.pair
+    out = dict(
+        miss=dict(warm_up_ms=warm_up_ms, capture_ms=capture_ms,
+                  replay_call_ms=statistics.median(host_wall_ms(call_loop.step)
+                                                   for _ in range(3)),
+                  eager_call_ms=statistics.median(host_wall_ms(eager_loop.step)
+                                                  for _ in range(3)),
+                  forward_only=dict(graph.miss_ms)),
+        memory=dict(graph_pool_bytes=reserved[2] - reserved[1],
+                    saved_state_bytes=sum(b.numel() for b in pair.state),
+                    static_bytes=nbytes(*pair.inputs, pair.ref, pair.cot),
+                    saved_tensors=len(pair.saved)))
+    timing = {}
+    for prefix, (first, second) in {"": (call_loop.step, eager_loop.step),
+                                    **(pairs or {})}.items():
+        turns = in_turns(first, second)
+        timing[f"{prefix}graph"] = dict(ms=turns["first"][0], ms_all=turns["first"][1])
+        timing[f"{prefix}eager"] = dict(ms=turns["second"][0], ms_all=turns["second"][1])
+    for name, run in {"graph": call_loop.step, "eager": eager_loop.step,
+                      "graph_render_only": render_only, **(profiled or {})}.items():
+        try:
+            prof = profile_device_time(run)
+        except RuntimeError as e:  # the profiler is a measurement, not the path
+            prof = dict(device_busy_ms=f"not measured ({e})")
+        timing.setdefault(name, {}).update({
+            k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                     "collective_ms", "compute_idle_share", "kernel_launches",
+                                     "host_launches", "host_calls")})
+        if name.startswith("graph") and "host_calls" in prof:
+            graphs = sum(n for k, n in prof["host_calls"].items() if "GraphLaunch" in k)
+            check(graphs == 2, f"{what}: a {name} call made {graphs} graph launches, not 2")
+        if name == "graph_render_only" and "host_calls" in prof:
+            check(kernel_calls(prof) <= kernels_allowed,
+                  f"{what}: the render and its backward alone launched kernels from the host: "
+                  f"{prof['host_calls']} ({kernels_allowed} allowed)")
+    out["timing"] = timing
+    check(graph.captures == 1, f"{what}: the timed calls recaptured ({graph.captures})")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pair.forward.replay()
+        pair.backward.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    out["strict_replay"] = "no host read, either graph"
+    graph.release()
+    return out
 
 
 def render_grad_config(ctx, tag, scene, views, targets, options) -> dict:
@@ -3587,7 +3843,7 @@ def render_grad_config(ctx, tag, scene, views, targets, options) -> dict:
     from gausplat_tpu_torch.scene.gaussian_3d import PARAM_DIMS
 
     dev = ctx["device"]
-    graph = grad_graph(dev)
+    graph = grad_graph("render", dev)
     cut = scene.point_count - scene.point_count // 16
     other = T.GaussianScene.from_numpy(
         **{f: getattr(scene, f).detach().cpu().numpy()[:cut] for f in PARAM_DIMS}, device=dev)
@@ -3603,15 +3859,7 @@ def render_grad_config(ctx, tag, scene, views, targets, options) -> dict:
     graph_captures = graph.captures
     want, eager_launches = grad_sequence((scene, other), views, targets, options,
                                          _render_eager)
-    check(len(got) == len(want), f"{tag}: {len(got)} records through the graphs, "
-                                 f"{len(want)} eager")
-    differ = [(i, j) for i, (g, w) in enumerate(zip(got, want)) for j, (a, b) in
-              enumerate(zip(g, w)) if a.shape != b.shape or not torch.equal(a, b)]
-    check(not differ, f"{tag}: the graphed render differs from the eager render "
-                      f"(record, tensor): {differ[:10]}")
-    finite = all(bool(torch.isfinite(t).all()) for r in got for t in r
-                 if t.is_floating_point())
-    check(finite, f"{tag}: a non-finite output or gradient")
+    compare_records(got, want, tag)
     # Each capture call also runs the render and its backward once on a
     # side stream before it captures.
     check(all(launches[k] == eager_launches[k] + graph_captures for k in PATH),
@@ -3625,81 +3873,28 @@ def render_grad_config(ctx, tag, scene, views, targets, options) -> dict:
     del got, want, other
     gc.collect()
 
-    # The miss cost and the memory the pair keeps.
+    # The miss cost, the memory the pair keeps, a call both ways.
     call_loop = UserLoop(scene, views, targets, options, T.render, keep=False)
     eager_loop = UserLoop(scene, views, targets, options, _render_eager, keep=False)
-
-    def settle() -> int:
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        return torch.cuda.memory_reserved(dev)
-
-    graph.release()
-    reserved = [settle()]
-    warm_up_ms = host_wall_ms(call_loop.step)
-    reserved.append(settle())
-    capture_ms = host_wall_ms(call_loop.step)
-    reserved.append(settle())
-    pair = graph.pair
-    out["miss"] = dict(
-        warm_up_ms=warm_up_ms, capture_ms=capture_ms,
-        replay_call_ms=statistics.median(host_wall_ms(call_loop.step) for _ in range(3)),
-        eager_call_ms=statistics.median(host_wall_ms(eager_loop.step) for _ in range(3)),
-        forward_only=dict(graph.miss_ms))
-    out["memory"] = dict(
-        graph_pool_bytes=reserved[2] - reserved[1],
-        saved_state_bytes=sum(b.numel() for b in pair.state),
-        static_bytes=nbytes(pair.rows, pair.ref, pair.cot),
-        saved_tensors=len(pair.saved))
-
-    # A call both ways: wall (CUDA events), busy, idle share, host calls.
     cot = torch.randn((height, width, 3), device=dev,
                       generator=torch.Generator(device=dev).manual_seed(19))
+    ref = torch.zeros((scene.point_count,), device=dev, requires_grad=True)
 
     def render_only(render_fn):
         def call():
             scene.zero_grad(set_to_none=True)
-            ref = torch.zeros((scene.point_count,), device=dev, requires_grad=True)
+            ref.grad = None
             render_fn(scene, views[0], options, ref).colors_rgb_2d.backward(cot)
         return call
 
-    turns = in_turns(call_loop.step, eager_loop.step)
-    two = in_turns(lambda: call_loop.backward(call_loop.render(1), call_loop.render(2)),
-                   lambda: eager_loop.backward(eager_loop.render(1), eager_loop.render(2)))
-    timing = dict(graph=dict(ms=turns["first"][0], ms_all=turns["first"][1]),
-                  eager=dict(ms=turns["second"][0], ms_all=turns["second"][1]),
-                  two_views_graph=dict(ms=two["first"][0], ms_all=two["first"][1]),
-                  two_views_eager=dict(ms=two["second"][0], ms_all=two["second"][1]))
-    for name, run in (("graph", call_loop.step), ("eager", eager_loop.step),
-                      ("graph_render_only", render_only(T.render)),
-                      ("eager_render_only", render_only(_render_eager))):
-        try:
-            prof = profile_device_time(run)
-        except RuntimeError as e:  # the profiler is a measurement, not the path
-            prof = dict(device_busy_ms=f"not measured ({e})")
-        timing.setdefault(name, {}).update({
-            k: prof.get(k) for k in ("wall_ms", "device_busy_ms", "device_idle_share",
-                                     "kernel_launches", "host_launches", "host_calls")})
-        if name.startswith("graph") and "host_calls" in prof:
-            graphs = sum(n for k, n in prof["host_calls"].items() if "GraphLaunch" in k)
-            check(graphs == 2, f"{tag}: a {name} call made {graphs} graph launches, not 2")
-    out["timing"] = timing
-    check(graph.captures == 1, f"{tag}: the timed calls recaptured ({graph.captures})")
-
-    # Both graphs replayed once more with the host's sync checks set to raise.
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        pair.forward.replay()
-        pair.backward.replay()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    out["strict_replay"] = "no host read, either graph"
-    graph.release()
+    out.update(pair_costs(
+        graph, call_loop, eager_loop, render_only(T.render), tag,
+        pairs={"two_views_": (
+            lambda: call_loop.backward(call_loop.render(1), call_loop.render(2)),
+            lambda: eager_loop.backward(eager_loop.render(1), eager_loop.render(2)))},
+        profiled={"eager_render_only": render_only(_render_eager)}))
     scene.zero_grad(set_to_none=True)
-    del pair, call_loop, eager_loop
+    del call_loop, eager_loop, ref
     gc.collect()
 
     # A, B and C at the call's shapes, with the sequence's launches.
@@ -3717,6 +3912,287 @@ def render_grad_config(ctx, tag, scene, views, targets, options) -> dict:
     return out
 
 
+class ViewsLoop(UserLoop):
+    """A user's loop around the differentiable ``render_views``: call ``i``
+    renders every view from the ``i``-th on (wrapping round), ``loss = mean
+    |images - targets|`` over the stacked images and ``targets`` (``[V, H,
+    W, 3]``) in the same order, and ``loss.backward()``, through
+    ``render_fn(scene, views, options)``. It passes no ref: ``render_views``
+    takes none. With ``keep``, ``record`` holds every output and gradient."""
+
+    def render(self, i):
+        order = [(i + k) % len(self.views) for k in range(len(self.views))]
+        out = self.render_fn(self.scene, [self.views[k] for k in order], self.options)
+        if self.keep:
+            self.record.append([t.detach() for t in out])
+        return out, None, order
+
+    def backward(self, *calls):
+        self.scene.zero_grad(set_to_none=True)
+        sum(torch.mean(torch.abs(out.colors_rgb_2d - self.targets[order]))
+            for out, _, order in calls).backward()
+        if self.keep:
+            self.record.append([p.grad for p in self.scene.parameters()])
+
+
+def compare_records(got, want, what) -> None:
+    """Two records of a loop (:class:`UserLoop`) bit for bit, and finite."""
+    check(len(got) == len(want), f"{what}: {len(got)} records through the graphs, "
+                                 f"{len(want)} eager")
+    differ = [(i, j) for i, (g, w) in enumerate(zip(got, want)) for j, (a, b) in
+              enumerate(zip(g, w)) if a.shape != b.shape or not torch.equal(a, b)]
+    check(not differ, f"{what}: the graphed call differs from the eager call "
+                      f"(record, tensor): {differ[:10]}")
+    finite = all(bool(torch.isfinite(t).all()) for r in got for t in r
+                 if t.is_floating_point())
+    check(finite, f"{what}: a non-finite output or gradient")
+
+
+def check_per_replay(pair, count, what) -> dict:
+    """A and B launched ``count`` times (once a view or slab) by a forward
+    replay of ``pair``, C ``count`` times by a backward replay, nothing
+    else. Returns the launches a replay of each graph, by entry point."""
+    got = {"forward": {k.entry: n for k, n in pair.forward.launches.items()},
+           "backward": {k.entry: n for k, n in pair.backward.launches.items()}}
+    want = {"forward": {PATH[0]: count, PATH[1]: count}, "backward": {PATH[2]: count}}
+    check(got == want, f"{what}: launches a replay {got}, not {want}")
+    return got
+
+
+def render_views_grad_config(ctx, scene, views, targets, options) -> dict:
+    """Phase render_grad's views part: a user's loop around the
+    differentiable ``render_views`` of the 5 views a call, in both modes,
+    through its graph pair against ``_render_views_eager`` and its backward
+    over :data:`GRAD_SEQUENCE` and :data:`GRAD_NEW_P` (every output and
+    parameter gradient bit for bit, one capture per key, A, B and C launched
+    from the graphs, 5 of each a replay; the pair released between the
+    modes, so each runs the whole sequence); then, in the ``map`` mode, the
+    pair's costs (:func:`pair_costs`: the miss, the pool and the saved
+    state, a call both ways, the render and its backward alone with no
+    kernel launch from the host, the strict replays)."""
+    import gc
+
+    import gausplat_tpu_torch as T
+    from gausplat_tpu_torch.render.grad_graph import grad_graph
+    from gausplat_tpu_torch.render.pipeline import _render_views_eager
+    from gausplat_tpu_torch.scene.gaussian_3d import PARAM_DIMS
+
+    dev = ctx["device"]
+    graph = grad_graph("render_views", dev)
+    count = len(views)
+    stacked = torch.stack(targets)
+    cut = scene.point_count - scene.point_count // 16
+    other = T.GaussianScene.from_numpy(
+        **{f: getattr(scene, f).detach().cpu().numpy()[:cut] for f in PARAM_DIMS}, device=dev)
+    width, height = views[0].image_width, views[0].image_height
+    out = dict(points=scene.point_count, new_p_points=other.point_count, views=count,
+               width=width, height=height, capacity=options.tile_entry_capacity)
+    launches_all, by_replay_all = {}, {}
+    cot = torch.randn((count, height, width, 3), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(23))
+    for mode in ("vmap", "map"):
+        def pair_fn(s, vs, o, mode=mode):
+            return T.render_views(s, vs, o, mode=mode)
+
+        def eager_fn(s, vs, o, mode=mode):
+            return _render_views_eager(s, vs, o, mode, None)
+
+        graph.release()
+        got, launches = grad_sequence((scene, other), views, stacked, options, pair_fn, graph,
+                                      ViewsLoop)
+        by_replay = {k.entry: n for k, n in graph.by_replay.items()}
+        captures, moves = graph.captures, graph.moves
+        a_replay = check_per_replay(graph.pair, count, f"render_views ({mode})")
+        want, eager_launches = grad_sequence((scene, other), views, stacked, options, eager_fn,
+                                             loop_type=ViewsLoop)
+        compare_records(got, want, f"render_views ({mode})")
+        # Each capture call also runs every view's render and backward once
+        # on a side stream before it captures.
+        check(all(launches[k] == eager_launches[k] + count * captures for k in PATH),
+              f"render_views ({mode}): launches {launches}, eager {eager_launches}, "
+              f"captures {captures}")
+        check(by_replay.get(PATH[0]) == count * graph.replays["forward"]
+              and by_replay.get(PATH[2]) == count * graph.replays["backward"],
+              f"render_views ({mode}): by replay {by_replay}, replays {graph.replays}")
+        rec = dict(bit_for_bit=True, records=len(got), captures=captures, moves=moves,
+                   replays=dict(graph.replays), launches=launches,
+                   launches_by_replay=by_replay, launches_a_replay=a_replay,
+                   eager_launches=eager_launches)
+        for k in PATH:
+            launches_all[k] = launches_all.get(k, 0) + launches[k]
+            by_replay_all[k] = by_replay_all.get(k, 0) + by_replay.get(k, 0)
+        del got, want
+        gc.collect()
+        out[mode] = rec
+    # The costs, once: one pair serves both modes (its views are rendered
+    # one after another in either), and only the warm-up's eager loop
+    # differs.
+    call_loop = ViewsLoop(scene, views, stacked, options, pair_fn, keep=False)
+    eager_loop = ViewsLoop(scene, views, stacked, options, eager_fn, keep=False)
+
+    def render_only():
+        scene.zero_grad(set_to_none=True)
+        T.render_views(scene, views, options, mode="map").colors_rgb_2d.backward(cot)
+
+    out["map"].update(pair_costs(graph, call_loop, eager_loop, render_only,
+                                 "render_views (map)"))
+    scene.zero_grad(set_to_none=True)
+    del call_loop, eager_loop
+    out["launches"], out["launches_by_replay"] = launches_all, by_replay_all
+    del other
+    gc.collect()
+
+    # A, B and C at a call's shapes (its first view), with both modes'
+    # sequences' launches.
+    rec, timings = slab_kernel_records(scene, views[0], (0, height),
+                                       options.tile_entry_capacity, dev, "render_views_grad")
+    check_live(rec, "render_views_grad")
+    out["kernels"] = rec
+    for t in timings.values():
+        t["launches_by_replay"] = by_replay_all.get(t["kernel"].entry, 0)
+    add_kernel_rows(ctx, timings, "render_views_grad",
+                    f"render_grad (views): the differentiable render_views of {count} views a "
+                    f"call and its backward through the graph pair, {scene.point_count} points "
+                    f"at {width} x {height}, {len(GRAD_SEQUENCE) + len(GRAD_NEW_P)} steps of a "
+                    f"user's loop in each mode", launches_all)
+    return out
+
+
+#: The sharded grad parts' sequence: (name, calls before one backward).
+SHARDED_GRAD_STEPS = (("warm_up", 1), ("capture", 1), ("replay", 1), ("replay", 1),
+                      ("two_calls_one_backward", 2))
+
+
+def sharded_grad_against_eager(name, scene, pair_call, eager_call, loss, count,
+                               miss_launches, progress=lambda stage: None) -> dict:
+    """A sharded render under grad (``pair_call(ref)``: the public entry
+    point, graph pair ``name``) against its eager form (``eager_call(ref)``)
+    on this rank, each call with a fresh ref and ``loss(output).backward()``:
+    :data:`SHARDED_GRAD_STEPS`, every output, parameter gradient and ref
+    gradient bit for bit, one capture, ``count`` launches of A, B and C a
+    replay (views or slabs on this rank); then the pair's costs
+    (:func:`pair_costs`; the render and its backward alone may launch only
+    the ``miss_launches`` of the ranks' miss decision from the host). Every
+    rank makes the same calls in the same order; ``progress(stage)`` is
+    called before each stage. Returns the record, with the replay's outputs
+    and gradients under ``"replay_call"`` (removed before printing)."""
+    from gausplat_tpu_torch.render.grad_graph import grad_graph
+
+    dev = scene.device
+    graph = grad_graph(name, dev)
+    graph.release()
+    kernels = all_kernels()
+
+    def calls(call, n, record):
+        scene.zero_grad(set_to_none=True)
+        refs = [torch.zeros((scene.point_count,), device=dev, requires_grad=True)
+                for _ in range(n)]
+        outs = [call(ref) for ref in refs]
+        sum(loss(o) for o in outs).backward()
+        if record is not None:
+            record.append([t.detach() for o in outs for t in o]
+                          + [p.grad for p in scene.parameters()] + [r.grad for r in refs])
+
+    runs = {}
+    for side, call in (("graph", pair_call), ("eager", eager_call)):
+        progress(f"{name}: the sequence, {side}")
+        torch.cuda.synchronize()
+        for kernel in kernels:
+            kernel.launches = 0
+        record = []
+        for _, n in SHARDED_GRAD_STEPS:
+            calls(call, n, record)
+        torch.cuda.synchronize()
+        runs[side] = (record, {k.entry: k.launches for k in kernels})
+        if side == "graph":
+            counts = (graph.captures, graph.replays["forward"], graph.replays["backward"],
+                      graph.moves)
+            check(counts == (1, 5, 5, 1), f"{name}: the pair's captures, forward and "
+                                          f"backward replays and moves {counts}")
+            a_replay = check_per_replay(graph.pair, count, name)
+            by_replay = {k.entry: n for k, n in graph.by_replay.items()}
+    (got, launches), (want, eager_launches) = runs["graph"], runs["eager"]
+    compare_records(got, want, name)
+    replay_call = got[2]
+    del runs, got, want
+
+    ref = torch.zeros((scene.point_count,), device=dev, requires_grad=True)
+    cot = torch.ones_like(replay_call[0])
+
+    def render_only():
+        scene.zero_grad(set_to_none=True)
+        ref.grad = None
+        pair_call(ref).colors_rgb_2d.backward(cot)
+
+    progress(f"{name}: the pair's costs")
+    costs = pair_costs(graph, types.SimpleNamespace(step=lambda: calls(pair_call, 1, None)),
+                       types.SimpleNamespace(step=lambda: calls(eager_call, 1, None)),
+                       render_only, name, kernels_allowed=miss_launches)
+    scene.zero_grad(set_to_none=True)
+    return dict(bit_for_bit=True, steps=[s for s, _ in SHARDED_GRAD_STEPS], captures=1,
+                launches=launches, eager_launches=eager_launches, launches_by_replay=by_replay,
+                launches_a_replay=a_replay, replay_call=replay_call, **costs)
+
+
+def miss_decision(mesh, dev) -> dict:
+    """The ranks' common miss decision alone (``any_rank``): host ms (median
+    of ``REPS``) and the kernels it launches from the host."""
+    from gausplat_tpu_torch.parallel._collectives import any_rank
+
+    def decide():
+        return any_rank(False, mesh.group, dev)
+
+    ms = statistics.median(host_wall_ms(decide) for _ in range(REPS))
+    try:
+        launches = kernel_calls(profile_device_time(decide))
+    except RuntimeError:  # the profiler is a measurement, not the path
+        launches = 1
+    return dict(host_ms=ms, kernel_launches=launches)
+
+
+def nccl_grad_world1(ctx, targets) -> dict:
+    """Phase render_grad's NCCL part: a (1, 1) ("data", "tiles") mesh over
+    one NCCL rank in this process; ``render_data_parallel`` of the 4 orbit
+    views and ``render_tile_sharded`` of the bench view under grad, each a
+    user's loop (a fresh ref, an L1 loss against ``targets``,
+    ``loss.backward()``) through its graph pair against its eager form
+    (:func:`sharded_grad_against_eager`)."""
+    import torch.distributed as dist
+
+    from gausplat_tpu_torch.parallel import (
+        make_mesh, render_data_parallel, render_tile_sharded, stack_cameras,
+    )
+    from gausplat_tpu_torch.parallel.render import _data_parallel_eager, _tile_sharded_eager
+    from gausplat_tpu_torch.testing import free_port
+
+    dev, scene, options, views = ctx["device"], ctx["scene"], ctx["options"], ctx["views"]
+    w, h = views[0].image_width, views[0].image_height
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        grid = make_mesh((1, 1), ("data", "tiles"))
+        cams = stack_cameras(views[1:], device=dev)
+        orbit_targets = torch.stack(targets[1:])
+        out = dict(backend=dist.get_backend(), miss_decision=miss_decision(grid, dev))
+        out["render_data_parallel"] = sharded_grad_against_eager(
+            "parallel.render_data_parallel", scene,
+            lambda ref: render_data_parallel(scene, cams, w, h, grid, "data", options, ref),
+            lambda ref: _data_parallel_eager(scene, cams, w, h, grid, "data", options, ref),
+            lambda o: torch.mean(torch.abs(o.colors_rgb_2d - orbit_targets)), len(views) - 1,
+            out["miss_decision"]["kernel_launches"])
+        out["render_tile_sharded"] = sharded_grad_against_eager(
+            "parallel.render_tile_sharded", scene,
+            lambda ref: render_tile_sharded(scene, views[0], grid, "tiles", options, ref),
+            lambda ref: _tile_sharded_eager(scene, views[0], grid, "tiles", options, ref),
+            lambda o: torch.mean(torch.abs(o.colors_rgb_2d - targets[0])), 1,
+            out["miss_decision"]["kernel_launches"])
+    finally:
+        dist.destroy_process_group()
+    for name in ("render_data_parallel", "render_tile_sharded"):
+        del out[name]["replay_call"]
+    return out
+
+
 def phase_render_grad(ctx):
     """The differentiable ``render`` through its forward and backward graphs,
     against the eager render and its backward, at the serving shapes (the
@@ -3730,6 +4206,9 @@ def phase_render_grad(ctx):
     out = dict(card=ctx["card"])
     out["serving"] = render_grad_config(ctx, "render_grad", ctx["scene"], ctx["views"],
                                         targets, ctx["options"])
+    out["views"] = render_views_grad_config(ctx, ctx["scene"], ctx["views"], targets,
+                                            ctx["options"])
+    out["nccl_world_1"] = nccl_grad_world1(ctx, targets)
     lego = ctx.pop("lego_grad")
     scene = T.GaussianScene.from_numpy(**lego["arrays"], device=dev)
     out["lego"] = render_grad_config(ctx, "render_grad_lego", scene, lego["views"],

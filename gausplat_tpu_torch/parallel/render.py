@@ -25,11 +25,20 @@ package's jitted vmap and ``shard_map`` are one dispatch
 (:mod:`gausplat_tpu_torch.render.views_graph`): :func:`render_views` on
 any CUDA device, :func:`render_data_parallel` and
 :func:`render_tile_sharded` where the mesh is on NCCL, each rank capturing
-its renders with the collectives inside. The ranks decide a miss of the
-graph's key together (a max over the mesh), so every rank captures and
-replays the same collectives in the same order. Over gloo, which copies
-through the host and cannot be captured, where grad is needed, and inside
-the caller's own capture, they run eagerly.
+its renders with the collectives inside. Where grad is needed, each is
+one forward graph replay and its backward one backward graph replay, as
+the jitted programs under ``jax.grad`` are
+(:mod:`gausplat_tpu_torch.render.grad_graph`): the forward graph holds
+the renders and the gathers, the backward graph the replicated
+parameters' all-reduce and the slabs' sum of the screen-position
+gradients. The ranks decide a miss of a graph's key together (a max over
+the mesh), so every rank captures and replays the same collectives in the
+same order. Over gloo, which copies through the host and cannot be
+captured, inside the caller's own capture, with the plain versions
+(``backend="torch"``) under grad, and on a CPU device, they run their
+eager forms (``_views_eager``, ``_data_parallel_eager``,
+``_tile_sharded_eager``). A group's NCCL communicator is made by the
+eager warm-up call, before any capture.
 """
 
 from __future__ import annotations
@@ -41,12 +50,16 @@ import torch
 
 from ..constants import TILE_SIZE_Y
 from ..ops.projection import Camera
+from ..render.grad_graph import grad_graph
 from ..render.pipeline import (
     RenderOptions,
     RenderOutput,
     _capacity,
     _render_core,
+    _stack,
     _use_kernels,
+    call_params,
+    grad_graphed,
     scene_params,
     serve_views,
 )
@@ -91,10 +104,6 @@ def camera_count(cameras: Camera) -> int:
     return cameras.focal_length.shape[0]
 
 
-def _stack(outs: Sequence[RenderOutput]) -> RenderOutput:
-    return RenderOutput(*(torch.stack(field) for field in zip(*outs)))
-
-
 def render_views(
     scene: GaussianScene,
     cameras: Camera,
@@ -105,19 +114,41 @@ def render_views(
     """Render a batch of cameras (:func:`stack_cameras`) on this rank's
     device, one after another; outputs carry a leading view axis. With no
     grad needed, one graph replay a call on a CUDA device
-    (``render/pipeline.py::serve_views``)."""
-    device, p = scene.device, scene.point_count
+    (``render/pipeline.py::serve_views``); under grad, one forward and one
+    backward replay (:func:`_views_graphed`)."""
     params = scene_params(scene)
+    if grad_graphed(params, options, scene.device):
+        return _views_graphed(scene, cameras, image_width, image_height, options)
     if not runs_eagerly(params):
         return serve_views(scene, rows_of(cameras), image_width, image_height, options, "map",
-                           "parallel.render_views", device)
+                           "parallel.render_views", scene.device)
+    return _views_eager(scene, cameras, image_width, image_height, options)
+
+
+def _views_local(params, ref, cameras, width, height, options):
+    """Every view of the stacked ``cameras`` rendered on this device, one
+    after another, each field stacked."""
+    device, p = params[0].device, params[0].shape[0]
     capacity, use_kernels = _capacity(p, options), _use_kernels(options, device)
-    ref = torch.zeros((p,), dtype=torch.float32, device=device)
-    return _stack([
-        _render_core(params, ref, camera_at(cameras, i), image_width, image_height,
-                     capacity, options, use_kernels)
-        for i in range(camera_count(cameras))
-    ])
+    return _stack([_render_core(params, ref, camera_at(cameras, i), width, height, capacity,
+                                options, use_kernels)
+                   for i in range(camera_count(cameras))])
+
+
+def _views_eager(scene, cameras, width, height, options):
+    """:func:`render_views` launched op by op, differentiable."""
+    ref = torch.zeros((scene.point_count,), dtype=torch.float32, device=scene.device)
+    return _views_local(call_params(scene), ref, cameras, width, height, options)
+
+
+def _views_graphed(scene, cameras, width, height, options):
+    """The differentiable :func:`render_views` through the graph pair of
+    entry point ``"parallel.render_views"`` (on a CPU device every replay
+    eager)."""
+    return RenderOutput(*grad_graph("parallel.render_views", scene.device).run(
+        scene, scene_params(scene), None, cameras, (width, height, options),
+        lambda params, ref, cams: _views_local(params, ref, cams, width, height, options),
+        lambda: _views_eager(scene, cameras, width, height, options)))
 
 
 def _mesh_key(mesh: Mesh, axis: str) -> tuple:
@@ -138,11 +169,17 @@ def _write_all(outputs, out: RenderOutput) -> None:
         dst.copy_(src)
 
 
-def _serves_from_graph(mesh: Mesh, scene: GaussianScene, ref) -> bool:
-    """Whether a sharded call is one graph replay: on NCCL, with no grad
-    needed of the scene or of a given ref."""
-    given = () if ref is None else (ref,)
-    return mesh.backend == "nccl" and not runs_eagerly([*scene_params(scene), *given])
+def _sharded_route(mesh: Mesh, scene: GaussianScene, ref, options) -> str:
+    """How a sharded call runs: ``"grad"`` (the graph pair: on NCCL, grad
+    needed of the scene or of a given ref, the kernels, no caller's
+    capture), ``"serve"`` (one graph replay: on NCCL, no grad needed, no
+    caller's capture) or ``"eager"``."""
+    tensors = [*scene_params(scene), *(() if ref is None else (ref,))]
+    if mesh.backend != "nccl":
+        return "eager"
+    if grad_graphed(tensors, options, scene.device):
+        return "grad"
+    return "eager" if runs_eagerly(tensors) else "serve"
 
 
 def render_data_parallel(
@@ -158,16 +195,19 @@ def render_data_parallel(
     """Render a camera batch split over ``mesh``'s ``axis``: V views (a
     multiple of the axis size D), ``V / D`` on each rank. Returns every
     view's outputs on every rank. Differentiable: the scene's and the
-    ref's gradients are summed over the axis. With no grad needed on
-    NCCL, one graph replay a call on every rank, the gathers inside (the
-    ref, which only a backward reads, is then not used)."""
+    ref's gradients are summed over the axis. On NCCL, with no grad
+    needed one graph replay a call on every rank, the gathers inside (the
+    ref, which only a backward reads, is then not used); under grad one
+    forward and one backward replay (:func:`_data_parallel_graphed`)."""
     d = mesh.shape[axis]
     v = camera_count(cameras)
     if v % d:
         raise ValueError(f"{v} views do not split over {d} ranks")
-    if not _serves_from_graph(mesh, scene, positions_2d_grad_norm_ref):
-        return _data_parallel_eager(scene, cameras, image_width, image_height, mesh, axis,
-                                    options, positions_2d_grad_norm_ref)
+    route = _sharded_route(mesh, scene, positions_2d_grad_norm_ref, options)
+    if route != "serve":
+        form = _data_parallel_graphed if route == "grad" else _data_parallel_eager
+        return form(scene, cameras, image_width, image_height, mesh, axis, options,
+                    positions_2d_grad_norm_ref)
     device, p = scene.device, scene.point_count
     params = scene_params(scene)
     return RenderOutput(*views_graph("parallel.render_data_parallel", device).run(
@@ -198,12 +238,35 @@ def _data_parallel_local(params, ref, cameras, width, height, mesh, axis, option
     )
 
 
+def _data_parallel_replicated(params, ref, cameras, width, height, mesh, axis, options):
+    """:func:`_data_parallel_local` of the parameters and the ref
+    replicated together (their gradients summed over the axis in one
+    flattened all-reduce)."""
+    *params, ref = replicate([*params, ref], mesh.groups[axis])
+    return _data_parallel_local(params, ref, cameras, width, height, mesh, axis, options)
+
+
 def _data_parallel_eager(scene, cameras, width, height, mesh, axis, options, ref):
     """:func:`render_data_parallel` as a loop of renders, differentiable."""
     if ref is None:
         ref = torch.zeros((scene.point_count,), dtype=torch.float32, device=scene.device)
-    *params, ref = replicate([*scene_params(scene), ref], mesh.groups[axis])
-    return _data_parallel_local(params, ref, cameras, width, height, mesh, axis, options)
+    return _data_parallel_replicated(scene_params(scene), ref, cameras, width, height, mesh,
+                                     axis, options)
+
+
+def _data_parallel_graphed(scene, cameras, width, height, mesh, axis, options, ref):
+    """The differentiable :func:`render_data_parallel` through the graph
+    pair of entry point ``"parallel.render_data_parallel"``: the renders and
+    gathers in the forward graph, the all-reduce of the replicated inputs'
+    gradients in the backward graph (on a CPU device every replay eager)."""
+    device = scene.device
+    return RenderOutput(*grad_graph("parallel.render_data_parallel", device).run(
+        scene, scene_params(scene), ref, cameras,
+        (*_mesh_key(mesh, axis), width, height, options),
+        lambda params, r, cams: _data_parallel_replicated(params, r, cams, width, height, mesh,
+                                                          axis, options),
+        lambda: _data_parallel_eager(scene, cameras, width, height, mesh, axis, options, ref),
+        any_miss=_any_miss(mesh, device)))
 
 
 def render_tile_sharded(
@@ -221,12 +284,14 @@ def render_tile_sharded(
     capacity divided by D (each slab bins only its own tiles). Every rank
     gets the whole frame, the radii and the entry total maxed over the
     slabs. Differentiable: the scene's gradients are summed over the axis,
-    and the ref's gradient is the whole frame's densification signal. With
-    no grad needed on NCCL, one graph replay a call on every rank, the
-    gathers and maxima inside, the slab's shift a constant made once."""
-    if not _serves_from_graph(mesh, scene, positions_2d_grad_norm_ref):
-        return _tile_sharded_eager(scene, view, mesh, axis, options,
-                                   positions_2d_grad_norm_ref)
+    and the ref's gradient is the whole frame's densification signal. On
+    NCCL, with no grad needed one graph replay a call on every rank, the
+    gathers and maxima inside, the slab's shift a constant made once; under
+    grad one forward and one backward replay (:func:`_tile_sharded_graphed`)."""
+    route = _sharded_route(mesh, scene, positions_2d_grad_norm_ref, options)
+    if route != "serve":
+        form = _tile_sharded_graphed if route == "grad" else _tile_sharded_eager
+        return form(scene, view, mesh, axis, options, positions_2d_grad_norm_ref)
     device, p = scene.device, scene.point_count
     w, h = view.image_width, view.image_height
     y0 = mesh.coords[axis] * slab_rows(h, mesh.shape[axis])[0]
@@ -278,3 +343,31 @@ def _tile_sharded_eager(scene, view, mesh, axis, options, ref):
     # position gradients over the slabs, so every rank's norm is whole.
     params = replicate(scene_params(scene), mesh.groups[axis])
     return _tile_slab(params, ref, camera, w, h, mesh, axis, options, (w / 2.0, h / 2.0))
+
+
+def _tile_sharded_graphed(scene, view, mesh, axis, options, ref):
+    """The differentiable :func:`render_tile_sharded` through the graph
+    pair of entry point ``"parallel.render_tile_sharded"``: the slab's
+    render and the joins in the forward graph; the slabs' sum of the
+    screen-position gradients (inside the rasterizer's backward) and the
+    all-reduce of the replicated parameters' gradients in the backward
+    graph. The slab's shift and the frame's half-size are constants held
+    on the device (on a CPU device every replay eager)."""
+    device = scene.device
+    w, h = view.image_width, view.image_height
+    y0 = mesh.coords[axis] * slab_rows(h, mesh.shape[axis])[0]
+    graph = grad_graph("parallel.render_tile_sharded", device)
+    shift = graph.constant(("pos2d_shift", y0), lambda: torch.tensor(
+        [0.0, float(y0)], device=device))
+    half = graph.constant(("grad_norm_half", w, h), lambda: torch.tensor(
+        [w / 2.0, h / 2.0], dtype=torch.float32, device=device))
+
+    def body(params, r, cams):
+        return _tile_slab(replicate(params, mesh.groups[axis]), r, camera_at(cams, 0, shift),
+                          w, h, mesh, axis, options, half)
+
+    return RenderOutput(*graph.run(
+        scene, scene_params(scene), ref, pack_cameras([view]),
+        (*_mesh_key(mesh, axis), w, h, options), body,
+        lambda: _tile_sharded_eager(scene, view, mesh, axis, options, ref),
+        constants=(shift, half), any_miss=_any_miss(mesh, device)))

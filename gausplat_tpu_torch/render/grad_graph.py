@@ -1,46 +1,70 @@
-"""The differentiable render as one forward and one backward graph replay.
+"""The differentiable renders as one forward and one backward graph replay.
 
-The card's counterpart of the JAX package's ``render`` under ``jax.grad``:
-``jax.jit`` of a ``jax.custom_vjp`` (``render/pipeline.py::_render_fwd`` and
-``_render_bwd``), which runs the forward as one compiled dispatch and the
-backward as another. Here the same render (``_render_core`` with autograd
-recording, on detached aliases of the scene's parameters) is captured once
-as a forward CUDA graph, and ``torch.autograd.grad`` of its image against
-those aliases and a static ref as a backward CUDA graph, both in one memory
-pool (as ``torch.cuda.make_graphed_callables`` does). A call is then
-:class:`GraphRenderFunction`: its forward copies the packed camera row in,
-replays the forward graph and clones the five outputs out; its backward
-copies the image's cotangent in, replays the backward graph and clones the
-gradients out. Outputs and gradients are bit for bit those of the eager
-render and its autograd backward.
+The card's counterpart of the JAX package's compiled renders under
+``jax.grad``: ``render`` (``jax.jit`` of a ``jax.custom_vjp``,
+``render/pipeline.py::_render_fwd`` and ``_render_bwd``), ``render_views``
+(``jax.jit`` of a ``vmap`` or a ``lax.map`` of it) and, in
+``parallel/render.py``, the jitted vmap of ``render_views`` and the
+``shard_map``s of ``render_data_parallel`` and ``render_tile_sharded``,
+whose transposes sum the replicated parameters' cotangents over the mesh.
+Each runs its forward as one compiled dispatch and its backward as
+another. Here the same renders (``_render_core`` for each view or slab,
+with autograd recording, on detached aliases of the scene's parameters,
+and the collectives and their autograd pieces where the entry point has
+them) are captured once as a forward CUDA graph, and
+``torch.autograd.grad`` of the image against those aliases and a static
+ref as a backward CUDA graph, both in one memory pool (as
+``torch.cuda.make_graphed_callables`` does). A call is then
+:class:`GraphRenderFunction`: its forward copies the cameras in (packed
+``[V, 21]`` rows, or the fields of a stacked ``Camera`` the caller holds
+on the device: copies only, no kernel), replays the forward graph and
+clones the five outputs out; its backward copies the image's cotangent
+in, replays the backward graph and clones the gradients out. Outputs and
+gradients are bit for bit those of the eager forms and their autograd
+backward.
 
-**The key** (:meth:`GradGraph.run`): the sizes, options and capacity the
-caller gives, which of the five parameters and the ref need a gradient,
-and the address, shape and dtype of the five parameters, which the graphs
-hold while they live. The aliases share the parameters' storage, so a
-parameter updated in place is read by the next replay. The caller's ref is
-not keyed: its value enters no output, and a trainer makes a fresh one
-each step; only its length, the point count, counts. A miss (a new scene,
-a setter, another size or another set of inputs needing grad) drops the
-pair; the call runs eagerly, forward and backward (the warm-up), and the
-next call captures (an eager forward and backward of the static inputs on
-a side stream first, then both captures), then replays. ``miss_ms`` keeps
-the host ms of the last warm-up and capture calls.
+**Streams.** Every view is rendered one after another on the capture
+stream, whichever ``mode`` ``render_views`` is given. Autograd runs each
+backward op on the stream of its forward op; a forward that forked views
+onto side streams would leave backward work on streams that are not
+capturing, unrecorded or an error. Under grad every view's saved state is
+live until the backward either way, so ``"map"`` would save no memory.
+
+**The key** (:meth:`GradGraph.run`): the sizes, options, capacity and mesh
+the caller gives, the view count and the cameras' form, which of
+the five parameters and the ref need a gradient, and the address, shape
+and dtype of the five parameters and of any per-rank constant, which the
+graphs hold while they live. The aliases share the parameters' storage,
+so a parameter updated in place is read by the next replay. The caller's
+ref is not keyed: its value enters no output, and a trainer makes a fresh
+one each step; it may be absent (``render_views`` takes none, as JAX's
+makes its refs inside), and where given has the point count's length. A
+miss (a new scene, a setter, another size or view count, another set of
+inputs needing grad) drops the pair; the call runs eagerly, forward and
+backward (the warm-up), and the next call captures (an eager forward and
+backward of the static inputs on a side stream first, then both
+captures), then replays. ``miss_ms`` keeps the host ms of the last
+warm-up and capture calls. Where the renders hold collectives (one rank
+per card over NCCL), the caller passes ``any_miss``, which makes the miss
+the ranks' common decision, so every rank warms up, captures and replays
+the same collectives in the same order.
 
 **Saved state.** The backward graph reads what the forward graph wrote:
 the tensors autograd saved during the forward capture (collected with
 ``torch.autograd.graph.saved_tensors_hooks``; those that are views of the
-parameters excepted, since they are the parameters) and the camera row.
-A second forward overwrites them while an earlier call's backward may
-still be to come: two views rendered before one backward, backwards in
-the reverse order, a forward whose output is kept. So the pair records
-which call owns the static state; before a forward replay overwrites it
-while that call is still pending (its autograd node alive and its saved
-tensors not released), the state is copied into the call's own tensors,
-and before that call's backward replay it is copied back. One render and
-then its backward copies nothing. Recomputing the projection in the
-backward, as ``_render_bwd`` does, would add the projection's device time
-to every backward instead.
+parameters or of a constant excepted) and the cameras. A second
+forward overwrites them while an earlier call's backward may still be to
+come: two calls before one backward, backwards in the reverse order, a
+forward whose output is kept. So the pair records which call owns the
+static state; before a forward replay overwrites it while that call is
+still pending (its autograd node alive and its saved tensors not
+released), the state is copied into the call's own tensors, and before
+that call's backward replay it is copied back. One call and then its
+backward copies nothing. Recomputing the projection in the backward, as
+``_render_bwd`` does, would add the projection's device time to every
+backward instead. These decisions follow the autograd nodes' lives, which
+are the same on every rank of an SPMD program, and the copies hold no
+collective, so the ranks need not agree on them.
 
 As in the eager render, an in-place change to a parameter between a
 forward and its backward raises (:class:`GraphRenderFunction` saves the
@@ -51,13 +75,17 @@ carry no gradient. Double backward is not supported, as the reference's
 **On a CPU device** the same code runs, every replay run eagerly: the
 forward body is run again and what it saved and returned is copied into
 the static tensors, and the backward is ``torch.autograd.grad`` of the
-static image, so the ownership and its copies run as on the card.
-``render`` itself stays eager there.
+static image, so the ownership and its copies (and, over gloo, the
+collectives) run as on the card. The entry points themselves stay eager
+there.
 
-**Memory.** One pair is kept per device (:func:`grad_graph`); it holds the
-scene's tensors, not the scene, and is released when the scene is
-collected. A pair left behind by a miss lives on while a pending call
-needs it.
+**Memory.** One pair is kept per entry point and device
+(:func:`grad_graph`); it holds the scene's tensors, not the scene, and is
+released when the scene is collected. A pair left behind by a miss lives
+on while a pending call needs it. The saved state grows with the views:
+617 MB for one view of 1M points at 1920x1080, 3.08 GB for
+``render_views`` of five, in pools of 1.94 and 4.98 GB (``chip_smoke.py``'s
+render_grad phase on an NVIDIA H100).
 """
 
 from __future__ import annotations
@@ -69,8 +97,9 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.projection import Camera
 from ..utils.step_graph import StepGraph
-from .views_graph import release_with, stacked_camera
+from .views_graph import CAMERA_LAYOUT, release_with, stacked_camera
 
 
 def _storage_bytes(t: torch.Tensor) -> torch.Tensor:
@@ -103,27 +132,55 @@ class _Call:
         return True
 
 
+def _camera_fields(cameras: Camera) -> tuple:
+    """A stacked :class:`Camera`'s fields in the packed rows' order."""
+    return tuple(getattr(cameras, name) for name, _, _ in CAMERA_LAYOUT)
+
+
 class _Pair:
     """One captured forward and backward graph in one pool, with their
-    static tensors: the camera row, the aliases of the parameters, the
-    static ref, the outputs, the image's cotangent, the gradients and the
-    saved state, and the call that owns that state."""
+    static tensors: the cameras (``inputs``), the aliases of the
+    parameters, the static ref, the outputs, the image's cotangent, the
+    gradients and the saved state, and the call that owns that state.
+    ``constants``: the per-rank constants the body reads, never part of the
+    saved state."""
 
     def __init__(self, stats: "GradGraph", params: Sequence[torch.Tensor], needs: tuple,
-                 rows_shape, body: Callable):
+                 cameras, body: Callable, constants: Sequence[torch.Tensor] = ()):
         device = params[0].device
         self.stats, self.device, self.body = stats, device, body
-        self.rows = torch.zeros(rows_shape, dtype=torch.float32, device=device)
-        self.cameras = stacked_camera(self.rows)
+        self.constants = tuple(constants)
+        if isinstance(cameras, Camera):
+            # A stacked Camera on the device: a static copy of each field, each
+            # call's copied in field by field (a copy each, no kernel).
+            self.inputs = tuple(torch.zeros_like(f) for f in _camera_fields(cameras))
+            self.cameras = Camera(**{name: t for (name, _, _), t in zip(CAMERA_LAYOUT,
+                                                                        self.inputs)})
+        else:  # packed rows [V, 21], one copy a call
+            self.inputs = (torch.zeros(tuple(cameras.shape), dtype=torch.float32,
+                                       device=device),)
+            self.cameras = stacked_camera(self.inputs[0])
         self.ref = torch.zeros((params[0].shape[0],), dtype=torch.float32,
                                device=device).requires_grad_(needs[-1])
         self.aliases = tuple(p.detach().requires_grad_(n) for p, n in zip(params, needs))
         self.wrt = tuple(t for t, n in zip(self.aliases + (self.ref,), needs) if n)
         self.needs = needs
         self.forward, self.backward = StepGraph(), StepGraph()
-        self.owner = None
+        self._owner = None  # weakref of the call that owns the static state
         self.image = self.outputs = self.cot = self.grads = None
         self.saved, self.state, self._copies = (), (), ()
+
+    @property
+    def owner(self) -> Optional[_Call]:
+        """The call whose forward wrote the static state. Held weakly: a
+        call holds its pair, and a cycle would keep a released pair's graphs
+        and pool alive until a collection, at a time that differs from rank
+        to rank."""
+        return None if self._owner is None else self._owner()
+
+    @owner.setter
+    def owner(self, call: Optional[_Call]) -> None:
+        self._owner = None if call is None else weakref.ref(call)
 
     def _run_forward(self, saved: list):
         """The render on the static inputs, with autograd recording; every
@@ -140,7 +197,17 @@ class _Pair:
         with torch.enable_grad():
             return torch.autograd.grad(self.image, self.wrt, self.cot, retain_graph=True)
 
-    def capture(self, rows: torch.Tensor) -> None:
+    def _copy_in(self, cameras) -> None:
+        """A call's cameras into the static ones."""
+        if isinstance(cameras, Camera):
+            for dst, src in zip(self.inputs, _camera_fields(cameras)):
+                dst.copy_(src, non_blocking=True)
+        else:
+            if isinstance(cameras, np.ndarray):
+                cameras = torch.from_numpy(cameras)
+            self.inputs[0].copy_(cameras, non_blocking=True)
+
+    def capture(self, cameras) -> None:
         """Make the static tensors and, on the card, capture both graphs
         (after an eager forward and backward on a side stream)."""
         saved = []
@@ -152,7 +219,7 @@ class _Pair:
         def backward():
             self.grads = self._grads()
 
-        self.rows.copy_(rows)
+        self._copy_in(cameras)
         if self.device.type == "cuda":
             def warm_up():
                 image = self._run_forward([])[0]
@@ -171,8 +238,9 @@ class _Pair:
         self.saved = tuple(saved)
         # The state a forward writes and the backward reads: each storage of
         # the saved tensors and the outputs once (by index), the parameters'
-        # excepted, then the camera row.
-        skip = {p.untyped_storage().data_ptr() for p in self.aliases + (self.ref, self.rows)}
+        # and the constants excepted, then the cameras.
+        skip = {t.untyped_storage().data_ptr()
+                for t in self.aliases + (self.ref,) + self.inputs + self.constants}
         copies = []
         for i, t in enumerate(self.saved + self.outputs):
             ptr = t.untyped_storage().data_ptr()
@@ -180,8 +248,8 @@ class _Pair:
                 skip.add(ptr)
                 copies.append((i, _storage_bytes(t)))
         self._copies = tuple(copies)
-        self.state = tuple(b for i, b in copies if i < len(self.saved)) + (
-            _storage_bytes(self.rows),)
+        self.state = tuple(b for i, b in copies if i < len(self.saved)) + tuple(
+            _storage_bytes(t) for t in self.inputs)
 
     def replay_forward(self) -> None:
         if self.device.type == "cuda":
@@ -205,13 +273,13 @@ class _Pair:
                 dst.copy_(g)
         self.stats.note("backward", self.backward)
 
-    def take(self, call: _Call, rows: torch.Tensor) -> None:
+    def take(self, call: _Call, cameras) -> None:
         """Give the static state to ``call``'s forward: the current owner's
         state moved out first where its backward may still come."""
         if self.owner is not None and self.owner is not call and self.owner.pending():
             self._move_out(self.owner)
         self.owner = call
-        self.rows.copy_(rows, non_blocking=True)
+        self._copy_in(cameras)
         self.replay_forward()
 
     def restore(self, call: _Call) -> None:
@@ -232,18 +300,19 @@ class _Pair:
 
 
 class GraphRenderFunction(torch.autograd.Function):
-    """One differentiable render through a captured pair.
+    """One differentiable call through a captured pair.
 
-    ``apply(pair, rows, *params, ref)``: ``pair`` a captured :class:`_Pair`,
-    ``rows`` the packed camera row ``[1, 21]`` (on the host or the device),
+    ``apply(pair, cameras, *params, ref)``: ``pair`` a captured
+    :class:`_Pair`, ``cameras`` the packed camera rows ``[V, 21]`` (on the
+    host or the device) or a stacked :class:`Camera` on the device,
     ``params`` the five parameters, ``ref`` the densification ref (None
     where it needs no gradient). Returns the five :class:`RenderOutput`
     fields; only the image carries a gradient."""
 
     @staticmethod
-    def forward(ctx, pair, rows, *inputs):
+    def forward(ctx, pair, cameras, *inputs):
         call = _Call(pair)
-        pair.take(call, rows)
+        pair.take(call, cameras)
         ctx.call = call
         call.node = weakref.ref(ctx)
         ctx.save_for_backward(*inputs[:5])
@@ -268,10 +337,10 @@ class GraphRenderFunction(torch.autograd.Function):
 
 
 class GradGraph:
-    """The differentiable render's captured pair on one device, with the
-    counts over its pairs since it was made or released: ``captures``,
-    ``replays`` (of each graph), ``by_replay`` (each kernel's launches by
-    replay), ``moves`` (a call's state moved out) and ``miss_ms``."""
+    """One entry point's captured pair on one device, with the counts over
+    its pairs since it was made or released: ``captures``, ``replays`` (of
+    each graph), ``by_replay`` (each kernel's launches by replay), ``moves``
+    (a call's state moved out) and ``miss_ms``."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -281,7 +350,7 @@ class GradGraph:
     def release(self) -> None:
         """Drop the pair and the held tensors (the counts start again). A
         call still pending keeps its own pair until its backward."""
-        self.key, self.pair, self._held = None, None, ()
+        self.key, self.pair, self._held, self.constants = None, None, (), {}
         self.captures, self.moves = 0, 0
         self.replays = {"forward": 0, "backward": 0}
         self.by_replay = {}
@@ -290,50 +359,71 @@ class GradGraph:
             self._finalizer.detach()
             self._finalizer = None
 
+    def constant(self, key, make: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """A per-rank constant of the renders (a slab's screen shift), made
+        once and held while the pair's scene lives."""
+        if key not in self.constants:
+            self.constants[key] = make()
+        return self.constants[key]
+
     def note(self, which: str, graph: StepGraph) -> None:
         """Count one replay of ``which`` graph of a pair."""
         self.replays[which] += 1
         for kernel, n in graph.launches.items():
             self.by_replay[kernel] = self.by_replay.get(kernel, 0) + n
 
-    def run(self, scene, params: Sequence[torch.Tensor], ref: Optional[torch.Tensor], rows,
-            static_key, body: Callable, warm_up: Callable) -> tuple:
-        """One differentiable render. ``body(params, ref, cameras)`` renders
-        from the stacked ``cameras`` (column views of the ``[1, 21]`` camera
-        row) and returns the five outputs; ``static_key`` holds everything
-        else that shapes it; ``warm_up()`` is the eager render, run on a
-        miss. Returns the five outputs."""
+    def run(self, scene, params: Sequence[torch.Tensor], ref: Optional[torch.Tensor], cameras,
+            static_key, body: Callable, warm_up: Callable,
+            constants: Sequence[torch.Tensor] = (),
+            any_miss: Optional[Callable[[bool], bool]] = None) -> tuple:
+        """One differentiable call. ``cameras``: the packed camera rows
+        ``[V, 21]`` (numpy, or on the device), or a stacked :class:`Camera`
+        on the device (copied in field by field, so a call launches no
+        kernel to pack it). ``body(params, ref, cameras)`` renders from the
+        static stacked ``cameras`` and returns the five outputs (each with a
+        leading view axis where the entry point stacks views); it reads
+        ``constants`` too;
+        ``static_key`` holds everything else that shapes it; ``warm_up()``
+        is the eager form, run on a miss. ``any_miss(missed)``, where given,
+        turns this process's miss into the decision of all the processes
+        whose renders hold collectives together (true where any missed).
+        Returns the five outputs."""
         needs = tuple(p.requires_grad for p in params) + (
             ref is not None and ref.requires_grad,)
-        key = (static_key, needs,
-               tuple((p.data_ptr(), tuple(p.shape), p.dtype) for p in params))
+        stacked = isinstance(cameras, Camera)
+        views = cameras.focal_length.shape[0] if stacked else cameras.shape[0]
+        key = (static_key, stacked, views, needs,
+               tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in (*params, *constants)))
         self._finalizer = release_with(scene, self._finalizer, self.release)
         start = time.perf_counter()
-        if key != self.key:
-            self.key, self.pair, self._held = key, None, tuple(params)
+        missed = key != self.key
+        if any_miss is not None:
+            missed = any_miss(missed)
+        if missed:
+            self.key, self.pair, self._held = key, None, (*params, *constants)
             out = warm_up()
             self.miss_ms = {"warm_up_ms": (time.perf_counter() - start) * 1e3}
             return tuple(out)
-        if isinstance(rows, np.ndarray):
-            rows = torch.from_numpy(rows)
         captured = self.pair is None
         if captured:
-            self.pair = _Pair(self, params, needs, tuple(rows.shape), body)
-            self.pair.capture(rows)
+            self.pair = _Pair(self, params, needs, cameras, body, constants)
+            self.pair.capture(cameras)
             self.captures += 1
-        out = GraphRenderFunction.apply(self.pair, rows, *params, ref if needs[-1] else None)
+        out = GraphRenderFunction.apply(self.pair, cameras, *params, ref if needs[-1] else None)
         if captured:
             self.miss_ms["capture_ms"] = (time.perf_counter() - start) * 1e3
         return out
 
 
-#: The differentiable render's graphs on each device.
+#: The graph pair of each differentiable entry point on each device.
 _GRAPHS: dict = {}
 
 
-def grad_graph(device: torch.device) -> GradGraph:
-    """The :class:`GradGraph` of ``device``."""
-    key = str(device)
+def grad_graph(name: str, device: torch.device) -> GradGraph:
+    """The :class:`GradGraph` of entry point ``name`` on ``device``
+    (``"render"``, ``"render_views"``, ``"parallel.render_views"``,
+    ``"parallel.render_data_parallel"``, ``"parallel.render_tile_sharded"``)."""
+    key = (name, str(device))
     if key not in _GRAPHS:
         _GRAPHS[key] = GradGraph(device)
     return _GRAPHS[key]

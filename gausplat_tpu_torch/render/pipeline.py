@@ -400,12 +400,22 @@ def render(
     device = _scene_device(scene, device)
     params = scene_params(scene)
     given = () if positions_2d_grad_norm_ref is None else (positions_2d_grad_norm_ref,)
+    if grad_graphed(params + given, options, device):
+        return _render_graphed(scene, view, options, positions_2d_grad_norm_ref, device)
     if device.type == "cuda" and _use_kernels(options, device) and not capturing(device):
-        if needs_grad(params + given):
-            return _render_graphed(scene, view, options, positions_2d_grad_norm_ref, device)
         return serve_views(scene, pack_cameras([view]), view.image_width, view.image_height,
                            options, "map", "render", device, batched=False)
     return _render_eager(scene, view, options, positions_2d_grad_norm_ref, device)
+
+
+def grad_graphed(tensors: Sequence[torch.Tensor], options: RenderOptions,
+                 device: torch.device) -> bool:
+    """Whether a differentiable call takes its entry point's graph pair
+    (:mod:`.grad_graph`): grad is enabled and one of ``tensors`` (the scene's
+    parameters and any given ref) requires it, on the card, through the
+    kernels, outside a caller's capture."""
+    return (device.type == "cuda" and needs_grad(tensors) and _use_kernels(options, device)
+            and not capturing(device))
 
 
 def _render_graphed(scene: GaussianScene, view: View, options: RenderOptions = RenderOptions(),
@@ -424,7 +434,7 @@ def _render_graphed(scene: GaussianScene, view: View, options: RenderOptions = R
         return _render_core(params, ref, camera_at(cameras, 0), width, height, capacity,
                             options, use_kernels)
 
-    return RenderOutput(*grad_graph(device).run(
+    return RenderOutput(*grad_graph("render", device).run(
         scene, scene_params(scene), positions_2d_grad_norm_ref, pack_cameras([view]),
         (width, height, capacity, options), body,
         lambda: _render_eager(scene, view, options, positions_2d_grad_norm_ref, device)))
@@ -468,8 +478,14 @@ def render_views(
     is keyed on, when it is captured and when it is freed; the first call
     for a scene runs eagerly, the second captures). On a CPU device the
     same step runs eagerly. Where grad is enabled and a scene parameter
-    requires it, or inside the caller's own capture, the views are
-    rendered one by one through :func:`_render_eager`, differentiably.
+    requires it, a call on the card is one replay of a captured forward
+    graph and its backward one replay of a captured backward graph, as the
+    JAX package's jitted batch under ``jax.grad`` is
+    (:func:`_render_views_graphed`, :mod:`.grad_graph`; the first call for
+    a key runs eagerly, the second captures). Inside the caller's own
+    capture, with the plain versions (``backend="torch"``) and, under
+    grad, on a CPU device, the views are rendered one by one through
+    :func:`_render_eager` (:func:`_render_views_eager`).
 
     ``mode``, as the JAX package's:
     - ``"vmap"``: every view in flight at once (in the graph each view on
@@ -478,7 +494,9 @@ def render_views(
     - ``"map"``: one view after another (in the graph each view's buffers
       freed before the next view's are made; in the loop each view copied
       into the stacked outputs as it finishes).
-    Both give the same values, bit for bit those of :func:`render`.
+    Under grad the graph pair renders the views one after another on one
+    stream in both modes. All give the same values, bit for bit those of
+    :func:`render`.
     """
     views = list(views)
     if not views:
@@ -490,25 +508,79 @@ def render_views(
             raise InvalidPixelCountError(v.image_width * v.image_height)
     if mode not in ("vmap", "map"):
         raise ValueError(f"mode must be 'vmap' or 'map', got {mode!r}")
-    if runs_eagerly(scene_params(scene)):
+    params, device = scene_params(scene), _scene_device(scene, device)
+    if grad_graphed(params, options, device):
+        return _render_views_graphed(scene, views, options, mode, device)
+    if runs_eagerly(params):
         return _render_views_eager(scene, views, options, mode, device)
-    return serve_views(scene, pack_cameras(views), w, h, options, mode, "render_views",
-                       _scene_device(scene, device))
+    return serve_views(scene, pack_cameras(views), w, h, options, mode, "render_views", device)
+
+
+def _render_views_graphed(scene: GaussianScene, views: Sequence[View],
+                          options: RenderOptions = RenderOptions(), mode: str = "vmap",
+                          device=None) -> RenderOutput:
+    """The differentiable :func:`render_views` as one forward graph replay,
+    its backward as one backward graph replay (:mod:`.grad_graph`, entry
+    point ``"render_views"``; on a CPU device both run eagerly, through the
+    same static tensors and copies). The views are rendered one after
+    another and each field stacked, in either ``mode`` (which shapes only
+    the warm-up's eager loop): under grad every view's saved state lives
+    until the backward, and a forward on side streams would leave its
+    backward on streams that are not capturing."""
+    device = _scene_device(scene, device)
+    views = list(views)
+    width, height = views[0].image_width, views[0].image_height
+    point_count = _validate(scene, width, height, options)
+    capacity = _capacity(point_count, options)
+    use_kernels = _use_kernels(options, device)
+
+    def body(params, ref, cameras):
+        return _stack([_render_core(params, ref, camera_at(cameras, i), width, height, capacity,
+                                    options, use_kernels) for i in range(len(views))])
+
+    return RenderOutput(*grad_graph("render_views", device).run(
+        scene, scene_params(scene), None, pack_cameras(views), (width, height, capacity, options),
+        body, lambda: _render_views_eager(scene, views, options, mode, device)))
+
+
+def _stack(outs: Sequence[RenderOutput]) -> RenderOutput:
+    """Renders' outputs stacked field by field along a new leading axis."""
+    return RenderOutput(*(torch.stack(field) for field in zip(*outs)))
 
 
 def _render_views_eager(scene, views, options, mode, device) -> RenderOutput:
-    """:func:`render_views` as a loop of eager renders (:func:`_render_eager`)."""
+    """:func:`render_views` as a loop of eager renders, each view's as
+    :func:`_render_eager` renders it, on :func:`call_params`."""
+    device = _scene_device(scene, device)
+    width, height = views[0].image_width, views[0].image_height
+    point_count = _validate(scene, width, height, options)
+    params, capacity = call_params(scene), _capacity(point_count, options)
+    use_kernels = _use_kernels(options, device)
+
+    def one(view):
+        ref = torch.zeros((point_count,), dtype=torch.float32, device=device)
+        return _render_core(params, ref, Camera.from_view(view, device=device), width, height,
+                            capacity, options, use_kernels)
+
     if mode == "vmap":
-        outs = [_render_eager(scene, v, options, device=device) for v in views]
-        return RenderOutput(*(torch.stack(field) for field in zip(*outs)))
+        return _stack([one(v) for v in views])
     stacked = None
     for i, v in enumerate(views):
-        out = _render_eager(scene, v, options, device=device)
+        out = one(v)
         if stacked is None:
             stacked = RenderOutput(*(f.new_empty((len(views),) + f.shape) for f in out))
         for dst, src in zip(stacked, out):
             dst[i] = src
     return stacked
+
+
+def call_params(scene: GaussianScene) -> tuple:
+    """The scene's five parameters as views of themselves, one autograd
+    node each for one batched call: the call's gradient is summed over its
+    views there before the calls that share a backward are summed, as the
+    call's captured backward graph (:mod:`.grad_graph`) and the JAX
+    package's VJP of the batch sum it."""
+    return tuple(p.view_as(p) for p in scene_params(scene))
 
 
 def serve_views(scene: GaussianScene, rows, width: int, height: int, options: RenderOptions,

@@ -42,16 +42,16 @@ drops the graph, its pool, its buffers and the tensors it held.
 
 **When it runs eagerly** (the documented modes; on the card nothing else
 falls back to them, and an error in capture or replay raises): where grad
-is enabled and a scene parameter (or a given ref) requires it, the batched
-and sharded entry points run their eager loops, differentiable, and
-``render`` takes its own pair of graphs, a forward and a backward
-(:mod:`.grad_graph`); where the current stream is already capturing (the
-caller's own graph then records the eager loop) every entry point runs
-eagerly; on a CPU device the step below runs eagerly, its plain version
-(``render`` itself calls its eager form there); a render whose
-collectives go through gloo stays eager; ``render`` with the plain
-versions (``backend="torch"``) stays eager, as they read their loop
-bounds back to the host.
+is enabled and a scene parameter (or a given ref) requires it, ``render``,
+``render_views`` and the parallel entry points take their own pairs of
+graphs, a forward and a backward (:mod:`.grad_graph`); where the current
+stream is already capturing (the caller's own graph then records the
+eager loop) every entry point runs eagerly; on a CPU device the step
+below runs eagerly, its plain version (``render`` itself calls its eager
+form there, as every entry point does under grad); a render whose
+collectives go through gloo stays eager; the plain versions
+(``backend="torch"``) stay eager for ``render`` and under grad, as they
+read their loop bounds back to the host.
 """
 
 from __future__ import annotations

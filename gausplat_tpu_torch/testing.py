@@ -256,6 +256,13 @@ def _rank_main(rank, world_size, port, backend, timeout_s, worker, args):
                             timeout=datetime.timedelta(seconds=timeout_s))
     try:
         worker(rank, *args)
+    except BaseException:
+        # Printed before the group's teardown, which may wait on the peers
+        # that this rank left inside a collective.
+        import traceback
+
+        traceback.print_exc()
+        raise
     finally:
         dist.destroy_process_group()
 
@@ -443,4 +450,87 @@ def scripts_worker(rank, out_dir, compare_iters):
     out.update({f"sharded/{k}": np.asarray(v) for k, v in sharded.items()
                 if k not in ("scene", "launches")})
     out.update({f"sharded/scene/{k}": v for k, v in sharded["scene"].items()})
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+
+
+def sharded_grad_graph_worker(rank, out_dir, arrays, views, options, tile_views, tile_options):
+    """A rank of ``tests/test_torch_sharded_grad_graph.py`` on 4 gloo CPU
+    ranks: ``render_data_parallel`` of ``views`` (and of the same views in
+    another order) on a 4-way ``data`` axis and ``render_tile_sharded`` of
+    ``tile_views`` on a 4-way ``tiles`` axis, each through its graph pair
+    (``_data_parallel_graphed``, ``_tile_sharded_graphed``; every replay
+    eager on the CPU) and through its eager form, over one sequence of
+    calls with the gradients of ``mean(image ** 2)``: the warm-up, the
+    capture, a replay, new cameras, two calls before one backward,
+    backwards in the reverse order, a dropped call, then calls with no ref
+    (a miss: another warm-up and capture). Writes ``out_dir/rank{rank}.npz``:
+    every output and gradient of each side in order (``<case>/<side>/<i>``),
+    the replay's outputs and gradients (``<case>/replay/...``) and the
+    pair's counts (``<case>/counts``: captures, forward and backward
+    replays, moves)."""
+    import pathlib
+
+    import torch
+
+    from . import GaussianScene
+    from .parallel import make_mesh, stack_cameras
+    from .parallel.render import (
+        _data_parallel_eager, _data_parallel_graphed, _tile_sharded_eager,
+        _tile_sharded_graphed,
+    )
+    from .render.grad_graph import grad_graph
+
+    torch.set_num_threads(1)
+    w, h = views[0].image_width, views[0].image_height
+    cameras = (stack_cameras(views, device="cpu"),
+               stack_cameras(views[1:] + views[:1], device="cpu"))
+    data, tiles = make_mesh((4,), ("data",)), make_mesh((4,), ("tiles",))
+    cases = {
+        "data_parallel": ("parallel.render_data_parallel", _data_parallel_graphed,
+                          _data_parallel_eager,
+                          lambda fn, s, i, r: fn(s, cameras[i], w, h, data, "data", options, r)),
+        "tile_sharded": ("parallel.render_tile_sharded", _tile_sharded_graphed,
+                         _tile_sharded_eager,
+                         lambda fn, s, i, r: fn(s, tile_views[i], tiles, "tiles", tile_options,
+                                                r)),
+    }
+    out = {}
+    for case, (name, graphed, eager, call) in cases.items():
+        graph = grad_graph(name, torch.device("cpu"))
+        graph.release()
+        for side, fn in (("graph", graphed), ("eager", eager)):
+            scene = GaussianScene.from_numpy(**arrays, device="cpu")
+            record = []
+
+            def render(i, ref=True):
+                ref = torch.zeros(scene.point_count, requires_grad=True) if ref else None
+                result = call(fn, scene, i, ref)
+                record.extend(t.detach() for t in result)
+                return result, ref
+
+            def backward(*calls):
+                scene.zero_grad(set_to_none=True)
+                sum(torch.mean(result.colors_rgb_2d ** 2) for result, _ in calls).backward()
+                record.extend(p.grad for p in scene.parameters())
+                record.extend(ref.grad for _, ref in calls if ref is not None)
+
+            for step in range(3):  # the warm-up, the capture, a replay
+                if step == 2:
+                    out[f"{case}/{side}/replay_at"] = np.array(len(record))
+                backward(render(0))
+            backward(render(1))
+            backward(render(0), render(1))
+            a, b = render(0), render(1)
+            backward(b)
+            backward(a)
+            render(1)  # dropped
+            backward(render(0))
+            for _ in range(3):  # no ref: a miss, the warm-up, the capture, a replay
+                backward(render(0, ref=False))
+            out.update({f"{case}/{side}/{i}": _numpy(t) for i, t in enumerate(record)})
+            if side == "graph":
+                out[f"{case}/counts"] = np.array([graph.captures, graph.replays["forward"],
+                                                  graph.replays["backward"], graph.moves])
+            del scene, record, a, b
+        graph.release()
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)

@@ -931,7 +931,7 @@ def test_grad_graph_matches_the_eager_render_and_backward(cuda_device):
     from gausplat_tpu_torch.render.pipeline import _render_eager
 
     scene, views, options = _serving_setup(cuda_device)
-    graph = grad_graph(cuda_device)
+    graph = grad_graph("render", cuda_device)
     graph.release()
     weight = torch.randn((32, 48, 3), generator=torch.Generator().manual_seed(5)).to(cuda_device)
     got, launches = _grad_calls(scene, views, options, T.render, weight)
@@ -958,7 +958,7 @@ def test_grad_graph_replay_reads_nothing_back(cuda_device):
     from gausplat_tpu_torch.render.grad_graph import grad_graph
 
     scene, views, options = _serving_setup(cuda_device)
-    graph = grad_graph(cuda_device)
+    graph = grad_graph("render", cuda_device)
     graph.release()
     for _ in range(2):  # the warm-up, the capture
         T.render(scene, views[0], options).colors_rgb_2d.sum().backward()
@@ -981,7 +981,7 @@ def test_differentiable_render_inside_a_capture_stays_eager(cuda_device, monkeyp
     from gausplat_tpu_torch.render.grad_graph import grad_graph
 
     scene, views, options = _serving_setup(cuda_device)
-    graph = grad_graph(cuda_device)
+    graph = grad_graph("render", cuda_device)
     graph.release()
     taken = []
 
@@ -1003,3 +1003,173 @@ def test_differentiable_render_inside_a_capture_stays_eager(cuda_device, monkeyp
     torch.cuda.synchronize()
     assert taken[1:] == [views[0]] and float(got) == 1.0
     assert (graph.key, graph.pair, graph.captures) == (None, None, 0)
+
+
+def _batched_grad_calls(scene, call, weight):
+    """The sequence of differentiable batched calls that a graph pair is held
+    to: ``call(i, ref)`` renders view set ``i`` (0 or 1), with ``ref`` a
+    fresh ref that requires grad; the warm-up, the capture, a replay, new
+    cameras, two calls then one backward, backwards in the reverse order, a
+    dropped call. Returns every output and gradient in order (a ref's
+    gradient where it has one)."""
+    record = []
+
+    def render(i):
+        ref = torch.zeros(scene.point_count, device=scene.device, requires_grad=True)
+        out = call(i, ref)
+        record.extend(t.detach() for t in out)
+        return out, ref
+
+    def backward(*pairs):
+        scene.zero_grad(set_to_none=True)
+        sum(torch.sum(out.colors_rgb_2d * weight) for out, _ in pairs).backward()
+        record.extend(p.grad for p in scene.parameters())
+        record.extend(ref.grad for _, ref in pairs if ref.grad is not None)
+
+    for i in (0, 0, 0, 1):
+        backward(render(i))
+    backward(render(0), render(1))
+    a, b = render(0), render(1)
+    backward(b)
+    backward(a)
+    render(1)
+    backward(render(0))
+    return record
+
+
+def _assert_same_records(got, want):
+    assert len(got) == len(want) > 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and torch.equal(a, b), i
+
+
+#: The pair's captures, forward and backward replays and moves after
+#: :func:`_batched_grad_calls`.
+BATCHED_GRAD_COUNTS = (1, {"forward": 9, "backward": 8}, 2)
+
+
+@pytest.mark.parametrize("mode", ["vmap", "map"])
+def test_grad_views_graph_matches_the_eager_loop(mode, cuda_device):
+    from gausplat_tpu_torch.render.grad_graph import grad_graph
+    from gausplat_tpu_torch.render.pipeline import _render_views_eager
+
+    scene, views, options = _serving_setup(cuda_device)
+    view_sets = (views, views[::-1])
+    graph = grad_graph("render_views", cuda_device)
+    graph.release()
+    weight = torch.randn((2, 32, 48, 3), generator=torch.Generator().manual_seed(5)).to(
+        cuda_device)
+    got = _batched_grad_calls(
+        scene, lambda i, ref: T.render_views(scene, view_sets[i], options, mode=mode), weight)
+    assert (graph.captures, graph.replays, graph.moves) == BATCHED_GRAD_COUNTS
+    assert graph.by_replay == {EXPAND: 18, RASTERIZE_FORWARD: 18, RASTERIZE_BACKWARD: 16}
+    want = _batched_grad_calls(
+        scene, lambda i, ref: _render_views_eager(scene, view_sets[i], options, mode, None),
+        weight)
+    _assert_same_records(got, want)
+
+
+def test_grad_views_graph_replay_reads_nothing_back(cuda_device):
+    from gausplat_tpu_torch.render.grad_graph import grad_graph
+
+    scene, views, options = _serving_setup(cuda_device)
+    graph = grad_graph("render_views", cuda_device)
+    graph.release()
+    for _ in range(2):  # the warm-up, the capture
+        T.render_views(scene, views, options).colors_rgb_2d.sum().backward()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:  # a whole call: the copies in, both replays, the clones out
+        out = T.render_views(scene, views[::-1], options, mode="map")
+        out.colors_rgb_2d.sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _, launches = _counted(lambda: _replay_strict(graph.pair.forward))
+    assert launches == [2, 2, 0]
+    _, launches = _counted(lambda: _replay_strict(graph.pair.backward))
+    assert launches == [0, 0, 2]
+    assert graph.captures == 1
+
+
+def test_differentiable_render_views_inside_a_capture_stays_eager(cuda_device, monkeypatch):
+    from gausplat_tpu_torch.render import pipeline
+    from gausplat_tpu_torch.render.grad_graph import grad_graph
+
+    scene, views, options = _serving_setup(cuda_device)
+    graph = grad_graph("render_views", cuda_device)
+    graph.release()
+    taken = []
+
+    def eager(*args, **kwargs):  # records the call; a host copy could not be captured
+        taken.append(args[1])
+        return torch.zeros((), device=cuda_device).add_(1.0)
+
+    monkeypatch.setattr(pipeline, "_render_views_eager", eager)
+    caller = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        eager(None, None)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    assert scene.positions.requires_grad and torch.is_grad_enabled()
+    with torch.cuda.graph(caller):
+        got = T.render_views(scene, views, options)
+    caller.replay()
+    torch.cuda.synchronize()
+    assert taken[1:] == [views] and float(got) == 1.0
+    assert (graph.key, graph.pair, graph.captures) == (None, None, 0)
+
+
+def test_parallel_render_views_grad_graph_matches_eager(cuda_device):
+    from gausplat_tpu_torch.parallel import render_views, stack_cameras
+    from gausplat_tpu_torch.parallel.render import _views_eager
+    from gausplat_tpu_torch.render.grad_graph import grad_graph
+
+    scene, views, options = _serving_setup(cuda_device)
+    cams = [stack_cameras(v, device=cuda_device) for v in (views, views[::-1])]
+    graph = grad_graph("parallel.render_views", cuda_device)
+    graph.release()
+    weight = torch.randn((2, 32, 48, 3), generator=torch.Generator().manual_seed(6)).to(
+        cuda_device)
+    got = _batched_grad_calls(
+        scene, lambda i, ref: render_views(scene, cams[i], 48, 32, options), weight)
+    assert (graph.captures, graph.replays, graph.moves) == BATCHED_GRAD_COUNTS
+    want = _batched_grad_calls(
+        scene, lambda i, ref: _views_eager(scene, cams[i], 48, 32, options), weight)
+    _assert_same_records(got, want)
+
+
+def test_nccl_sharded_grad_graphs_match_eager(nccl_mesh, cuda_device):
+    from gausplat_tpu_torch.parallel import (
+        render_data_parallel, render_tile_sharded, stack_cameras,
+    )
+    from gausplat_tpu_torch.parallel.render import _data_parallel_eager, _tile_sharded_eager
+    from gausplat_tpu_torch.render.grad_graph import grad_graph
+
+    scene, views, options = _serving_setup(cuda_device)
+    cams = [stack_cameras(v, device=cuda_device) for v in (views, views[::-1])]
+    cases = {
+        "parallel.render_data_parallel": (
+            lambda i, ref: render_data_parallel(scene, cams[i], 48, 32, nccl_mesh, "data",
+                                                options, ref),
+            lambda i, ref: _data_parallel_eager(scene, cams[i], 48, 32, nccl_mesh, "data",
+                                                options, ref), (2, 32, 48, 3), 2),
+        "parallel.render_tile_sharded": (
+            lambda i, ref: render_tile_sharded(scene, views[i], nccl_mesh, "tiles", options,
+                                               ref),
+            lambda i, ref: _tile_sharded_eager(scene, views[i], nccl_mesh, "tiles", options,
+                                               ref), (32, 48, 3), 1),
+    }
+    for name, (call, eager, shape, count) in cases.items():
+        graph = grad_graph(name, cuda_device)
+        graph.release()
+        weight = torch.randn(shape, generator=torch.Generator().manual_seed(7)).to(cuda_device)
+        got = _batched_grad_calls(scene, call, weight)
+        assert (graph.captures, graph.replays, graph.moves) == BATCHED_GRAD_COUNTS, name
+        _, launches = _counted(lambda: _replay_strict(graph.pair.forward))
+        assert launches == [count, count, 0], name
+        _, launches = _counted(lambda: _replay_strict(graph.pair.backward))
+        assert launches == [0, 0, count], name
+        want = _batched_grad_calls(scene, eager, weight)
+        _assert_same_records(got, want)
+        graph.release()  # before the fixture's process group goes

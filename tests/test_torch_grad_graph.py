@@ -79,7 +79,7 @@ def test_graphed_render_grads_match_jax(case):
     want = {name: np.asarray(getattr(jgrads, name)) for name in PARAMS}
     want["norm"] = np.asarray(jnorm)
 
-    graph = grad_graph(CPU)
+    graph = grad_graph("render", CPU)
     graph.release()
     options = T.RenderOptions(**kw)
     for call in range(3):  # the warm-up, the capture, a replay
@@ -211,7 +211,7 @@ SEQUENCES = {
 @pytest.mark.parametrize("name", sorted(SEQUENCES))
 def test_graphed_render_matches_the_eager_render_bit_for_bit(name):
     sequence, frozen = SEQUENCES[name]
-    graph = grad_graph(CPU)
+    graph = grad_graph("render", CPU)
     graph.release()
     sides = [Side(_render_graphed, frozen), Side(_render_eager, frozen)]
     for side in sides:
