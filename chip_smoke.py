@@ -396,19 +396,23 @@ def profile_device_time(fn, reps: int = 3, top: int = 12, names=()) -> dict:
     the window in which no other kernel ran. The profiler's ``nccl:*``
     ranges, which span those kernels again, are left out. The profiler
     drops device records (see :func:`device_ms`), so each kernel's time
-    is the mean over the records it holds times its launches a call."""
+    is the mean over the records it holds times its launches a call
+    (:func:`launches_a_call`)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    before = counted_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3 / reps
+    counted = {k: n - before[k] for k, n in counted_launches().items()}
+    events = prof.key_averages()
     kernels, host = [], {}
-    for event in prof.key_averages():
+    for event in events:
         if event.device_type != torch.autograd.DeviceType.CUDA:
             if event.key.startswith(HOST_LAUNCH_CALLS):
                 host[event.key] = event.count / reps
@@ -418,7 +422,7 @@ def profile_device_time(fn, reps: int = 3, top: int = 12, names=()) -> dict:
         device_us = getattr(event, "device_time_total", None)
         if device_us is None:
             device_us = event.cuda_time_total
-        per_call = max(1, round(event.count / reps))
+        per_call = launches_a_call(event, events, reps, counted)
         kernels.append((device_us / 1e3 / event.count * per_call, per_call, event.key[:90]))
     kernels.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels)
@@ -446,6 +450,36 @@ DEVICE_KERNELS = {
 }
 
 
+def counted_launches() -> dict:
+    """The port's kernel wrappers' launch counts (replays included), by
+    the device kernels each launch runs once (``DEVICE_KERNELS``, without
+    the memsets, whose name PyTorch's share)."""
+    counts = {}
+    for kernel in all_kernels():
+        for name in DEVICE_KERNELS[kernel.source.name]:
+            if name != "Memset":
+                counts[name] = counts.get(name, 0) + kernel.launches
+    return counts
+
+
+def launches_a_call(event, events, reps: int, counted: dict) -> float:
+    """A device kernel's launches a call in a profiled window of ``reps``
+    calls (``event`` one of the window's ``events``). For a kernel of the
+    port, the wrappers' count over the window (``counted``, from
+    :func:`counted_launches`) over ``reps``, where no other event of the
+    window shares its name (the f32 and packed variants of one kernel
+    do); else the records held over ``reps``, rounded (at least 1), which
+    reads low where the profiler dropped records of a kernel launched more
+    than once a call."""
+    for name, n in counted.items():
+        if name in event.key and n:
+            if sum(1 for e in events if name in e.key
+                   and e.device_type == torch.autograd.DeviceType.CUDA) == 1:
+                return n / reps
+            break
+    return max(1, round(event.count / reps))
+
+
 #: Host seconds of idle profiler window on each side of a :func:`device_ms`
 #: reading, and the readings it takes before it gives up.
 PROFILE_PAD_S = 0.05
@@ -455,21 +489,24 @@ PROFILE_ATTEMPTS = 3
 def _profiled_device_ms(fn, names, reps: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
+    before = counted_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
+    counted = {k: n - before[k] for k, n in counted_launches().items()}
+    events = prof.key_averages()
     every = 0.0
     mine, records, others = {}, {}, []
-    for event in prof.key_averages():
+    for event in events:
         if event.device_type != torch.autograd.DeviceType.CUDA or not event.count:
             continue
         us = getattr(event, "device_time_total", None)
         us = event.cuda_time_total if us is None else us
         # The mean over the records held, times the launches a call.
-        ms = us / 1e3 / event.count * max(1, round(event.count / reps))
+        ms = us / 1e3 / event.count * launches_a_call(event, events, reps, counted)
         every += ms
         found = ([event.key[:90]] if names is None
                  else [name for name in names if name in event.key])
@@ -3237,6 +3274,11 @@ def sharded_nccl_fit_scan(ctx) -> dict:
 
 #: Ranks of the four-card mode, one per card.
 CARDS = 4
+#: Seconds a rank of ``--cards 4`` may spend in one part or stage, and in
+#: the group's teardown, before it prints every thread's stack and exits
+#: (``faulthandler``), which ends the run.
+RANK_STALL_S = 240.0
+TEARDOWN_STALL_S = 60.0
 #: The yaws (rad) of the four-card mode's served orbit views of the bench
 #: scene: 8 views, 2 a rank.
 SERVE_YAWS = (-0.2, -0.15, -0.1, -0.05, 0.0, 0.05, 0.1, 0.15)
@@ -3290,6 +3332,7 @@ def nccl_cards_worker(rank, out_dir, spec):
     its device and backend, times, checks, digests and the path's launches
     ((a)-(c), the targets' renders and the timings left out; (e)'s in
     ``grad_launches``)."""
+    import faulthandler
     import gc
 
     import torch.distributed as dist
@@ -3303,6 +3346,7 @@ def nccl_cards_worker(rank, out_dir, spec):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    began = time.perf_counter()
     dev = torch.device("cuda", torch.cuda.current_device())
     out_dir = pathlib.Path(out_dir)
     kernels = all_kernels()
@@ -3314,6 +3358,7 @@ def nccl_cards_worker(rank, out_dir, spec):
     launches = {k.entry: 0 for k in kernels}
 
     def part(name, what):
+        faulthandler.dump_traceback_later(RANK_STALL_S, exit=True)
         if rank == 0:
             print(json.dumps({"phase": "nccl_cards", "part": name, "what": what}), flush=True)
 
@@ -3446,8 +3491,10 @@ def nccl_cards_worker(rank, out_dir, spec):
     part("e", "under grad: the 4K frame through render_tile_sharded's graph pair, the 8 "
               "orbit views through render_data_parallel's, each against its eager form")
 
-    def progress(stage):
-        print(f"nccl_cards (e), rank {rank}: {stage}", file=sys.stderr, flush=True)
+    def progress(stage, stall_s=RANK_STALL_S):
+        faulthandler.dump_traceback_later(stall_s, exit=True)
+        print(f"nccl_cards (e), rank {rank}, {time.perf_counter() - began:.1f} s: {stage}",
+              file=sys.stderr, flush=True)
 
     progress("the miss decision")
     rec["grad_miss_decision"] = miss_decision(mesh, dev)
@@ -3486,10 +3533,13 @@ def nccl_cards_worker(rank, out_dir, spec):
                             for k in kernels}
     (out_dir / f"rank{rank}.json").write_text(json.dumps(rec))
     # Every rank frees what it captured and meets the others before the
-    # group's teardown.
+    # group's teardown (``testing._rank_main`` releases the entry points'
+    # graphs again before it destroys the group).
+    progress("the barrier")
     gc.collect()
     torch.cuda.synchronize()
     dist.barrier(device_ids=[rank])
+    progress("the teardown", TEARDOWN_STALL_S)
 
 
 def phase_nccl_cards(ctx):
@@ -3572,7 +3622,7 @@ def phase_nccl_cards(ctx):
         spawn_ranks(nccl_cards_worker, CARDS, str(tmp),
                     dict(bench_capacity=bench_capacity, step_capacity=step_capacity,
                          serve_capacity=serve_capacity),
-                    backend="nccl", timeout_s=180.0)
+                    backend="nccl", timeout_s=600.0)
         spawn_seconds = time.perf_counter() - start
         ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(CARDS)]
 
@@ -4163,6 +4213,7 @@ def nccl_grad_world1(ctx, targets) -> dict:
         make_mesh, render_data_parallel, render_tile_sharded, stack_cameras,
     )
     from gausplat_tpu_torch.parallel.render import _data_parallel_eager, _tile_sharded_eager
+    from gausplat_tpu_torch.render.views_graph import release_all
     from gausplat_tpu_torch.testing import free_port
 
     dev, scene, options, views = ctx["device"], ctx["scene"], ctx["options"], ctx["views"]
@@ -4187,6 +4238,7 @@ def nccl_grad_world1(ctx, targets) -> dict:
             lambda o: torch.mean(torch.abs(o.colors_rgb_2d - targets[0])), 1,
             out["miss_decision"]["kernel_launches"])
     finally:
+        release_all()  # the graphs that captured the group's collectives go first
         dist.destroy_process_group()
     for name in ("render_data_parallel", "render_tile_sharded"):
         del out[name]["replay_call"]

@@ -56,10 +56,10 @@ from ..render.pipeline import (
     RenderOutput,
     _capacity,
     _render_core,
-    _stack,
     _use_kernels,
     call_params,
     grad_graphed,
+    render_stacked,
     scene_params,
     serve_views,
 )
@@ -125,29 +125,20 @@ def render_views(
     return _views_eager(scene, cameras, image_width, image_height, options)
 
 
-def _views_local(params, ref, cameras, width, height, options):
-    """Every view of the stacked ``cameras`` rendered on this device, one
-    after another, each field stacked."""
-    device, p = params[0].device, params[0].shape[0]
-    capacity, use_kernels = _capacity(p, options), _use_kernels(options, device)
-    return _stack([_render_core(params, ref, camera_at(cameras, i), width, height, capacity,
-                                options, use_kernels)
-                   for i in range(camera_count(cameras))])
-
-
 def _views_eager(scene, cameras, width, height, options):
     """:func:`render_views` launched op by op, differentiable."""
     ref = torch.zeros((scene.point_count,), dtype=torch.float32, device=scene.device)
-    return _views_local(call_params(scene), ref, cameras, width, height, options)
+    return render_stacked(call_params(scene), ref, cameras, width, height, options)
 
 
 def _views_graphed(scene, cameras, width, height, options):
     """The differentiable :func:`render_views` through the graph pair of
     entry point ``"parallel.render_views"`` (on a CPU device every replay
-    eager)."""
+    eager): the body of ``render/pipeline.py``'s ``render_views`` pair,
+    from a stacked :class:`Camera` on the device."""
     return RenderOutput(*grad_graph("parallel.render_views", scene.device).run(
         scene, scene_params(scene), None, cameras, (width, height, options),
-        lambda params, ref, cams: _views_local(params, ref, cams, width, height, options),
+        lambda params, ref, cams: render_stacked(params, ref, cams, width, height, options),
         lambda: _views_eager(scene, cameras, width, height, options)))
 
 
@@ -222,13 +213,8 @@ def _data_parallel_local(params, ref, cameras, width, height, mesh, axis, option
     """This rank's share of the views rendered, then every rank's gathered."""
     d, index, group = mesh.shape[axis], mesh.coords[axis], mesh.groups[axis]
     local = camera_count(cameras) // d
-    device, p = params[0].device, params[0].shape[0]
-    capacity, use_kernels = _capacity(p, options), _use_kernels(options, device)
-    out = _stack([
-        _render_core(params, ref, camera_at(cameras, i), width, height, capacity, options,
-                     use_kernels)
-        for i in range(index * local, (index + 1) * local)
-    ])
+    out = render_stacked(params, ref, cameras, width, height, options,
+                         range(index * local, (index + 1) * local))
     return RenderOutput(
         colors_rgb_2d=gather(out.colors_rgb_2d, group),
         radii=all_gather(out.radii, group),

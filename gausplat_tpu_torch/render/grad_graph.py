@@ -82,7 +82,10 @@ there.
 **Memory.** One pair is kept per entry point and device
 (:func:`grad_graph`); it holds the scene's tensors, not the scene, and is
 released when the scene is collected. A pair left behind by a miss lives
-on while a pending call needs it. The saved state grows with the views:
+on while a pending call needs it. A pair that captured NCCL collectives
+must be freed before its process group is destroyed
+(``views_graph.release_all``): NCCL's communicator, when destroyed, waits
+for the graphs that hold its collectives. The saved state grows with the views:
 617 MB for one view of 1M points at 1920x1080, 3.08 GB for
 ``render_views`` of five, in pools of 1.94 and 4.98 GB (``chip_smoke.py``'s
 render_grad phase on an NVIDIA H100).
@@ -98,8 +101,8 @@ import numpy as np
 import torch
 
 from ..ops.projection import Camera
-from ..utils.step_graph import StepGraph
-from .views_graph import CAMERA_LAYOUT, release_with, stacked_camera
+from ..utils.step_graph import StepGraph, address_key, decide_miss
+from .views_graph import CAMERA_LAYOUT, EntryGraphs, entry_graphs, stacked_camera
 
 
 def _storage_bytes(t: torch.Tensor) -> torch.Tensor:
@@ -336,35 +339,25 @@ class GraphRenderFunction(torch.autograd.Function):
         return (None, None, *(next(grads) if n else None for n in pair.needs))
 
 
-class GradGraph:
+class GradGraph(EntryGraphs):
     """One entry point's captured pair on one device, with the counts over
     its pairs since it was made or released: ``captures``, ``replays`` (of
     each graph), ``by_replay`` (each kernel's launches by replay), ``moves``
     (a call's state moved out) and ``miss_ms``."""
 
     def __init__(self, device: torch.device):
-        self.device = device
-        self._finalizer = None
+        super().__init__(device)
         self.release()
 
     def release(self) -> None:
         """Drop the pair and the held tensors (the counts start again). A
         call still pending keeps its own pair until its backward."""
-        self.key, self.pair, self._held, self.constants = None, None, (), {}
+        super().release()
+        self.key, self.pair, self._held = None, None, ()
         self.captures, self.moves = 0, 0
         self.replays = {"forward": 0, "backward": 0}
         self.by_replay = {}
         self.miss_ms = {}
-        if self._finalizer is not None:
-            self._finalizer.detach()
-            self._finalizer = None
-
-    def constant(self, key, make: Callable[[], torch.Tensor]) -> torch.Tensor:
-        """A per-rank constant of the renders (a slab's screen shift), made
-        once and held while the pair's scene lives."""
-        if key not in self.constants:
-            self.constants[key] = make()
-        return self.constants[key]
 
     def note(self, which: str, graph: StepGraph) -> None:
         """Count one replay of ``which`` graph of a pair."""
@@ -392,14 +385,10 @@ class GradGraph:
             ref is not None and ref.requires_grad,)
         stacked = isinstance(cameras, Camera)
         views = cameras.focal_length.shape[0] if stacked else cameras.shape[0]
-        key = (static_key, stacked, views, needs,
-               tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in (*params, *constants)))
-        self._finalizer = release_with(scene, self._finalizer, self.release)
+        key = address_key((static_key, stacked, views, needs), (*params, *constants))
+        self.watch(scene)
         start = time.perf_counter()
-        missed = key != self.key
-        if any_miss is not None:
-            missed = any_miss(missed)
-        if missed:
+        if decide_miss(key, self.key, any_miss):
             self.key, self.pair, self._held = key, None, (*params, *constants)
             out = warm_up()
             self.miss_ms = {"warm_up_ms": (time.perf_counter() - start) * 1e3}
@@ -415,15 +404,8 @@ class GradGraph:
         return out
 
 
-#: The graph pair of each differentiable entry point on each device.
-_GRAPHS: dict = {}
-
-
 def grad_graph(name: str, device: torch.device) -> GradGraph:
     """The :class:`GradGraph` of entry point ``name`` on ``device``
     (``"render"``, ``"render_views"``, ``"parallel.render_views"``,
     ``"parallel.render_data_parallel"``, ``"parallel.render_tile_sharded"``)."""
-    key = (name, str(device))
-    if key not in _GRAPHS:
-        _GRAPHS[key] = GradGraph(device)
-    return _GRAPHS[key]
+    return entry_graphs(GradGraph, name, device)

@@ -530,17 +530,27 @@ def _render_views_graphed(scene: GaussianScene, views: Sequence[View],
     device = _scene_device(scene, device)
     views = list(views)
     width, height = views[0].image_width, views[0].image_height
-    point_count = _validate(scene, width, height, options)
-    capacity = _capacity(point_count, options)
-    use_kernels = _use_kernels(options, device)
-
-    def body(params, ref, cameras):
-        return _stack([_render_core(params, ref, camera_at(cameras, i), width, height, capacity,
-                                    options, use_kernels) for i in range(len(views))])
-
+    capacity = _capacity(_validate(scene, width, height, options), options)
     return RenderOutput(*grad_graph("render_views", device).run(
         scene, scene_params(scene), None, pack_cameras(views), (width, height, capacity, options),
-        body, lambda: _render_views_eager(scene, views, options, mode, device)))
+        lambda params, ref, cameras: render_stacked(params, ref, cameras, width, height,
+                                                    options),
+        lambda: _render_views_eager(scene, views, options, mode, device)))
+
+
+def render_stacked(params, ref: torch.Tensor, cameras: Camera, width: int, height: int,
+                   options: RenderOptions, indices: Optional[Sequence[int]] = None
+                   ) -> RenderOutput:
+    """Views ``indices`` (all by default) of the stacked ``cameras``
+    rendered from ``params`` on their device one after another, each field
+    stacked along a new leading axis: the body of the batched renders
+    under grad and of the data-parallel rank's share."""
+    device, point_count = params[0].device, params[0].shape[0]
+    capacity, use_kernels = _capacity(point_count, options), _use_kernels(options, device)
+    if indices is None:
+        indices = range(cameras.focal_length.shape[0])
+    return _stack([_render_core(params, ref, camera_at(cameras, i), width, height, capacity,
+                                options, use_kernels) for i in indices])
 
 
 def _stack(outs: Sequence[RenderOutput]) -> RenderOutput:

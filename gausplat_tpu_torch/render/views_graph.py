@@ -38,7 +38,9 @@ side stream (the warm-up), and the next call captures.
 (:func:`views_graph`): a server that renders several scenes in turn keeps
 one pool, and recaptures at each change of scene. The graph holds the
 scene's tensors, not the scene; when the scene is collected, a finalizer
-drops the graph, its pool, its buffers and the tensors it held.
+drops the graph, its pool, its buffers and the tensors it held. A graph
+that captured NCCL collectives must be freed before its process group is
+destroyed (:func:`release_all`).
 
 **When it runs eagerly** (the documented modes; on the card nothing else
 falls back to them, and an error in capture or replay raises): where grad
@@ -57,6 +59,7 @@ read their loop bounds back to the host.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import weakref
 from typing import Callable, Optional, Sequence
 
@@ -141,6 +144,61 @@ def release_with(scene, finalizer: Optional[weakref.finalize],
     return weakref.finalize(scene, release)
 
 
+class EntryGraphs:
+    """What an entry point's graphs on one device keep beside them, serving
+    (:class:`ViewsGraph`) or under grad (``grad_graph.GradGraph``): the
+    per-rank constants the renders read (a slab's screen shift), made once
+    and held while the scene lives, and the release when the scene is
+    collected."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.constants = {}
+        self._finalizer = None
+
+    def release(self) -> None:
+        """Drop the constants and stop watching the scene."""
+        self.constants = {}
+        if self._finalizer is not None:
+            self._finalizer.detach()
+            self._finalizer = None
+
+    def constant(self, key, make: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """The per-rank constant ``key``, made by ``make()`` on first use."""
+        if key not in self.constants:
+            self.constants[key] = make()
+        return self.constants[key]
+
+    def watch(self, scene) -> None:
+        """Release these graphs when ``scene``, the one a call renders, is
+        collected."""
+        self._finalizer = release_with(scene, self._finalizer, self.release)
+
+
+#: The graphs of each kind, entry point and device.
+_ENTRIES: dict = {}
+
+
+def entry_graphs(kind: type, name: str, device: torch.device) -> EntryGraphs:
+    """The ``kind`` graphs of entry point ``name`` on ``device``, made on
+    first use."""
+    key = (kind, name, str(device))
+    if key not in _ENTRIES:
+        _ENTRIES[key] = kind(device)
+    return _ENTRIES[key]
+
+
+def release_all() -> None:
+    """Release every entry point's graphs, of both kinds, on every device,
+    and collect what they left. Call it before destroying a process group
+    whose NCCL collectives a graph captured: NCCL's communicator, when
+    destroyed, waits for every graph that holds its collectives to be
+    freed."""
+    for graphs in _ENTRIES.values():
+        graphs.release()
+    gc.collect()
+
+
 def output_specs(views: Optional[int], width: int, height: int, points: int) -> tuple:
     """The ``(shape, dtype)`` of each :class:`RenderOutput` field, with a
     leading axis of ``views`` (none where ``views`` is None)."""
@@ -150,38 +208,27 @@ def output_specs(views: Optional[int], width: int, height: int, points: int) -> 
             (lead + (height, width), torch.int32))
 
 
-class ViewsGraph:
+class ViewsGraph(EntryGraphs):
     """One entry point's captured batched render on one device, with its
     static inputs and outputs. ``graph`` is its
     :class:`~gausplat_tpu_torch.utils.step_graph.StepGraph` (``captures``,
     ``replays``)."""
 
     def __init__(self, device: torch.device):
-        self.device = device
+        super().__init__(device)
         self.graph = StepGraph()
         self.rows = None  # [V, 21] f32: the packed cameras
         self.outputs = ()  # the static outputs, one per RenderOutput field
         self.ref = None  # [P] f32 zeros: the render's densification ref
-        self.constants = {}
         self._streams = []
-        self._finalizer = None
 
     def release(self) -> None:
         """Drop the graph, its pool, the static buffers and the held tensors
         (the counts of captures and replays start again)."""
+        super().release()
         self.graph.invalidate()
         self.graph = StepGraph()
-        self.rows, self.outputs, self.ref, self.constants = None, (), None, {}
-        if self._finalizer is not None:
-            self._finalizer.detach()
-            self._finalizer = None
-
-    def constant(self, key, make: Callable[[], torch.Tensor]) -> torch.Tensor:
-        """A per-rank constant of the step (a slab's screen shift), made once
-        and held while the graph's scene lives."""
-        if key not in self.constants:
-            self.constants[key] = make()
-        return self.constants[key]
+        self.rows, self.outputs, self.ref = None, (), None
 
     def each_view(self, count: int, fn: Callable[[int], None], concurrent: bool) -> None:
         """``fn(i)`` for each view ``i``: one after another on the current
@@ -225,7 +272,7 @@ class ViewsGraph:
         ``cameras``, ``ref`` and ``constants`` and writes every one of the
         static ``outputs`` (``specs``: their shapes and dtypes). Returns
         fresh copies of the outputs."""
-        self._finalizer = release_with(scene, self._finalizer, self.release)
+        self.watch(scene)
         self._static(rows, specs, params[0].shape[0])
         if isinstance(rows, np.ndarray):
             rows = torch.from_numpy(rows)
@@ -237,13 +284,6 @@ class ViewsGraph:
         return tuple(t.clone() for t in outputs)
 
 
-#: The cached graph of each entry point on each device.
-_GRAPHS: dict = {}
-
-
 def views_graph(name: str, device: torch.device) -> ViewsGraph:
     """The :class:`ViewsGraph` of entry point ``name`` on ``device``."""
-    key = (name, str(device))
-    if key not in _GRAPHS:
-        _GRAPHS[key] = ViewsGraph(device)
-    return _GRAPHS[key]
+    return entry_graphs(ViewsGraph, name, device)

@@ -264,6 +264,13 @@ def _rank_main(rank, world_size, port, backend, timeout_s, worker, args):
         traceback.print_exc()
         raise
     finally:
+        # NCCL's communicator, when destroyed, waits for every graph that
+        # captured its collectives: the entry points' graphs go first.
+        from .render.views_graph import release_all
+
+        if backend == "nccl":
+            torch.cuda.synchronize()
+        release_all()
         dist.destroy_process_group()
 
 

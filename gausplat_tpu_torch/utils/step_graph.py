@@ -45,6 +45,20 @@ import torch
 from .kernels import captured_launches, count_replay
 
 
+def address_key(static_key, tensors: Sequence[torch.Tensor]) -> tuple:
+    """A graph's key: ``static_key`` and the address, shape and type of
+    each of ``tensors``, which a replay reads and writes."""
+    return (static_key, tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors))
+
+
+def decide_miss(key, held, any_miss: Optional[Callable[[bool], bool]] = None) -> bool:
+    """Whether ``key`` misses the ``held`` one: this process's answer, or,
+    with ``any_miss``, that of every process that captures together (true
+    where any of them missed)."""
+    missed = key != held
+    return missed if any_miss is None else any_miss(missed)
+
+
 class StepGraph:
     """A step function captured as one CUDA graph, replayed while its key
     holds. ``captures`` counts the captures made, ``replays`` the replays,
@@ -82,12 +96,8 @@ class StepGraph:
             for _ in range(steps):
                 step()
             return
-        # What a graph replays: each tensor's address, shape and type.
-        key = (static_key, tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors))
-        missed = key != self.key
-        if any_miss is not None:
-            missed = any_miss(missed)
-        if missed:
+        key = address_key(static_key, tensors)
+        if decide_miss(key, self.key, any_miss):
             self.invalidate()
             self.warm_up(step, device)
             self.key, self._held = key, tuple(tensors)
