@@ -1179,6 +1179,7 @@ def serving_graph(ctx, outs) -> dict:
     out = dict(launches={k.entry: 0 for k in kernels}, by_replay={k.entry: 0 for k in kernels})
     for mode in ("vmap", "map"):
         graph.release()
+        since = counts_since(graph)
         reserved = [settle()]
         for kernel in kernels:
             kernel.launches = 0
@@ -1191,8 +1192,8 @@ def serving_graph(ctx, outs) -> dict:
             reserved.append(settle())
         for kernel in kernels:
             out["launches"][kernel.entry] += kernel.launches
-            out["by_replay"][kernel.entry] += graph.graph.replays * graph.graph.launches[kernel]
-        counts = (graph.graph.captures, graph.graph.replays)
+            out["by_replay"][kernel.entry] += since()[1] * graph.graph.launches[kernel]
+        counts = since()
         check(counts == (1, 2), f"render_views ({mode}): captures and replays {counts}")
         out[mode] = dict(bit_for_bit=True, captures=counts[0], replays=counts[1],
                          static_bytes=nbytes(graph.rows, graph.ref, *graph.outputs),
@@ -1285,6 +1286,13 @@ def timed_calls(runs, graph_names, reps: int = REPS) -> dict:
     return timing
 
 
+def counts_since(graph):
+    """A function that gives ``graph``'s (a ViewsGraph) captures and replays
+    since this call (its counts go on over a release)."""
+    step, before = graph.graph, (graph.graph.captures, graph.graph.replays)
+    return lambda: (step.captures - before[0], step.replays - before[1])
+
+
 def miss_cost(graph, call, eager_call) -> dict:
     """The cost of a graph's miss: host wall ms (device drained around
     each) of the warm-up call and of the capture call after ``graph`` (a
@@ -1292,12 +1300,11 @@ def miss_cost(graph, call, eager_call) -> dict:
     (medians of 3)."""
     eager_ms = statistics.median(host_wall_ms(eager_call) for _ in range(3))
     graph.release()
+    since = counts_since(graph)
     warm_up_ms = host_wall_ms(call)
     capture_ms = host_wall_ms(call)
     replay_ms = statistics.median(host_wall_ms(call) for _ in range(3))
-    check((graph.graph.captures, graph.graph.replays) == (1, 4),
-          f"the miss cost's calls: captures and replays "
-          f"{(graph.graph.captures, graph.graph.replays)}")
+    check(since() == (1, 4), f"the miss cost's calls: captures and replays {since()}")
     return dict(eager_call_ms=eager_ms, warm_up_ms=warm_up_ms, capture_ms=capture_ms,
                 replay_call_ms=replay_ms)
 
@@ -1322,6 +1329,7 @@ def entry_graphs(ctx) -> dict:
     view = views[0]
     out = {}
     graph = views_graph("render", dev)
+    since = counts_since(graph)
     out["render_miss"] = miss_cost(graph, lambda: T.render(scene, view, options),
                                    lambda: _render_eager(scene, view, options))
     cycle = itertools.cycle(views)
@@ -1330,17 +1338,18 @@ def entry_graphs(ctx) -> dict:
          "graph": lambda: T.render(scene, view, options),
          "graph_new_view": lambda: T.render(scene, next(cycle), options)},
         ("graph", "graph_new_view"))
-    check(graph.graph.captures == 1, f"a change of view recaptured: {graph.graph.captures}")
-    out["render_graph"] = dict(captures=graph.graph.captures, replays=graph.graph.replays)
+    captures, replays = since()
+    check(captures == 1, f"a change of view recaptured: {captures}")
+    out["render_graph"] = dict(captures=captures, replays=replays)
 
     graph = views_graph("count_tile_entries", dev)
     graph.release()
+    since = counts_since(graph)
     counts = [T.count_tile_entries(scene, v, options) for v in views]
     eager = [_count_tile_entries_eager(scene, v, options) for v in views]
     check(counts == eager, f"count_tile_entries through its graph {counts}, eager {eager}")
-    check((graph.graph.captures, graph.graph.replays) == (1, len(views) - 1),
-          f"count_tile_entries: captures and replays "
-          f"{(graph.graph.captures, graph.graph.replays)}")
+    check(since() == (1, len(views) - 1),
+          f"count_tile_entries: captures and replays {since()}")
     out["count_tile_entries"] = dict(counts=counts, eager_counts=eager, bit_for_bit=True)
     out["count_miss"] = miss_cost(graph, lambda: T.count_tile_entries(scene, view, options),
                                   lambda: _count_tile_entries_eager(scene, view, options))
@@ -1366,6 +1375,7 @@ def phase_main_path(ctx):
     kernels = (EXPAND, RASTERIZE_FORWARD)
     graph = views_graph("render", ctx["device"])
     graph.release()
+    since, by_replay = counts_since(graph), dict(graph.graph.by_replay)
 
     # The main path: render through its graph (the warm-up, the capture,
     # then a replay for each new view), then render_views.
@@ -1382,9 +1392,9 @@ def phase_main_path(ctx):
     check(all(n > 0 for n in launches.values()), f"a kernel of the path never ran: {launches}")
     check(all(n == len(views) for n in render_launches.values()),
           f"render through its graph: A and B launched {render_launches}, not once a view")
-    render_graph = dict(captures=graph.graph.captures, replays=graph.graph.replays,
-                        launches=render_launches,
-                        by_replay={k.entry: graph.graph.by_replay.get(k, 0) for k in kernels})
+    render_graph = dict(captures=since()[0], replays=since()[1], launches=render_launches,
+                        by_replay={k.entry: graph.graph.by_replay.get(k, 0) - by_replay.get(k, 0)
+                                   for k in kernels})
     check((render_graph["captures"], render_graph["replays"]) == (1, len(views) - 1),
           f"render through its graph: {render_graph}")
     eager_outs = [_render_eager(scene, view, options) for view in views]
@@ -2390,6 +2400,7 @@ def graph_against_eager(name, graph_call, eager_call, reps: int = REPS) -> dict:
     kernels = all_kernels()
     graph = views_graph(name, torch.device("cuda", torch.cuda.current_device()))
     graph.release()
+    since = counts_since(graph)
     with torch.no_grad():
         want = eager_call()
         for kernel in kernels:
@@ -2400,7 +2411,7 @@ def graph_against_eager(name, graph_call, eager_call, reps: int = REPS) -> dict:
             same.append({f: bool(torch.equal(a, b)) for f, a, b in zip(got._fields, got, want)})
         torch.cuda.synchronize()
         launches = {k.entry: k.launches for k in kernels}
-        counts = (graph.graph.captures, graph.graph.replays)
+        counts = since()
         check(all(all(x.values()) for x in same),
               f"{name} through its graph differs from the eager call: {same}")
         check(counts == (1, 2), f"{name}: captures and replays {counts}")

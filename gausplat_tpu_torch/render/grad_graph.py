@@ -101,6 +101,7 @@ import numpy as np
 import torch
 
 from ..ops.projection import Camera
+from ..utils.profiling import stage
 from ..utils.step_graph import StepGraph, address_key, decide_miss
 from .views_graph import CAMERA_LAYOUT, EntryGraphs, entry_graphs, stacked_camera
 
@@ -202,13 +203,14 @@ class _Pair:
 
     def _copy_in(self, cameras) -> None:
         """A call's cameras into the static ones."""
-        if isinstance(cameras, Camera):
-            for dst, src in zip(self.inputs, _camera_fields(cameras)):
-                dst.copy_(src, non_blocking=True)
-        else:
-            if isinstance(cameras, np.ndarray):
-                cameras = torch.from_numpy(cameras)
-            self.inputs[0].copy_(cameras, non_blocking=True)
+        with stage("grad_graph.copy_in"):
+            if isinstance(cameras, Camera):
+                for dst, src in zip(self.inputs, _camera_fields(cameras)):
+                    dst.copy_(src, non_blocking=True)
+            else:
+                if isinstance(cameras, np.ndarray):
+                    cameras = torch.from_numpy(cameras)
+                self.inputs[0].copy_(cameras, non_blocking=True)
 
     def capture(self, cameras) -> None:
         """Make the static tensors and, on the card, capture both graphs
@@ -320,7 +322,8 @@ class GraphRenderFunction(torch.autograd.Function):
         call.node = weakref.ref(ctx)
         ctx.save_for_backward(*inputs[:5])
         ctx.set_materialize_grads(False)  # no zeros made for the other outputs
-        outs = tuple(t.clone() for t in pair.outputs)
+        with stage("grad_graph.copy_out"):
+            outs = tuple(t.clone() for t in pair.outputs)
         ctx.mark_non_differentiable(*outs[1:])
         return outs
 
@@ -330,12 +333,14 @@ class GraphRenderFunction(torch.autograd.Function):
         ctx.saved_tensors  # raises where a parameter changed in place since the forward
         pair = ctx.call.pair
         pair.restore(ctx.call)
-        if grad_image is None:
-            pair.cot.zero_()
-        else:
-            pair.cot.copy_(grad_image)
+        with stage("grad_graph.copy_in"):
+            if grad_image is None:
+                pair.cot.zero_()
+            else:
+                pair.cot.copy_(grad_image)
         pair.replay_backward()
-        grads = iter(g.clone() for g in pair.grads)
+        with stage("grad_graph.copy_out"):
+            grads = iter([g.clone() for g in pair.grads])
         return (None, None, *(next(grads) if n else None for n in pair.needs))
 
 

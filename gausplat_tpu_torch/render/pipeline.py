@@ -62,6 +62,7 @@ from ..ops.rasterize import (
     untile_map,
 )
 from ..scene.gaussian_3d import PARAM_DIMS, GaussianScene
+from ..utils.profiling import stage
 from .view import View
 from .grad_graph import grad_graph
 from .views_graph import (
@@ -267,24 +268,27 @@ class RasterizeFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_image, grad_trans, grad_counts):
-        (point_rows, ids, ranges, offsets, total, half,
-         image_tiles, count_tiles) = ctx.saved_tensors
-        frame = ctx.frame
-        grad_tiles = tile_image(grad_image, frame.tile_count_x, frame.tile_count_y)
-        gdotc_tiles = torch.sum(grad_tiles * image_tiles, dim=1)
-        raster = rasterize_backward if frame.use_kernels else rasterize_backward_torch
-        entry_grads = raster(
-            point_rows, ids, ranges, grad_tiles, gdotc_tiles, count_tiles,
-            tile_count_x=frame.tile_count_x, block_size=frame.block_size,
-        )
-        d = reduce_entry_grads(entry_grads, ids, offsets, total, frame.capacity)
-        d_rows = torch.nn.functional.pad(d, (0, 1)) if ctx.needs_input_grad[0] else None
-        grad_norm = None
-        if ctx.needs_input_grad[1]:
-            *_, gx, gy = grad_rows_to_components(d)
-            if frame.sum_over_tiles is not None:
-                gx, gy = frame.sum_over_tiles(torch.stack([gx, gy]))
-            grad_norm = torch.sqrt((gx * half[0]) ** 2 + (gy * half[1]) ** 2)
+        with stage("render.rasterize_vjp"):
+            (point_rows, ids, ranges, offsets, total, half,
+             image_tiles, count_tiles) = ctx.saved_tensors
+            frame = ctx.frame
+            with stage("render.rasterize_bwd"):
+                grad_tiles = tile_image(grad_image, frame.tile_count_x, frame.tile_count_y)
+                gdotc_tiles = torch.sum(grad_tiles * image_tiles, dim=1)
+                raster = rasterize_backward if frame.use_kernels else rasterize_backward_torch
+                entry_grads = raster(
+                    point_rows, ids, ranges, grad_tiles, gdotc_tiles, count_tiles,
+                    tile_count_x=frame.tile_count_x, block_size=frame.block_size,
+                )
+            with stage("render.reduce"):
+                d = reduce_entry_grads(entry_grads, ids, offsets, total, frame.capacity)
+                d_rows = torch.nn.functional.pad(d, (0, 1)) if ctx.needs_input_grad[0] else None
+                grad_norm = None
+                if ctx.needs_input_grad[1]:
+                    *_, gx, gy = grad_rows_to_components(d)
+                    if frame.sum_over_tiles is not None:
+                        gx, gy = frame.sum_over_tiles(torch.stack([gx, gy]))
+                    grad_norm = torch.sqrt((gx * half[0]) ** 2 + (gy * half[1]) ** 2)
         return d_rows, grad_norm, None, None, None
 
 
@@ -311,41 +315,48 @@ def _render_core(
     ``[2]`` f32 tensor on the device (which a captured step needs: it
     copies nothing from the host). ``sum_over_tiles``:
     see :class:`_Frame`.
+
+    Its stages: ``render.project`` (the projection, SH and the per-point
+    rows), ``render.bin`` and ``render.rasterize`` (A and the untiling);
+    :class:`RasterizeFunction`'s backward adds ``render.rasterize_vjp``.
     """
     colors_sh, opacities, positions, rotations, scalings = params
     tile_count_x = -(-width // TILE_SIZE_X)
     tile_count_y = -(-height // TILE_SIZE_Y)
-    proj = project_gaussians(
-        colors_sh,
-        positions,
-        rotations,
-        scalings,
-        camera,
-        sh_degree=options.colors_sh_degree_max,
-        tile_count_x=tile_count_x,
-        tile_count_y=tile_count_y,
-        opacities=opacities,
-        tight_culling=options.tight_culling,
-    )
-    binning = bin_gaussians(
-        proj.depths.detach(),
-        proj.tile_x_max,
-        proj.tile_x_min,
-        proj.tile_y_min,
-        proj.tile_counts,
-        tile_count_x=tile_count_x,
-        tile_count_y=tile_count_y,
-        capacity=capacity,
-        expand=fused_point_orders if use_kernels else make_point_orders,
-    )
-    point_rows = pack_point_data(proj, torch.sigmoid(opacities[:, 0]))
+    with stage("render.project"):
+        proj = project_gaussians(
+            colors_sh,
+            positions,
+            rotations,
+            scalings,
+            camera,
+            sh_degree=options.colors_sh_degree_max,
+            tile_count_x=tile_count_x,
+            tile_count_y=tile_count_y,
+            opacities=opacities,
+            tight_culling=options.tight_culling,
+        )
+        point_rows = pack_point_data(proj, torch.sigmoid(opacities[:, 0]))
+    with stage("render.bin"):
+        binning = bin_gaussians(
+            proj.depths.detach(),
+            proj.tile_x_max,
+            proj.tile_x_min,
+            proj.tile_y_min,
+            proj.tile_counts,
+            tile_count_x=tile_count_x,
+            tile_count_y=tile_count_y,
+            capacity=capacity,
+            expand=fused_point_orders if use_kernels else make_point_orders,
+        )
     half = camera.image_size_half if grad_norm_half is None else torch.as_tensor(
         grad_norm_half, dtype=torch.float32, device=positions.device)
     frame = _Frame(tile_count_x, tile_count_y, width, height, capacity, options.block_size,
                    use_kernels, options.entry_dtype == "bf16", sum_over_tiles)
-    image, trans, counts = RasterizeFunction.apply(
-        point_rows, positions_2d_grad_norm_ref, binning, half, frame
-    )
+    with stage("render.rasterize"):
+        image, trans, counts = RasterizeFunction.apply(
+            point_rows, positions_2d_grad_norm_ref, binning, half, frame
+        )
     return RenderOutput(
         colors_rgb_2d=image,
         radii=proj.radii,

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from ..ops.projection import Camera
+from ..utils.profiling import stage
 from ..utils.step_graph import StepGraph
 
 #: Each packed camera field: its name, first column and shape.
@@ -212,7 +213,10 @@ class ViewsGraph(EntryGraphs):
     """One entry point's captured batched render on one device, with its
     static inputs and outputs. ``graph`` is its
     :class:`~gausplat_tpu_torch.utils.step_graph.StepGraph` (``captures``,
-    ``replays``)."""
+    ``replays`` and its other counts, kept over releases; ``spans()``: the
+    stages of the last call, ``serve.request`` around each view's
+    ``render.project``, ``render.bin`` and ``render.rasterize`` on the
+    view's stream)."""
 
     def __init__(self, device: torch.device):
         super().__init__(device)
@@ -223,11 +227,10 @@ class ViewsGraph(EntryGraphs):
         self._streams = []
 
     def release(self) -> None:
-        """Drop the graph, its pool, the static buffers and the held tensors
-        (the counts of captures and replays start again)."""
+        """Drop the graph, its pool, the static buffers and the held tensors;
+        the graph's counts go on."""
         super().release()
         self.graph.invalidate()
-        self.graph = StepGraph()
         self.rows, self.outputs, self.ref = None, (), None
 
     def each_view(self, count: int, fn: Callable[[int], None], concurrent: bool) -> None:
@@ -276,12 +279,18 @@ class ViewsGraph(EntryGraphs):
         self._static(rows, specs, params[0].shape[0])
         if isinstance(rows, np.ndarray):
             rows = torch.from_numpy(rows)
-        self.rows.copy_(rows, non_blocking=True)
+        with stage("views_graph.copy_in"):
+            self.rows.copy_(rows, non_blocking=True)
         cameras, outputs, ref = stacked_camera(self.rows), self.outputs, self.ref
         tensors = [*params, self.rows, *outputs, ref, *constants]
-        self.graph.run(lambda: body(cameras, outputs, ref), static_key, tensors, 1,
-                       any_miss=any_miss)
-        return tuple(t.clone() for t in outputs)
+
+        def request():
+            with stage("serve.request"):
+                body(cameras, outputs, ref)
+
+        self.graph.run(request, static_key, tensors, 1, any_miss=any_miss)
+        with stage("views_graph.copy_out"):
+            return tuple(t.clone() for t in outputs)
 
 
 def views_graph(name: str, device: torch.device) -> ViewsGraph:

@@ -56,6 +56,7 @@ from .densify import (
 )
 from .losses import photometric_loss, psnr
 from .optimizer import FIELDS, OptimizerConfig, make_optimizer, seed_count
+from ..utils.profiling import stage
 from ..utils.step_graph import StepGraph
 
 
@@ -166,15 +167,17 @@ class Trainer:
     def _apply_gradients(self, loss: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
         """Adam step from ``loss``; returns the ref's gradient (grad norms)."""
         params = [getattr(self.scene, f) for f in FIELDS]
-        *grads, grad_norm = torch.autograd.grad(
-            loss, params + [ref], allow_unused=True, materialize_grads=True
-        )
-        updates, self._opt_state = self._optimizer.update(
-            dict(zip(FIELDS, grads)), self._opt_state
-        )
-        with torch.no_grad():
-            for f, p in zip(FIELDS, params):
-                p.add_(updates[f])
+        with stage("train.backward"):
+            *grads, grad_norm = torch.autograd.grad(
+                loss, params + [ref], allow_unused=True, materialize_grads=True
+            )
+        with stage("train.adam"):
+            updates, self._opt_state = self._optimizer.update(
+                dict(zip(FIELDS, grads)), self._opt_state
+            )
+            with torch.no_grad():
+                for f, p in zip(FIELDS, params):
+                    p.add_(updates[f])
         return grad_norm
 
     def _target(self, target) -> torch.Tensor:
@@ -184,22 +187,31 @@ class Trainer:
         """One optimisation step of a ``width`` x ``height`` render from
         ``camera`` against ``target`` (both on the device), written in place
         into the scene, the optimizer state, the densify accumulators and
-        the watermark. Returns the step's metrics as 0-d device tensors."""
-        options = self._options()
-        point_count = _validate(self.scene, width, height, options)
-        ref = self._ref()
-        out = _render_core(scene_params(self.scene), ref, camera, width, height,
-                           _capacity(point_count, options), options,
-                           _use_kernels(options, self.device))
-        loss = photometric_loss(out.colors_rgb_2d, target, self.config.ssim_weight)
-        grad_norm = self._apply_gradients(loss, ref)
-        DensifyState(**self._densify_acc).accumulate(grad_norm, out.radii)
-        torch.maximum(self._entry_watermark, out.tile_point_total, out=self._entry_watermark)
-        return {
-            "loss": loss.detach(),
-            "psnr": psnr(out.colors_rgb_2d.detach(), target),
-            "tile_point_total": out.tile_point_total,
-        }
+        the watermark. Returns the step's metrics as 0-d device tensors.
+
+        Its stages: ``train.step`` around ``render.project``,
+        ``render.bin``, ``render.rasterize``, ``train.loss``,
+        ``train.backward`` (the loss's VJP, ``render.rasterize_vjp``, then
+        the projection's VJP) and ``train.adam``; the rest of the step is
+        the densify accumulators, the watermark and the metrics."""
+        with stage("train.step"):
+            options = self._options()
+            point_count = _validate(self.scene, width, height, options)
+            ref = self._ref()
+            out = _render_core(scene_params(self.scene), ref, camera, width, height,
+                               _capacity(point_count, options), options,
+                               _use_kernels(options, self.device))
+            with stage("train.loss"):
+                loss = photometric_loss(out.colors_rgb_2d, target, self.config.ssim_weight)
+            grad_norm = self._apply_gradients(loss, ref)
+            DensifyState(**self._densify_acc).accumulate(grad_norm, out.radii)
+            torch.maximum(self._entry_watermark, out.tile_point_total,
+                          out=self._entry_watermark)
+            return {
+                "loss": loss.detach(),
+                "psnr": psnr(out.colors_rgb_2d.detach(), target),
+                "tile_point_total": out.tile_point_total,
+            }
 
     def _step_info(self) -> dict:
         """Host facts added to each step's metrics, taken before the step
@@ -279,34 +291,38 @@ class Trainer:
     def _batch_body(self, cameras, targets, width: int, height: int) -> dict:
         """One step from the mean loss over the views of ``cameras``
         against ``targets`` (on the device), written in place; returns the
-        metrics as 0-d device tensors."""
-        options = self._options()
-        point_count = _validate(self.scene, width, height, options)
-        capacity, use_kernels = _capacity(point_count, options), _use_kernels(options, self.device)
-        params = scene_params(self.scene)
-        ref = self._ref()
-        outs = [_render_core(params, ref, camera, width, height, capacity, options, use_kernels)
-                for camera in cameras]
-        losses = [
-            photometric_loss(o.colors_rgb_2d, t, self.config.ssim_weight)
-            for o, t in zip(outs, targets)
-        ]
-        loss = torch.mean(torch.stack(losses))
-        grad_norm = self._apply_gradients(loss, ref)
-        n = len(cameras)
-        radii = torch.stack([o.radii for o in outs])
-        acc = self._densify_acc
-        # The shared ref's gradient sums the per-view norms of the mean
-        # loss's gradients; times V it equals V single-view steps.
-        acc["grad_norm_sum"].add_(grad_norm * n)
-        acc["visible_count"].add_((radii > 0).sum(0, dtype=torch.int32))
-        torch.maximum(acc["max_radii"], radii.amax(0), out=acc["max_radii"])
-        return {
-            "loss": loss.detach(),
-            "psnr": psnr(torch.stack([o.colors_rgb_2d.detach() for o in outs]),
-                         torch.stack(targets)),
-            "tile_point_total": torch.stack([o.tile_point_total for o in outs]).amax(),
-        }
+        metrics as 0-d device tensors. Its stages are :meth:`_step`'s, the
+        render's once a view."""
+        with stage("train.step"):
+            options = self._options()
+            point_count = _validate(self.scene, width, height, options)
+            capacity = _capacity(point_count, options)
+            use_kernels = _use_kernels(options, self.device)
+            params = scene_params(self.scene)
+            ref = self._ref()
+            outs = [_render_core(params, ref, camera, width, height, capacity, options,
+                                 use_kernels) for camera in cameras]
+            with stage("train.loss"):
+                losses = [
+                    photometric_loss(o.colors_rgb_2d, t, self.config.ssim_weight)
+                    for o, t in zip(outs, targets)
+                ]
+                loss = torch.mean(torch.stack(losses))
+            grad_norm = self._apply_gradients(loss, ref)
+            n = len(cameras)
+            radii = torch.stack([o.radii for o in outs])
+            acc = self._densify_acc
+            # The shared ref's gradient sums the per-view norms of the mean
+            # loss's gradients; times V it equals V single-view steps.
+            acc["grad_norm_sum"].add_(grad_norm * n)
+            acc["visible_count"].add_((radii > 0).sum(0, dtype=torch.int32))
+            torch.maximum(acc["max_radii"], radii.amax(0), out=acc["max_radii"])
+            return {
+                "loss": loss.detach(),
+                "psnr": psnr(torch.stack([o.colors_rgb_2d.detach() for o in outs]),
+                             torch.stack(targets)),
+                "tile_point_total": torch.stack([o.tile_point_total for o in outs]).amax(),
+            }
 
     def fit(self, views, targets, iterations: Optional[int] = None) -> list:
         """Round-robin fit over (views, targets). Returns the metric
@@ -325,11 +341,12 @@ class Trainer:
             # By the global step, so a resumed trainer replays the sequence.
             j = self.step_count % n
             history.append(train_step(views[j], targets[j]))
-        return [
-            {k: (float(v) if isinstance(v, torch.Tensor) and v.dim() == 0 else v)
-             for k, v in h.items()}
-            for h in history
-        ]
+        with stage("trainer.readback"):
+            return [
+                {k: (float(v) if isinstance(v, torch.Tensor) and v.dim() == 0 else v)
+                 for k, v in h.items()}
+                for h in history
+            ]
 
     def fit_scan(self, views, targets, iterations: Optional[int] = None,
                  max_chunk: int = 200) -> list:
@@ -420,30 +437,31 @@ class Trainer:
         """Host interventions after the step at ``step_count``: densify,
         opacity reset, and the overflow watch at its cadence. Returns the
         densify stats when a densify ran."""
-        c = self.config
-        stats = {}
-        check_overflow = self.step_count % c.overflow_check_interval == 0
-        watermark_scale = 1.0
-        if c.densify_from <= self.step_count < c.densify_until:
-            if self.step_count % c.densify_interval == 0:
-                old_count = self.scene.point_count
-                state = DensifyState(**self._densify_acc)
-                self.scene, _, stats = densify_and_prune(self.scene, state, c.densify)
-                self._densify_acc = zero_densify_acc(self.scene.point_count, self.device)
-                # The entry load changes with the points: check now, with
-                # the watermark scaled by the growth.
-                check_overflow = True
-                watermark_scale = self.scene.point_count / max(old_count, 1)
-            if self.step_count % c.opacity_reset_interval == 0:
-                self.scene = reset_opacity(self.scene, c.densify)
-        if check_overflow:
-            total = int(int(self._entry_watermark) * watermark_scale)
-            if total > c.capacity_grow_at * self._entry_capacity:
-                b = c.render.block_size
-                new_cap = int(total * c.capacity_grow_factor)
-                self._entry_capacity = max((new_cap + b - 1) // b * b, self._entry_capacity)
-            self._entry_watermark.zero_()
-        return stats
+        with stage("trainer.host_events"):
+            c = self.config
+            stats = {}
+            check_overflow = self.step_count % c.overflow_check_interval == 0
+            watermark_scale = 1.0
+            if c.densify_from <= self.step_count < c.densify_until:
+                if self.step_count % c.densify_interval == 0:
+                    old_count = self.scene.point_count
+                    state = DensifyState(**self._densify_acc)
+                    self.scene, _, stats = densify_and_prune(self.scene, state, c.densify)
+                    self._densify_acc = zero_densify_acc(self.scene.point_count, self.device)
+                    # The entry load changes with the points: check now, with
+                    # the watermark scaled by the growth.
+                    check_overflow = True
+                    watermark_scale = self.scene.point_count / max(old_count, 1)
+                if self.step_count % c.opacity_reset_interval == 0:
+                    self.scene = reset_opacity(self.scene, c.densify)
+            if check_overflow:
+                total = int(int(self._entry_watermark) * watermark_scale)
+                if total > c.capacity_grow_at * self._entry_capacity:
+                    b = c.render.block_size
+                    new_cap = int(total * c.capacity_grow_factor)
+                    self._entry_capacity = max((new_cap + b - 1) // b * b, self._entry_capacity)
+                self._entry_watermark.zero_()
+            return stats
 
 
 #: The fields of a stacked camera that fit_scan picks from.

@@ -1,58 +1,161 @@
-"""Tracing / profiling helpers.
+"""Stages: the program's named spans, seen by ``torch.profiler`` on the host
+and timed on the device, inside captured CUDA graphs too.
 
-Counterpart of ``gausplat_tpu/utils/profiling.py``, in PyTorch's idiom:
-
-- :func:`stage`: a named scope, a ``torch.profiler.record_function`` (seen
-  by :func:`trace` and any ``torch.profiler`` run) plus an NVTX range where
-  the process has a CUDA device (seen by Nsight);
+- :func:`stage`: a named scope. Where a ``torch.profiler`` run is active
+  (or ``torch.autograd.profiler.emit_nvtx``, which makes it an NVTX
+  range), it is a record function of the host; otherwise the host part is
+  one flag check. The record is an operator's (``_RecordFunctionFast``),
+  not a user annotation (``record_function``): the profiler draws a user
+  annotation on the device's timeline too, over the kernels launched in
+  it, so a span around a replay would read as one device operation as
+  long as the replay. An operator's record stays on the host, and the
+  kernels keep the caller's annotations. Where stage timing is on (:func:`stage_timing`) and a
+  :class:`Collector` is installed (:func:`collecting`), it is also a span
+  of that collector: a timed CUDA event recorded on the current stream at
+  entry and at exit. The events are ``external``, so under stream capture
+  each record is an event-record node of the graph, and every replay
+  stamps the span again on the device with no host work. On a CPU device
+  the collector takes ``time.perf_counter`` stamps instead.
+- :func:`stage_timing`: turns stage timing on (or off) for a block. With
+  it off, :func:`stage` records no event and a captured graph holds no
+  extra node. The switch is part of every graph's key
+  (``utils.step_graph.address_key``), so turning it on or off misses once
+  and recaptures.
 - :func:`trace`: profile a block with ``torch.profiler`` (CPU, and CUDA
-  where there is a device) and write a Chrome trace into a directory
-  (open it in Perfetto, ``chrome://tracing`` or TensorBoard);
-- :data:`logger` hierarchy matching the reference's log targets
-  (``gausplat::renderer::gaussian_3d::{scene,forward,backward}``);
-- :func:`log_stage`: debug logging gated on the ``GAUSPLAT_DEBUG`` env var;
-- :func:`wall_timer`: a host wall-clock timer.
+  where there is a device) and write a Chrome trace into a directory.
 
-Nothing in the render or the trainer calls these: a caller wraps what it
-wants to see.
+``utils.step_graph.StepGraph`` installs a collector of its own for each
+capture (the graph owns its spans) and for each eager step, and gives the
+last run's spans (:meth:`Collector.read`).
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
-import os
 import time
+from typing import NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-logger = logging.getLogger("gausplat.renderer.gaussian_3d")
-logger_scene = logger.getChild("scene")
-logger_forward = logger.getChild("forward")
-logger_backward = logger.getChild("backward")
+_timing = False
+_collector: Optional["Collector"] = None
+#: A stage's record on the host under a profiler: an operator's scope.
+_host_record = torch._C._profiler._RecordFunctionFast
 
-_DEBUG = bool(os.environ.get("GAUSPLAT_DEBUG"))
+
+def timing_on() -> bool:
+    """Whether stage timing is on."""
+    return _timing
 
 
 @contextlib.contextmanager
-def stage(name: str):
-    """Named scope for a pipeline stage (in profiler traces and, on a CUDA
-    device, as an NVTX range). A CPU build of torch has no NVTX, so the
-    range is pushed only where CUDA is available."""
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+def stage_timing(on: bool = True):
+    """Stage timing on (or, with ``on`` false, off) inside the block."""
+    global _timing
+    before, _timing = _timing, on
+    try:
+        yield
+    finally:
+        _timing = before
 
 
-def log_stage(which: logging.Logger, message: str) -> None:
-    if _DEBUG:
-        which.debug(message)
+class Span(NamedTuple):
+    """One span of a run, in ms from the start of the run's first span.
+    ``parent``: the index of the span it lies in (None at the top);
+    ``stream``: the CUDA stream it was recorded on (None on a CPU)."""
+
+    name: str
+    parent: Optional[int]
+    stream: Optional[int]
+    start_ms: float
+    end_ms: float
+
+
+class Collector:
+    """The spans of one run of a step: each stage's name, its parent (the
+    stage open around it on the host when it began) and stream, and its
+    start and end stamps, CUDA events on a CUDA ``device``, host clock
+    readings otherwise."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._spans = []  # [name, parent, stream, start, end]
+        self._open = []
+
+    def _stamp(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True, external=True)
+        event.record()
+        return event
+
+    def begin(self, name: str) -> int:
+        parent = self._open[-1] if self._open else None
+        stream = torch.cuda.current_stream().stream_id if self.cuda else None
+        self._spans.append([name, parent, stream, self._stamp(), None])
+        self._open.append(len(self._spans) - 1)
+        return self._open[-1]
+
+    def end(self, index: int) -> None:
+        self._spans[index][4] = self._stamp()
+        self._open.remove(index)
+
+    def read(self) -> list:
+        """The spans as :class:`Span` rows, in the order they began. On the
+        card, after a synchronise on each end event, so a graph's spans are
+        those of its last replay."""
+        if not self._spans:
+            return []
+        origin = self._spans[0][3]
+        if not self.cuda:
+            return [Span(n, p, s, (a - origin) * 1e3, (b - origin) * 1e3)
+                    for n, p, s, a, b in self._spans]
+        for span in self._spans:
+            span[4].synchronize()
+        return [Span(n, p, s, origin.elapsed_time(a), origin.elapsed_time(b))
+                for n, p, s, a, b in self._spans]
+
+
+@contextlib.contextmanager
+def collecting(collector: Optional[Collector]):
+    """``collector`` installed for the block (None: no collector); the
+    stages inside it are its spans."""
+    global _collector
+    before, _collector = _collector, collector
+    try:
+        yield collector
+    finally:
+        _collector = before
+
+
+class stage:
+    """``with stage(name):`` a named scope: a host record where a
+    profiler is active, a span of the installed collector where stage
+    timing put one in place. Composes with autograd; a stage in an
+    autograd ``Function``'s backward is seen from the engine's thread too."""
+
+    __slots__ = ("name", "_record", "_collector", "_span")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._record = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._record = _host_record(self.name)
+            self._record.__enter__()
+        self._collector = _collector
+        if self._collector is not None:
+            self._span = self._collector.begin(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self._collector is not None:
+            self._collector.end(self._span)
+        if self._record is not None:
+            self._record.__exit__(*exc)
+        return False
 
 
 @contextlib.contextmanager
@@ -68,14 +171,3 @@ def trace(log_dir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(str(log_dir))) as prof:
         yield prof
-
-
-@contextlib.contextmanager
-def wall_timer(label: str, results: dict | None = None):
-    """Host wall-clock timer (CUDA work is asynchronous: synchronise first)."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if results is not None:
-        results[label] = dt
-    log_stage(logger, f"{label}: {dt * 1000:.2f} ms")

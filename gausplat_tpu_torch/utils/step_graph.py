@@ -34,21 +34,33 @@ collectives in the same order: a rank that recaptures while another
 replays waits for it forever. The key's addresses are each process's own,
 so such a caller passes ``any_miss``, which makes the miss the ranks'
 common decision.
+
+**Stages.** With stage timing on (``utils.profiling.stage_timing``), a
+capture installs a collector of its own, so the graph holds an event-record
+node at each end of each stage of the step and every replay stamps them
+anew; an eager step (the warm-up, a CPU step) has a collector of its own.
+:meth:`StepGraph.spans` reads the last run's spans. The switch is part of
+the key: turning it on or off misses once.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence
 
 import torch
 
 from .kernels import captured_launches, count_replay
+from .profiling import Collector, collecting, stage, timing_on
 
 
 def address_key(static_key, tensors: Sequence[torch.Tensor]) -> tuple:
-    """A graph's key: ``static_key`` and the address, shape and type of
-    each of ``tensors``, which a replay reads and writes."""
-    return (static_key, tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors))
+    """A graph's key: ``static_key``, whether stage timing is on (a graph
+    captured with it holds the stages' event records), and the address,
+    shape and type of each of ``tensors``, which a replay reads and
+    writes."""
+    return (static_key, timing_on(),
+            tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors))
 
 
 def decide_miss(key, held, any_miss: Optional[Callable[[bool], bool]] = None) -> bool:
@@ -61,8 +73,11 @@ def decide_miss(key, held, any_miss: Optional[Callable[[bool], bool]] = None) ->
 
 class StepGraph:
     """A step function captured as one CUDA graph, replayed while its key
-    holds. ``captures`` counts the captures made, ``replays`` the replays,
-    ``by_replay`` each kernel's launches made by replays, over every
+    holds. Over its life: ``misses`` counts the misses of the key,
+    ``eager_steps`` the steps run eagerly (each miss's warm-up, every step
+    on a CPU device or without capture), ``captures`` the captures,
+    ``replays`` the replays, ``by_replay`` each kernel's launches made by
+    replays; ``miss_ms`` holds the host ms of the last warm-up and
     capture."""
 
     def __init__(self):
@@ -70,13 +85,25 @@ class StepGraph:
         self.graph = None
         self.launches = {}
         self._held = ()
+        self.misses = 0
+        self.eager_steps = 0
         self.captures = 0
         self.replays = 0
         self.by_replay = {}
+        self.miss_ms = {}
+        self._captured = None  # the capture's collector, where stage timing was on
+        self._last = None  # the collector of the last step run
 
     def invalidate(self) -> None:
-        """Free the graph, its memory pool and the tensors it held."""
+        """Free the graph, its memory pool and the tensors it held (the
+        graph before the events its nodes record)."""
         self.key, self.graph, self.launches, self._held = None, None, {}, ()
+        self._captured = self._last = None
+
+    def spans(self) -> list:
+        """The stage spans (``profiling.Span``) of the last step run,
+        replayed or eager; empty where stage timing was off for it."""
+        return [] if self._last is None else self._last.read()
 
     def run(self, step: Callable[[], None], static_key, tensors: Sequence[torch.Tensor],
             steps: int, capture: bool = True,
@@ -94,23 +121,39 @@ class StepGraph:
         device = tensors[0].device
         if device.type != "cuda" or not capture:
             for _ in range(steps):
-                step()
+                self._eager(step, device)
             return
         key = address_key(static_key, tensors)
         if decide_miss(key, self.key, any_miss):
+            self.misses += 1
             self.invalidate()
-            self.warm_up(step, device)
+            start = time.perf_counter()
+            with stage("step_graph.warm_up"):
+                self._eager(lambda: self.warm_up(step, device), device)
+            self.miss_ms = {"warm_up_ms": (time.perf_counter() - start) * 1e3}
             self.key, self._held = key, tuple(tensors)
             steps -= 1
         if steps and self.graph is None:
+            start = time.perf_counter()
             self.capture(step, device)
+            self.miss_ms["capture_ms"] = (time.perf_counter() - start) * 1e3
         for _ in range(steps):
             self.replay()
+
+    def _eager(self, step: Callable[[], None], device) -> None:
+        """``step`` run eagerly, with a collector of its own where stage
+        timing is on."""
+        self._last = Collector(device) if timing_on() else None
+        with collecting(self._last):
+            step()
+        self.eager_steps += 1
 
     def replay(self) -> None:
         """One replay of the captured step, with its kernels' launches
         counted."""
-        self.graph.replay()
+        with stage("step_graph.replay"):
+            self.graph.replay()
+        self._last = self._captured
         count_replay(self.launches)
         self.replays += 1
         for kernel, n in self.launches.items():
@@ -133,8 +176,10 @@ class StepGraph:
         (``torch.cuda.graph_pool_handle()``) shared with other graphs that
         replay in turn with this one, as a forward and its backward do."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(device):
-            with captured_launches() as launches, torch.cuda.graph(graph, pool=pool):
+        collector = Collector(device) if timing_on() else None
+        with stage("step_graph.capture"), torch.cuda.device(device):
+            with captured_launches() as launches, torch.cuda.graph(graph, pool=pool), \
+                    collecting(collector):
                 step()
-        self.graph, self.launches = graph, launches
+        self.graph, self.launches, self._captured = graph, launches, collector
         self.captures += 1

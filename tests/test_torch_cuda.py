@@ -85,8 +85,8 @@ from gausplat_tpu_torch.testing import adversarial_entries
 # By module name (pytest puts tests/ on the path), as test_rasterize.py
 # imports ``oracle``: a machine may have another top-level ``tests``.
 from torch_helpers import (  # noqa: F401  (cuda_device is a fixture)
-    DENSIFY, EXPAND_WORKLOADS, MEDIUM, SMALL, TRAIN_SCHEDULE, cuda_device, port_view,
-    scene_arrays, train_arrays,
+    DENSIFY, EXPAND_WORKLOADS, MEDIUM, RENDER_STAGES, SMALL, TRAIN_SCHEDULE, TRAIN_TREE,
+    cuda_device, port_view, scene_arrays, stage_tree, train_arrays,
 )
 
 pytestmark = pytest.mark.cuda
@@ -613,6 +613,18 @@ def _serving_setup(device, seed=5):
     return scene, views, T.RenderOptions(tile_entry_capacity=2048, block_size=64)
 
 
+def _released(name, device):
+    """Entry point ``name``'s serving graph, released, and a function that
+    gives its captures and replays since the release (a release keeps the
+    counts)."""
+    from gausplat_tpu_torch.render.views_graph import views_graph
+
+    graph = views_graph(name, device)
+    graph.release()
+    step, before = graph.graph, (graph.graph.captures, graph.graph.replays)
+    return graph, lambda: (step.captures - before[0], step.replays - before[1])
+
+
 def _singles(scene, views, options):
     from gausplat_tpu_torch.render.pipeline import _render_eager
 
@@ -623,17 +635,14 @@ def _singles(scene, views, options):
 
 @pytest.mark.parametrize("mode", ["vmap", "map"])
 def test_render_views_graph_matches_render(mode, cuda_device):
-    from gausplat_tpu_torch.render.views_graph import views_graph
-
     scene, views, options = _serving_setup(cuda_device)
-    graph = views_graph("render_views", cuda_device)
-    graph.release()
+    graph, since = _released("render_views", cuda_device)
     want = _singles(scene, views, options)
     calls = []
     with torch.no_grad():
         for _ in range(4):  # the warm-up, the capture, two replays
             out, launches = _counted(lambda: T.render_views(scene, views, options, mode=mode))
-            calls.append((out, launches, graph.graph.captures, graph.graph.replays))
+            calls.append((out, launches, *since()))
     assert [c[2:] for c in calls] == [(0, 0), (1, 1), (1, 2), (1, 3)]
     for out, launches, _, _ in calls:
         assert launches == [2, 2, 0]  # B and A once a view, replays counted
@@ -644,30 +653,27 @@ def test_render_views_graph_matches_render(mode, cuda_device):
     kept = [t.clone() for t in calls[3][0]]
     with torch.no_grad():
         other = T.render_views(scene, views[::-1], options, mode=mode)
-    assert graph.graph.replays == 4 and torch.equal(other.colors_rgb_2d[0], want[0][1])
+    assert since()[1] == 4 and torch.equal(other.colors_rgb_2d[0], want[0][1])
     assert all(torch.equal(a, b) for a, b in zip(calls[3][0], kept))
 
 
 def test_render_views_graph_sees_in_place_updates_and_recaptures_for_setters(cuda_device):
-    from gausplat_tpu_torch.render.views_graph import views_graph
-
     scene, views, options = _serving_setup(cuda_device)
-    graph = views_graph("render_views", cuda_device)
-    graph.release()
+    graph, since = _released("render_views", cuda_device)
     with torch.no_grad():
         for _ in range(2):
             T.render_views(scene, views, options)
         scene.positions.add_(0.05)
         moved = T.render_views(scene, views, options)
-        assert (graph.graph.captures, graph.graph.replays) == (1, 2)
+        assert since() == (1, 2)
         for field, got, single in zip(moved._fields, moved, _singles(scene, views, options)):
             assert torch.equal(got, single), field
         _replay_strict(graph.graph)  # a replay reads nothing back
         moved_scene = scene.set_opacities(scene.get_opacities() * 0.5)
         first = T.render_views(moved_scene, views, options)  # a miss: the warm-up
-        assert (graph.graph.captures, graph.graph.replays) == (1, 3)
+        assert since() == (1, 3)
         second = T.render_views(moved_scene, views, options)
-        assert (graph.graph.captures, graph.graph.replays) == (2, 4)
+        assert since() == (2, 4)
     want = _singles(moved_scene, views, options)
     for out in (first, second):
         assert all(torch.equal(got, w) for got, w in zip(out, want))
@@ -676,10 +682,7 @@ def test_render_views_graph_sees_in_place_updates_and_recaptures_for_setters(cud
 def test_render_views_graph_keeps_one_pool(cuda_device):
     import gc
 
-    from gausplat_tpu_torch.render.views_graph import views_graph
-
-    graph = views_graph("render_views", cuda_device)
-    graph.release()
+    graph, since = _released("render_views", cuda_device)
     scenes = [_serving_setup(cuda_device, seed)[0] for seed in (5, 6, 7)]
     _, views, options = _serving_setup(cuda_device)
 
@@ -696,7 +699,7 @@ def test_render_views_graph_keeps_one_pool(cuda_device):
             for _ in range(2):
                 T.render_views(scene, views, options, mode="vmap")
             after.append(reserved())
-    assert graph.graph.captures == 3
+    assert since()[0] == 3
     assert after[2] - base < 2 * (after[0] - base), (base, after)
     del scenes, scene
     gc.collect()
@@ -707,7 +710,6 @@ def test_nccl_serving_is_captured_and_matches_eager(nccl_mesh, cuda_device):
     from gausplat_tpu_torch.parallel import (
         render_data_parallel, render_tile_sharded, stack_cameras,
     )
-    from gausplat_tpu_torch.render.views_graph import views_graph
 
     scene, views, options = _serving_setup(cuda_device)
     cameras = stack_cameras(views, device=cuda_device)
@@ -718,13 +720,12 @@ def test_nccl_serving_is_captured_and_matches_eager(nccl_mesh, cuda_device):
             scene, views[1], nccl_mesh, "tiles", options),
     }
     for name, call in cases.items():
-        graph = views_graph(name, cuda_device)
-        graph.release()
+        graph, since = _released(name, cuda_device)
         want = call()  # grad needed: the eager call
         assert want.colors_rgb_2d.requires_grad
         with torch.no_grad():
             outs = [call() for _ in range(3)]
-        assert (graph.graph.captures, graph.graph.replays) == (1, 2), name
+        assert since() == (1, 2), name
         for out in outs:
             for field, got, w in zip(out._fields, out, want):
                 assert torch.equal(got, w.detach()), (name, field)
@@ -733,19 +734,11 @@ def test_nccl_serving_is_captured_and_matches_eager(nccl_mesh, cuda_device):
         graph.release()  # before the fixture's process group goes
 
 
-def _entry_graph(name, device):
-    from gausplat_tpu_torch.render.views_graph import views_graph
-
-    graph = views_graph(name, device)
-    graph.release()
-    return graph
-
-
 def test_render_graph_matches_the_eager_render(cuda_device):
     from gausplat_tpu_torch.render.pipeline import _render_eager
 
     scene, views, options = _serving_setup(cuda_device)
-    graph = _entry_graph("render", cuda_device)
+    graph, since = _released("render", cuda_device)
     ref = torch.linspace(0.5, 2.0, scene.point_count, device=cuda_device)  # read by no output
     calls = []
     with torch.no_grad():
@@ -756,7 +749,7 @@ def test_render_graph_matches_the_eager_render(cuda_device):
             for field, got, w in zip(out._fields, out, want):
                 assert got.shape == w.shape and torch.equal(got, w), field
             assert all(t.data_ptr() != s.data_ptr() for t, s in zip(out, graph.outputs))
-            calls.append((launches, graph.graph.captures, graph.graph.replays))
+            calls.append((launches, *since()))
     assert calls == [([1, 1, 0], 0, 0), ([1, 1, 0], 1, 1), ([1, 1, 0], 1, 2),
                      ([1, 1, 0], 1, 3)]
     _, launches = _counted(lambda: _replay_strict(graph.graph))  # reads nothing back
@@ -766,19 +759,19 @@ def test_render_graph_matches_the_eager_render(cuda_device):
     with torch.no_grad():
         for _ in range(2):
             out = T.render(other, views[1], options)
-    assert (graph.graph.captures, graph.graph.replays) == (2, 5)
+    assert since() == (2, 5)
     want = _render_eager(other, views[1], options)
     assert all(torch.equal(a, b.detach()) for a, b in zip(out, want))
     # Grad needed: the eager, differentiable render.
     out = T.render(other, views[1], options)
-    assert out.colors_rgb_2d.requires_grad and graph.graph.replays == 5
+    assert out.colors_rgb_2d.requires_grad and since()[1] == 5
 
 
 def test_entry_points_inside_a_capture_stay_eager(cuda_device, monkeypatch):
     from gausplat_tpu_torch.render import pipeline
 
     scene, views, options = _serving_setup(cuda_device)
-    graph = _entry_graph("render", cuda_device)
+    graph, since = _released("render", cuda_device)
     taken = []
 
     def eager(*args, **kwargs):  # records the call; a host copy could not be captured
@@ -797,21 +790,21 @@ def test_entry_points_inside_a_capture_stay_eager(cuda_device, monkeypatch):
     caller.replay()
     torch.cuda.synchronize()
     assert taken[1:] == [views[0]] and float(got) == 1.0
-    assert (graph.graph.captures, graph.graph.replays, graph.rows) == (0, 0, None)
+    assert (*since(), graph.rows) == (0, 0, None)
 
 
 def test_count_tile_entries_graph_matches_eager(cuda_device):
     from gausplat_tpu_torch.render.pipeline import _count_tile_entries_eager
 
     scene, views, options = _serving_setup(cuda_device)
-    graph = _entry_graph("count_tile_entries", cuda_device)
+    graph, since = _released("count_tile_entries", cuda_device)
     got = [T.count_tile_entries(scene, v, options) for v in (views[0], views[0], views[1])]
     want = [_count_tile_entries_eager(scene, v, options) for v in (views[0], views[0], views[1])]
     assert got == want and min(got) > 0
-    assert (graph.graph.captures, graph.graph.replays) == (1, 2)
+    assert since() == (1, 2)
     # calibrate_options counts through the same graph: a replay a view.
     calibrated = T.calibrate_options(scene, views, options)
-    assert graph.graph.replays == 4
+    assert since()[1] == 4
     assert calibrated.tile_entry_capacity >= max(want)
 
 
@@ -853,6 +846,121 @@ def test_fit_through_graphs_matches_the_eager_fit(cuda_device, deterministic_cud
     assert (graph.captures, graphed._graph.captures) == counts and graph.replays == replays + 1
     _, launches = _counted(lambda: _replay_strict(graph))
     assert launches == [1, 1, 1]
+
+
+def _stage_trainer(device, points=20_000, width=320, height=240):
+    """A trainer with no host event in reach, one view and its target, at a
+    size where a step's device time is milliseconds."""
+    from gausplat_tpu_torch import train as TT
+
+    view = port_view(width, height)
+    options = T.RenderOptions(tile_entry_capacity=1 << 20, block_size=256)
+    target_scene = T.GaussianScene.from_numpy(**train_arrays(points, 5), device=device)
+    with torch.no_grad():
+        target = T.render(target_scene, view, options).colors_rgb_2d
+    scene = T.GaussianScene.from_numpy(**train_arrays(points, 9), device=device)
+    options = T.calibrate_options(scene, view, options, margin=1.5)
+    config = TT.TrainConfig(render=options, densify_until=0, sh_warmup_interval=10**6,
+                            overflow_check_interval=10**6)
+    return TT.Trainer(scene, width, height, config), view, target
+
+
+def test_captured_train_step_times_its_stages(cuda_device):
+    from gausplat_tpu_torch.utils.profiling import stage_timing
+
+    trainer, view, target = _stage_trainer(cuda_device)
+    graph = trainer._step_graph
+    with stage_timing():
+        for _ in range(3):  # the miss's eager step, the capture and a replay, a replay
+            trainer.train_step(view, target)
+        assert (graph.misses, graph.eager_steps, graph.captures, graph.replays) == (1, 1, 1, 2)
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+        def replay():  # one graph launch, nothing read back
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                begin.record()
+                graph.replay()
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        _, launches = _counted(replay)
+    assert launches == [1, 1, 1] and graph.replays == 3
+    spans = graph.spans()
+    assert stage_tree(spans) == TRAIN_TREE
+    for s in spans[1:]:
+        parent = spans[s.parent]
+        assert parent.start_ms <= s.start_ms <= s.end_ms <= parent.end_ms, (s, parent)
+    step_ms = spans[0].end_ms - spans[0].start_ms
+    covered = sum(s.end_ms - s.start_ms for s in spans if s.parent == 0)
+    assert covered >= 0.95 * step_ms, (covered, step_ms)
+    replay_ms = begin.elapsed_time(end)
+    assert abs(step_ms - replay_ms) <= 0.02 * replay_ms, (step_ms, replay_ms)
+
+
+def test_captured_step_without_timing_records_no_stage_event(cuda_device):
+    from gausplat_tpu_torch.utils.profiling import stage_timing
+
+    trainer, view, target = _stage_trainer(cuda_device, points=2_000, width=128, height=96)
+    graph = trainer._step_graph
+    for _ in range(3):
+        trainer.train_step(view, target)
+    assert graph.captures == 1 and graph._captured is None and graph.spans() == []
+    with stage_timing():  # the switch is keyed: a miss, then a capture with its events
+        for _ in range(2):
+            trainer.train_step(view, target)
+    assert (graph.misses, graph.captures) == (2, 2) and graph._captured is not None
+    assert stage_tree(graph.spans()) == TRAIN_TREE
+
+
+def test_served_views_time_their_stages_on_their_streams(cuda_device):
+    from gausplat_tpu_torch.utils.profiling import stage_timing
+
+    scene, views, options = _serving_setup(cuda_device)
+    graph, since = _released("render_views", cuda_device)
+    with torch.no_grad(), stage_timing():
+        for _ in range(3):  # the warm-up, the capture and a replay, a replay
+            T.render_views(scene, views, options, mode="vmap")
+    assert since()[1] == 2
+    spans = graph.graph.spans()
+    assert stage_tree(spans) == [("serve.request", None)] + [
+        (name, "serve.request") for name in RENDER_STAGES * 2]
+    request, view_spans = spans[0], spans[1:]
+    streams = [s.stream for s in view_spans]
+    assert streams[:3] == [streams[0]] * 3 and streams[3:] == [streams[3]] * 3
+    assert len({request.stream, streams[0], streams[3]}) == 3
+    for i, s in enumerate(view_spans):
+        assert request.start_ms <= s.start_ms <= s.end_ms <= request.end_ms, s
+        if i % 3:
+            assert s.start_ms >= view_spans[i - 1].end_ms, s
+
+
+def test_views_graph_release_keeps_the_counts(cuda_device):
+    from gausplat_tpu_torch.render.views_graph import views_graph
+
+    scene, views, options = _serving_setup(cuda_device)
+    graph = views_graph("render_views", cuda_device)
+    graph.release()
+    step_graph = graph.graph
+    before = (step_graph.misses, step_graph.eager_steps, step_graph.captures,
+              step_graph.replays)
+
+    def counts():
+        return tuple(n - b for n, b in zip((step_graph.misses, step_graph.eager_steps,
+                                            step_graph.captures, step_graph.replays), before))
+
+    with torch.no_grad():
+        for _ in range(3):
+            T.render_views(scene, views, options)
+        assert counts() == (1, 1, 1, 2)
+        graph.release()
+        assert graph.graph is step_graph and counts() == (1, 1, 1, 2)
+        for _ in range(2):
+            T.render_views(scene, views, options)
+    assert counts() == (2, 2, 2, 3)
+    assert set(step_graph.miss_ms) == {"warm_up_ms", "capture_ms"}
 
 
 def test_train_step_batch_graph_matches_the_eager_step(cuda_device, deterministic_cudnn):

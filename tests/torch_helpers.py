@@ -61,6 +61,28 @@ TRAIN_SCHEDULE = dict(densify_from=4, densify_until=11, densify_interval=5,
                       overflow_check_interval=7)
 DENSIFY = dict(grad_threshold=0.014, percent_dense=0.2)
 
+#: A training step's stages (``gausplat_tpu_torch.utils.profiling``), each
+#: with its parent, in the order they begin.
+TRAIN_TREE = [
+    ("train.step", None),
+    ("render.project", "train.step"),
+    ("render.bin", "train.step"),
+    ("render.rasterize", "train.step"),
+    ("train.loss", "train.step"),
+    ("train.backward", "train.step"),
+    ("render.rasterize_vjp", "train.backward"),
+    ("render.rasterize_bwd", "render.rasterize_vjp"),
+    ("render.reduce", "render.rasterize_vjp"),
+    ("train.adam", "train.step"),
+]
+#: A render's stages, in order.
+RENDER_STAGES = ["render.project", "render.bin", "render.rasterize"]
+
+
+def stage_tree(spans):
+    """Each span's name with its parent's (None at the top)."""
+    return [(s.name, None if s.parent is None else spans[s.parent].name) for s in spans]
+
 
 def views(width, height, position=(0.0, 0.0, -4.0), rotation=None):
     """The same camera as a (JAX View, port View) pair. ``rotation`` is the
